@@ -1,0 +1,79 @@
+"""Rotated anchor generation, built on the target device.
+
+Port of `AnchorGeneratorRotated` in
+`jdet_tpu/models/boxes/anchor_generator.py` (:27, `_gen_base_anchors`
+:69, `grid_anchors` :103): base_size x scales x ratios x angles, anchors
+(cx, cy, w, h, theta) centred at 0.5*(base-1) plus the grid shifts, in
+(H, W, A) order.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class AnchorGeneratorRotated:
+    """w = base*scale/sqrt(ratio), h = base*scale*sqrt(ratio)."""
+
+    def __init__(
+        self,
+        base_size,
+        scales=None,
+        ratios=(1.0,),
+        angles=(0.0,),
+        octave_base_scale=None,
+        scales_per_octave=None,
+        ctr=None,
+    ):
+        self.base_size = base_size
+        self.ratios = np.asarray(ratios, np.float32)
+        self.angles = np.asarray(angles, np.float32)
+        self.ctr = ctr
+        if scales is not None:
+            self.scales = np.asarray(scales, np.float32)
+        elif octave_base_scale is not None and scales_per_octave is not None:
+            self.scales = np.asarray(
+                [
+                    octave_base_scale * 2 ** (i / scales_per_octave)
+                    for i in range(scales_per_octave)
+                ],
+                np.float32,
+            )
+        else:
+            raise ValueError("need scales or octave scales")
+        self.base_anchors = self._gen_base_anchors()
+
+    @property
+    def num_base_anchors(self):
+        return self.base_anchors.shape[0]
+
+    def _gen_base_anchors(self):
+        w = h = float(self.base_size)
+        if self.ctr is None:
+            x_ctr = 0.5 * (w - 1)
+            y_ctr = 0.5 * (h - 1)
+        else:
+            x_ctr, y_ctr = self.ctr
+        h_ratios = np.sqrt(self.ratios)
+        w_ratios = 1.0 / h_ratios
+        ones = np.ones_like(self.angles)[None, None, :]
+        ws = (w * w_ratios[:, None, None] * self.scales[None, :, None]
+              * ones).reshape(-1)
+        hs = (h * h_ratios[:, None, None] * self.scales[None, :, None]
+              * ones).reshape(-1)
+        angles = np.tile(self.angles, len(self.scales) * len(self.ratios))
+        return np.stack(
+            [np.full_like(ws, x_ctr), np.full_like(ws, y_ctr), ws, hs, angles],
+            axis=-1,
+        ).astype(np.float32)
+
+    def grid_anchors(self, featmap_size, stride, device="cuda"):
+        """(H*W*A, 5) float32 anchors for a feature map, on `device`."""
+        feat_h, feat_w = featmap_size
+        sx = torch.arange(feat_w, dtype=torch.float32, device=device) * stride
+        sy = torch.arange(feat_h, dtype=torch.float32, device=device) * stride
+        shifts = torch.zeros(feat_h, feat_w, 5, device=device)
+        shifts[..., 0] = sx[None, :]
+        shifts[..., 1] = sy[:, None]
+        base = torch.as_tensor(self.base_anchors, device=device)
+        return (shifts.reshape(-1, 1, 5) + base[None]).reshape(-1, 5)

@@ -1,0 +1,89 @@
+"""Anchor targets — assign, sample, encode, weight — in fixed shapes.
+
+Port of the rotated, pseudo-sampler branch of
+`jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single` :37,
+`anchor_target_batch` :148). The reference vmaps the single-image
+function over the batch; here `anchor_target_single` takes any leading
+batch dimensions, so `anchor_target_batch` calls it once and the IoU
+kernel runs once for all images.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops.box_convert import rbox2delta
+from .assigner import max_iou_assign_rotated
+from .sampler import pseudo_sample
+
+
+def anchor_target_single(
+    anchors,
+    valid_flags,
+    gt_bboxes,
+    gt_mask,
+    gt_labels,
+    *,
+    target_means=(0.0,) * 5,
+    target_stds=(1.0,) * 5,
+    assigner_cfg=None,
+    pos_weight=-1,
+    iou_chunk=512,
+):
+    """Targets for gt_bboxes (..., k, 5) padded, gt_mask (..., k) bool and
+    gt_labels (..., k) 1-based, against shared anchors (n, 5) with
+    valid_flags (n,) bool. Invalid anchors are excluded before assignment:
+    they can neither be argmax targets nor receive low-quality gt claims.
+
+    Returns a dict of (..., n) labels / label_weights / pos_mask /
+    neg_mask / gt_inds and (..., n, 5) bbox_targets / bbox_weights.
+    """
+    assigner_cfg = dict(assigner_cfg or {})
+    assigner_type = assigner_cfg.pop("type", "max_iou")
+    if assigner_type != "max_iou":
+        raise NotImplementedError(f"assigner {assigner_type!r} is not ported")
+    assign = max_iou_assign_rotated(
+        anchors, gt_bboxes, gt_mask, gt_labels,
+        anchor_mask=valid_flags, iou_chunk=iou_chunk, **assigner_cfg
+    )
+    gt_inds = assign["gt_inds"]
+    sample = pseudo_sample(assign)
+    pos_mask = sample["pos_mask"]
+    neg_mask = sample["neg_mask"]
+
+    k = gt_bboxes.shape[-2]
+    safe_gt = (gt_inds - 1).clamp(0, k - 1)
+    matched_gt = torch.gather(
+        gt_bboxes, -2, safe_gt[..., None].expand(*safe_gt.shape, 5)
+    )
+    deltas = rbox2delta(anchors, matched_gt, target_means, target_stds)
+    bbox_targets = torch.where(pos_mask[..., None], deltas, 0.0)
+    bbox_weights = pos_mask[..., None].to(bbox_targets.dtype).expand_as(
+        bbox_targets
+    )
+
+    labels = torch.where(pos_mask, assign["labels"], 0)
+    pw = 1.0 if pos_weight <= 0 else pos_weight
+    label_weights = torch.where(
+        pos_mask, pw, torch.where(neg_mask, 1.0, 0.0)
+    )
+    return {
+        "labels": labels,
+        "label_weights": label_weights,
+        "bbox_targets": bbox_targets,
+        "bbox_weights": bbox_weights,
+        "pos_mask": pos_mask,
+        "neg_mask": neg_mask,
+        "gt_inds": gt_inds,
+    }
+
+
+def anchor_target_batch(anchors, valid_flags, gt_bboxes, gt_mask, gt_labels, **kw):
+    """Targets for a batch: gt_* are (B, k, ...) per image, anchors and
+    valid_flags shared. Also returns num_total_pos / num_total_neg, each
+    the sum over images of max(per-image count, 1)."""
+    out = anchor_target_single(
+        anchors, valid_flags, gt_bboxes, gt_mask, gt_labels, **kw
+    )
+    num_total_pos = out["pos_mask"].sum(dim=-1).clamp(min=1).sum()
+    num_total_neg = out["neg_mask"].sum(dim=-1).clamp(min=1).sum()
+    return out, num_total_pos, num_total_neg

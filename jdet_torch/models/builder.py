@@ -1,0 +1,48 @@
+"""Config-driven model construction.
+
+Port of `jdet_tpu/models/builder.py::build_detector` (:22-94) for
+single-stage detectors: {type, backbone{type, ...}, neck{...},
+bbox_head{...}} assembled through the registries, weights drawn from one
+seeded `torch.Generator` on the CPU, then moved to `device`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.registry import BACKBONES, HEADS, MODELS, NECKS, build_from_cfg
+from .convert import load_pretrained_backbone
+
+# imports for registration side effects
+from . import backbones as _backbones  # noqa: F401
+from . import detectors as _detectors  # noqa: F401
+from . import heads as _heads  # noqa: F401
+from . import necks as _necks  # noqa: F401
+
+
+def build_detector(cfg, device="cuda", seed=0, load_pretrained=True):
+    """Build a detector from a model config dict on `device`.
+
+    load_pretrained=False skips `backbone.pretrained` (random weights from
+    `seed`). The default device is the card: it raises where CUDA is
+    missing instead of quietly running on the CPU; pass device="cpu" to
+    run there.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_detector: device 'cuda' requested but CUDA is not "
+            "available; pass device='cpu' to build on the CPU"
+        )
+    generator = torch.Generator().manual_seed(seed)
+    cfg = dict(cfg)
+    bcfg = dict(cfg.pop("backbone"))
+    pretrained = bcfg.pop("pretrained", None)
+    backbone = build_from_cfg(bcfg, BACKBONES, generator=generator)
+    if pretrained and load_pretrained:
+        load_pretrained_backbone(backbone, pretrained)
+    neck = build_from_cfg(cfg.pop("neck", None), NECKS, generator=generator,
+                          in_channels=backbone.out_channels)
+    bbox_head = build_from_cfg(cfg.pop("bbox_head"), HEADS, generator=generator)
+    model = build_from_cfg(cfg, MODELS, backbone=backbone, neck=neck,
+                           bbox_head=bbox_head)
+    return model.to(device)

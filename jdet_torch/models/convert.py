@@ -1,0 +1,70 @@
+"""Weight bridge: parameters of the JAX model -> a torch state_dict.
+
+The input is keyed by the JAX model's flat parameter paths, as
+`jdet_tpu.models.pretrained.flat_paths` (`pretrained.py:47`) produces
+them, with numpy arrays as values. The port's module attribute names
+mirror those paths, so the mapping is mechanical:
+
+  <p>.kernel (H, W, I, O)   -> <p>.weight (O, I, H, W)   (inverse of conv_w)
+  <p>.bias                  -> <p>.bias
+  <p>.scale / .mean / .var  -> <p>.weight / .running_mean / .running_var
+                               (+ <p>.num_batches_tracked = 0)
+"""
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+import torch
+
+_BN_RENAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def params_from_jax(flat):
+    """{jax flat path: np.ndarray} -> torch state_dict (CPU tensors)."""
+    sd = {}
+    for path, arr in flat.items():
+        prefix, _, leaf = path.rpartition(".")
+        arr = np.asarray(arr)
+        if leaf == "kernel":
+            if arr.ndim != 4:
+                raise ValueError(f"{path}: expected an HWIO conv kernel, got {arr.shape}")
+            sd[f"{prefix}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+            )
+        elif leaf in _BN_RENAMES:
+            sd[f"{prefix}.{_BN_RENAMES[leaf]}"] = torch.from_numpy(arr.copy())
+            if leaf == "scale":
+                sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+        elif leaf == "bias":
+            sd[path] = torch.from_numpy(arr.copy())
+        else:
+            raise KeyError(f"{path}: no torch counterpart for '{leaf}'")
+    return sd
+
+
+def load_from_jax(module, flat):
+    """Strictly load JAX flat parameters into `module`: raises on any
+    missing or unexpected key, or a shape mismatch."""
+    module.load_state_dict(params_from_jax(flat), strict=True)
+    return module
+
+
+def load_pretrained_backbone(backbone, path):
+    """Load a backbone checkpoint converted by `tools/convert_weights.py`
+    (a pickle of {"meta", "model": {path: array}}, '/' or '.' separated).
+    Only files this repository's tools wrote may be passed: unpickling
+    can run code."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"backbone.pretrained={path!r} not found. Convert ImageNet "
+            "weights with `python tools/convert_weights.py --family "
+            f"<fam> --src <weights> --out {path}`, or build with "
+            "load_pretrained=False."
+        )
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    state = blob.get("model", blob) if isinstance(blob, dict) else blob
+    flat = {k.replace("/", "."): v for k, v in state.items()}
+    return load_from_jax(backbone, flat)

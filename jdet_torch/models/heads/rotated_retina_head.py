@@ -1,0 +1,247 @@
+"""Rotated RetinaNet head.
+
+Port of `jdet_tpu/models/heads/rotated_retina_head.py::RotatedRetinaHead`
+(:59; `forward_single` :149, `_flatten_outs` :178, `loss` :187 with the
+smooth-L1 branch of `_bbox_loss`, `predict` :357): 4-conv cls and reg
+towers, A anchors per location predicting (dx, dy, dw, dh, da) deltas and
+C = num_classes - 1 sigmoid class scores; max-IoU assignment on rotated
+IoU; focal + smooth-L1 losses averaged by the total positives; test-time
+per-level top-k -> decode -> multiclass rotated NMS, fixed output size.
+
+Head outputs are NCHW. Anchors run (H, W, A), so `_flatten_outs`
+permutes to NHWC before the reshape: channel a*C + c lands at anchor a,
+class c.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.box_convert import delta2rbox, rbox_to_poly
+from ...ops.nms_rotated import multiclass_nms_rotated
+from ...utils.registry import HEADS
+from ..boxes.anchor_generator import AnchorGeneratorRotated
+from ..boxes.anchor_target import anchor_target_batch
+from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init
+from ..losses import sigmoid_focal_loss, smooth_l1_loss
+
+DEFAULT_TRAIN_CFG = dict(
+    assigner=dict(
+        pos_iou_thr=0.5,
+        neg_iou_thr=0.4,
+        min_pos_iou=0.0,
+    ),
+    pos_weight=-1,
+)
+
+DEFAULT_TEST_CFG = dict(
+    nms_pre=2000,
+    score_thr=0.05,
+    nms_iou_thr=0.1,
+    max_per_img=2000,
+)
+
+
+@HEADS.register_module()
+class RotatedRetinaHead(nn.Module):
+    def __init__(
+        self,
+        num_classes,
+        in_channels,
+        feat_channels=256,
+        stacked_convs=4,
+        octave_base_scale=4,
+        scales_per_octave=3,
+        anchor_ratios=(1.0, 0.5, 2.0),
+        anchor_strides=(8, 16, 32, 64, 128),
+        anchor_base_sizes=None,
+        anchor_angles=(0.0,),
+        target_means=(0.0,) * 5,
+        target_stds=(1.0,) * 5,
+        loss_cls=dict(gamma=2.0, alpha=0.25, loss_weight=1.0),
+        loss_bbox=dict(beta=1.0 / 9.0, loss_weight=1.0),
+        train_cfg=None,
+        test_cfg=None,
+        *,
+        generator=None,
+    ):
+        super().__init__()
+        # num_classes includes background; sigmoid logits have
+        # num_classes - 1 channels
+        self.num_classes = num_classes
+        self.cls_out_channels = num_classes - 1
+        self.anchor_strides = tuple(anchor_strides)
+        self.target_means = tuple(target_means)
+        self.target_stds = tuple(target_stds)
+        self.loss_cls_cfg = dict(loss_cls)
+        self.loss_bbox_cfg = dict(loss_bbox)
+        if self.loss_bbox_cfg.get("type", "smooth_l1") != "smooth_l1":
+            raise NotImplementedError(
+                f"loss_bbox {self.loss_bbox_cfg['type']!r} is not ported"
+            )
+        self.train_cfg = {**DEFAULT_TRAIN_CFG, **(train_cfg or {})}
+        self.test_cfg = {**DEFAULT_TEST_CFG, **(test_cfg or {})}
+
+        base_sizes = (
+            list(anchor_strides) if anchor_base_sizes is None else anchor_base_sizes
+        )
+        self.anchor_generators = [
+            AnchorGeneratorRotated(
+                bs,
+                octave_base_scale=octave_base_scale,
+                scales_per_octave=scales_per_octave,
+                ratios=anchor_ratios,
+                angles=anchor_angles,
+            )
+            for bs in base_sizes
+        ]
+        self.num_anchors = self.anchor_generators[0].num_base_anchors
+
+        def tower():
+            return nn.ModuleList(
+                [
+                    ConvModule(in_channels if i == 0 else feat_channels,
+                               feat_channels, 3, kernel_init=normal_init(0.01),
+                               generator=generator)
+                    for i in range(stacked_convs)
+                ]
+            )
+
+        self.reg_convs = tower()
+        self.cls_convs = tower()
+        self.retina_reg = Conv2d(
+            feat_channels, self.num_anchors * 5, 1,
+            kernel_init=normal_init(0.01), generator=generator,
+        )
+        self.retina_cls = Conv2d(
+            feat_channels, self.num_anchors * self.cls_out_channels, 1,
+            kernel_init=normal_init(0.01),
+            bias_value=bias_init_with_prob(0.01), generator=generator,
+        )
+
+    # ------------------------------------------------------------------
+    def forward_single(self, x):
+        reg_feat = x
+        for conv in self.reg_convs:
+            reg_feat = conv(reg_feat)
+        cls_feat = x
+        for conv in self.cls_convs:
+            cls_feat = conv(cls_feat)
+        return self.retina_cls(cls_feat), self.retina_reg(reg_feat)
+
+    def forward(self, feats):
+        """[(cls (B, A*C, H, W), reg (B, A*5, H, W))] per level."""
+        return [self.forward_single(f) for f in feats]
+
+    # ------------------------------------------------------------------
+    def _flat_anchors(self, featmap_sizes, device):
+        return torch.cat(
+            [
+                gen.grid_anchors(tuple(fs), s, device=device)
+                for gen, fs, s in zip(
+                    self.anchor_generators, featmap_sizes, self.anchor_strides
+                )
+            ],
+            0,
+        )
+
+    def _flatten_outs(self, outs):
+        """[(cls NCHW, reg NCHW)] -> (B, A_total, C), (B, A_total, 5)."""
+        cls_list, reg_list = [], []
+        for cls, reg in outs:
+            b = cls.shape[0]
+            cls_list.append(
+                cls.permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
+            )
+            reg_list.append(reg.permute(0, 2, 3, 1).reshape(b, -1, 5))
+        return torch.cat(cls_list, 1), torch.cat(reg_list, 1)
+
+    def loss(self, outs, targets):
+        """Losses from head outputs. targets: gt_bboxes (B, K, 5),
+        gt_labels (B, K) 1-based, gt_mask (B, K) bool."""
+        featmap_sizes = [o[0].shape[-2:] for o in outs]
+        outs = [(c.float(), r.float()) for c, r in outs]
+        cls_scores, bbox_preds = self._flatten_outs(outs)
+        anchors = self._flat_anchors(featmap_sizes, cls_scores.device)
+
+        tcfg = self.train_cfg
+        tgt, num_pos, _ = anchor_target_batch(
+            anchors,
+            torch.ones(anchors.shape[0], dtype=torch.bool, device=anchors.device),
+            targets["gt_bboxes"].float(),
+            targets["gt_mask"].bool(),
+            targets["gt_labels"],
+            target_means=self.target_means,
+            target_stds=self.target_stds,
+            assigner_cfg=dict(tcfg["assigner"]),
+            pos_weight=tcfg.get("pos_weight", -1),
+        )
+        num_total = num_pos.clamp(min=1).to(cls_scores.dtype)
+        loss_cls = sigmoid_focal_loss(
+            cls_scores,
+            tgt["labels"],
+            weight=tgt["label_weights"],
+            gamma=self.loss_cls_cfg.get("gamma", 2.0),
+            alpha=self.loss_cls_cfg.get("alpha", 0.25),
+            avg_factor=num_total,
+        ) * self.loss_cls_cfg.get("loss_weight", 1.0)
+        loss_bbox = smooth_l1_loss(
+            bbox_preds,
+            tgt["bbox_targets"],
+            weight=tgt["bbox_weights"],
+            beta=self.loss_bbox_cfg.get("beta", 1.0 / 9.0),
+            avg_factor=num_total,
+        ) * self.loss_bbox_cfg.get("loss_weight", 1.0)
+        return {"loss_cls": loss_cls, "loss_bbox": loss_bbox}
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def predict(self, outs, targets=None):
+        """Fixed-shape batched detection at `self.test_cfg`.
+
+        Returns a dict of polys (B, max_per_img, 8), boxes
+        (B, max_per_img, 5), scores, labels (0-based fg, -1 where
+        invalid) and valid."""
+        cfg = self.test_cfg
+        nms_pre = cfg["nms_pre"]
+        level_scores, level_boxes = [], []
+        for lvl, (cls, reg) in enumerate(outs):
+            b = cls.shape[0]
+            scores = torch.sigmoid(
+                cls.float().permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
+            )
+            deltas = reg.float().permute(0, 2, 3, 1).reshape(b, -1, 5)
+            anchors = self.anchor_generators[lvl].grid_anchors(
+                tuple(cls.shape[-2:]), self.anchor_strides[lvl],
+                device=cls.device,
+            )
+            n_lvl = anchors.shape[0]
+            if 0 < nms_pre < n_lvl:
+                _, topk = scores.amax(-1).topk(nms_pre, dim=-1)
+                scores = torch.gather(
+                    scores, 1, topk[..., None].expand(-1, -1, scores.shape[-1])
+                )
+                deltas = torch.gather(deltas, 1, topk[..., None].expand(-1, -1, 5))
+                anchors_b = anchors[topk]
+            else:
+                anchors_b = anchors.expand(b, n_lvl, 5)
+            level_scores.append(scores)
+            level_boxes.append(
+                delta2rbox(anchors_b, deltas, self.target_means, self.target_stds)
+            )
+
+        all_scores = torch.cat(level_scores, 1)
+        all_boxes = torch.cat(level_boxes, 1)
+        if targets is not None and "scale_factor" in targets:
+            sf = targets["scale_factor"].reshape(-1, 1, 1).to(all_boxes)
+            all_boxes = torch.cat([all_boxes[..., :4] / sf, all_boxes[..., 4:]], -1)
+
+        det = multiclass_nms_rotated(
+            all_boxes,
+            all_scores,
+            score_thr=cfg["score_thr"],
+            nms_iou_thr=cfg["nms_iou_thr"],
+            max_per_img=cfg["max_per_img"],
+        )
+        det["polys"] = rbox_to_poly(det["boxes"])
+        return det

@@ -1,0 +1,139 @@
+"""Shared NN building bricks, NCHW.
+
+Port of `jdet_tpu/models/layers.py` (`bias_init_with_prob` :20,
+`normal_init` :26, `ConvModule` :30 with norm None or 'bn', `max_pool`
+:101 with SAME padding, `resize_nearest` :112) plus the `Conv2d` that
+stands in for flax's `nnx.Conv`.
+
+Flax's SAME padding is asymmetric under stride 2 (3x3/s2 on an even size
+pads (0, 1), 7x7/s2 on 1024 pads (2, 3)), while torch's `padding=k//2` is
+symmetric; `same_pads` computes flax's pads from the input size, and an
+asymmetric pad goes through `F.pad` before an unpadded conv or pool.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def bias_init_with_prob(prior_prob):
+    """Focal-loss style classification bias init."""
+    return float(-math.log((1 - prior_prob) / prior_prob))
+
+
+def normal_init(std=0.01):
+    """Initializer (tensor, generator) drawing from N(0, std^2)."""
+    def init(w, generator):
+        return nn.init.normal_(w, 0.0, std, generator=generator)
+
+    return init
+
+
+def lecun_normal_init(w, generator):
+    """Flax's default conv kernel init: truncated normal, variance
+    1/fan_in."""
+    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def same_pads(size, kernel, stride, dilation=1):
+    """(lo, hi) padding of flax/XLA 'SAME' along one spatial axis."""
+    out = -(-size // stride)
+    eff = (kernel - 1) * dilation + 1
+    total = max((out - 1) * stride + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Module):
+    """NCHW conv with flax 'SAME' padding; weight OIHW."""
+
+    def __init__(
+        self,
+        in_channels,
+        out_channels,
+        kernel_size,
+        stride=1,
+        bias=True,
+        kernel_init=lecun_normal_init,
+        bias_value=0.0,
+        *,
+        generator=None,
+    ):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        with torch.no_grad():
+            kernel_init(self.weight, generator)
+            if self.bias is not None:
+                self.bias.fill_(bias_value)
+
+    def forward(self, x):
+        ph = same_pads(x.shape[-2], self.kernel_size, self.stride)
+        pw = same_pads(x.shape[-1], self.kernel_size, self.stride)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            padding=(ph[0], pw[0]))
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight, self.bias, self.stride)
+
+
+def BatchNorm2d(channels):
+    """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1)."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class ConvModule(nn.Module):
+    """conv -> norm -> act. norm in {None, 'bn'}; act in {None, 'relu'}."""
+
+    def __init__(
+        self,
+        in_channels,
+        out_channels,
+        kernel_size,
+        *,
+        stride=1,
+        norm=None,
+        act="relu",
+        kernel_init=lecun_normal_init,
+        generator=None,
+    ):
+        super().__init__()
+        if norm not in (None, "bn"):
+            raise NotImplementedError(f"norm {norm!r} is not ported")
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
+                           bias=norm is None, kernel_init=kernel_init,
+                           generator=generator)
+        self.norm = BatchNorm2d(out_channels) if norm == "bn" else None
+        self.act = act
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.act == "relu":
+            x = F.relu(x)
+        return x
+
+
+def max_pool(x, window, stride):
+    """Max pool with flax 'SAME' padding (pads with -inf)."""
+    ph = same_pads(x.shape[-2], window, stride)
+    pw = same_pads(x.shape[-1], window, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+def resize_nearest(x, size):
+    """Nearest-neighbour resize of NCHW to (H, W) = size with half-pixel
+    centres (jax.image.resize's 'nearest'); integer upscales repeat."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="nearest-exact")

@@ -1,0 +1,101 @@
+"""Rotated-box codecs on tensors.
+
+Port of `jdet_tpu/ops/box_convert.py` (`norm_angle` :28, `rbox_to_poly`
+:103, `rbox_to_hbox` :149, `rbox2delta` :232, `delta2rbox` :257). All
+functions take arbitrary leading batch dimensions.
+
+Conventions: rbox = (cx, cy, w, h, theta) with theta in radians, canonical
+range [-pi/4, 3*pi/4); hbox = (x1, y1, x2, y2); poly = 4 corners
+(x0, y0, ..., x3, y3).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+PI = math.pi
+
+
+def norm_angle(angle, start=-PI / 4, rng=PI):
+    """Normalize angle into [start, start + rng).
+
+    `%` on a float tensor is `torch.remainder`, which takes the sign of the
+    divisor like Python's `%` (`torch.fmod` would not)."""
+    return (angle - start) % rng + start
+
+
+def rbox_to_poly(rboxes):
+    """(..., 5) rbox -> (..., 8) polygon: the rotation of
+    [(-w/2,-h/2), (w/2,-h/2), (w/2,h/2), (-w/2,h/2)] by theta, translated
+    to (cx, cy)."""
+    cx, cy, w, h, a = rboxes.split(1, dim=-1)
+    c, s = torch.cos(a), torch.sin(a)
+    dx = torch.cat([-w / 2, w / 2, w / 2, -w / 2], dim=-1)
+    dy = torch.cat([-h / 2, -h / 2, h / 2, h / 2], dim=-1)
+    xs = cx + c * dx - s * dy
+    ys = cy + s * dx + c * dy
+    return torch.stack([xs, ys], dim=-1).reshape(*rboxes.shape[:-1], 8)
+
+
+def rbox_to_hbox(rboxes):
+    """(..., 5) -> (..., 4) enclosing axis-aligned box."""
+    p = rbox_to_poly(rboxes)
+    xs = p[..., 0::2]
+    ys = p[..., 1::2]
+    return torch.stack(
+        [xs.amin(-1), ys.amin(-1), xs.amax(-1), ys.amax(-1)], dim=-1
+    )
+
+
+def rbox2delta(proposals, gt, means=(0.0,) * 5, stds=(1.0,) * 5):
+    """Rotated-box deltas in the proposal's local frame: dx/dy are the
+    center offset rotated into the proposal frame, da the normalized angle
+    difference / pi."""
+    pw = proposals[..., 2]
+    ph = proposals[..., 3]
+    pa = proposals[..., 4]
+    cosa = torch.cos(pa)
+    sina = torch.sin(pa)
+    ox = gt[..., 0] - proposals[..., 0]
+    oy = gt[..., 1] - proposals[..., 1]
+    dx = (cosa * ox + sina * oy) / pw
+    dy = (-sina * ox + cosa * oy) / ph
+    dw = torch.log(gt[..., 2].clamp(min=1e-6) / pw.clamp(min=1e-6))
+    dh = torch.log(gt[..., 3].clamp(min=1e-6) / ph.clamp(min=1e-6))
+    da = norm_angle(gt[..., 4] - pa) / PI
+    deltas = torch.stack([dx, dy, dw, dh, da], dim=-1)
+    means = deltas.new_tensor(means)
+    stds = deltas.new_tensor(stds)
+    return (deltas - means) / stds
+
+
+def delta2rbox(
+    rois,
+    deltas,
+    means=(0.0,) * 5,
+    stds=(1.0,) * 5,
+    wh_ratio_clip=16 / 1000,
+):
+    """Inverse of rbox2delta. Handles (..., 5) or (..., K*5) deltas against
+    (..., 5) rois."""
+    means = deltas.new_tensor(means)
+    stds = deltas.new_tensor(stds)
+    k = deltas.shape[-1] // 5
+    d = deltas.reshape(*deltas.shape[:-1], k, 5) * stds + means
+    dx, dy, dw, dh, da = d.unbind(-1)
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = dw.clamp(-max_ratio, max_ratio)
+    dh = dh.clamp(-max_ratio, max_ratio)
+    rx = rois[..., 0:1]
+    ry = rois[..., 1:2]
+    rw = rois[..., 2:3]
+    rh = rois[..., 3:4]
+    ra = rois[..., 4:5]
+    gx = dx * rw * torch.cos(ra) - dy * rh * torch.sin(ra) + rx
+    gy = dx * rw * torch.sin(ra) + dy * rh * torch.cos(ra) + ry
+    gw = rw * torch.exp(dw)
+    gh = rh * torch.exp(dh)
+    ga = norm_angle(PI * da + ra)
+    out = torch.stack([gx, gy, gw, gh, ga], dim=-1)
+    return out.reshape(*deltas.shape[:-1], k * 5) if k > 1 else out[..., 0, :]

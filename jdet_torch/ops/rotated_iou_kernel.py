@@ -1,0 +1,261 @@
+"""Pairwise rotated IoU of gts against anchors: the hand-written CUDA
+kernel `csrc/rotated_iou.cu`, its wrapper, and its plain PyTorch version.
+
+Replaces `jdet_tpu/ops/pallas_iou.py::_iou_kernel_rect` (:148), launched
+there by `_pallas_iou_2d` (:300) for the anchor assigner. Also here:
+`park_masked_boxes` (:290) and `FAR_CENTER`.
+
+Each box is expanded to the rows of `_rect_rows` (the reference's
+`_planar_rows_rect` :268): the 4 center-relative corner x's, 4 corner
+y's, cx, cy, w/2, h/2, cos, sin, area. Keeping the corners relative to
+each box's own center keeps fp32 precise at image coordinates ~1e3: per
+pair, the other box is only shifted by the center offset. The plain
+version expands in PyTorch; the kernel reads the (cx, cy, w, h, theta)
+boxes and expands them itself.
+
+The kernel is built with nvcc from the source in the checkout on first
+use, into `build/` at the repository root, keyed by a hash of the source
+and flags, and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PAR_EPS = 1e-12
+# center beyond which a box is treated as "parked" padding: a parked gt
+# fails the circle pre-test against every anchor and skips the clip math
+FAR_CENTER = -1e6
+
+# kernel launches made by `box_iou_rotated_rect`; callers may reset it
+LAUNCHES = 0
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rotated_iou.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_lib = None
+
+
+def park_masked_boxes(boxes, mask):
+    """Move masked (padding) rboxes to FAR_CENTER with zero size; their
+    IoU is 0 either way, and parked far away they take the kernel's
+    early-out."""
+    far = boxes.new_tensor([FAR_CENTER, FAR_CENTER, 0.0, 0.0, 0.0])
+    return torch.where(mask[..., None], boxes, far)
+
+
+def _rect_rows(boxes):
+    """(..., M, 5) -> (..., M, 15): relx0-3, rely0-3, cx, cy, w/2, h/2,
+    cos, sin, area."""
+    cx, cy, w, h, a = boxes.unbind(-1)
+    cos = torch.cos(a)
+    sin = torch.sin(a)
+    cos2 = cos * 0.5
+    sin2 = sin * 0.5
+    x0 = -sin2 * h - cos2 * w
+    y0 = cos2 * h - sin2 * w
+    x1 = sin2 * h - cos2 * w
+    y1 = -cos2 * h - sin2 * w
+    rows = [x0, x1, -x0, -x1, y0, y1, -y0, -y1, cx, cy, w * 0.5, h * 0.5,
+            cos, sin, w * h]
+    return torch.stack(rows, dim=-1)
+
+
+def _rect_clip_green(px, py, w2, h2, tol_xy):
+    """Green contributions of edges (px, py) clipped to the axis-aligned
+    rect [-w2, w2] x [-h2, h2]. Edges collinear with the rect's boundary
+    get weight 1/2, so identical boxes give IoU 1.
+
+    Returns (sum cross(u, v), sum (v-u)_x, sum (v-u)_y)."""
+    total = 0.0
+    sum_dx = 0.0
+    sum_dy = 0.0
+    for i in range(4):
+        ax, ay = px[i], py[i]
+        bx, by = px[(i + 1) % 4], py[(i + 1) % 4]
+        dx, dy = bx - ax, by - ay
+
+        par_x = dx.abs() <= tol_xy
+        par_y = dy.abs() <= tol_xy
+        inv_x = 1.0 / torch.where(par_x, 1.0, dx)
+        inv_y = 1.0 / torch.where(par_y, 1.0, dy)
+        t1 = (-w2 - ax) * inv_x
+        t2 = (w2 - ax) * inv_x
+        t3 = (-h2 - ay) * inv_y
+        t4 = (h2 - ay) * inv_y
+        tl_x = torch.minimum(t1, t2)
+        th_x = torch.maximum(t1, t2)
+        tl_y = torch.minimum(t3, t4)
+        th_y = torch.maximum(t3, t4)
+        t_lo = torch.maximum(
+            torch.where(par_x, 0.0, tl_x), torch.where(par_y, 0.0, tl_y)
+        ).clamp(min=0.0)
+        t_hi = torch.minimum(
+            torch.where(par_x, 1.0, th_x), torch.where(par_y, 1.0, th_y)
+        ).clamp(max=1.0)
+        # an axis-parallel edge must lie inside that axis' slab
+        in_x = (ax >= -w2 - tol_xy) & (ax <= w2 + tol_xy)
+        in_y = (ay >= -h2 - tol_xy) & (ay <= h2 + tol_xy)
+        alive = (~par_x | in_x) & (~par_y | in_y)
+        col = (par_x & ((ax.abs() - w2).abs() <= tol_xy)) | (
+            par_y & ((ay.abs() - h2).abs() <= tol_xy)
+        )
+        keep = alive & (t_lo < t_hi)
+        wgt = torch.where(col, 0.5, 1.0)
+        w_span = torch.where(keep, wgt * (t_hi - t_lo), 0.0)
+        ux = ax + t_lo * dx
+        uy = ay + t_lo * dy
+        vx = ax + t_hi * dx
+        vy = ay + t_hi * dy
+        total = total + torch.where(keep, wgt * (ux * vy - vx * uy), 0.0)
+        sum_dx = sum_dx + w_span * dx
+        sum_dy = sum_dy + w_span * dy
+    return total, sum_dx, sum_dy
+
+
+def box_iou_rotated_rect_reference(gts, anchors):
+    """Plain PyTorch version of the kernel: the same rect-frame math on
+    pair-shaped (B, K, N) tensors. gts (K, 5) or (B, K, 5), anchors (N, 5)
+    -> (K, N) or (B, K, N) float32."""
+    g = _rect_rows(gts.float())
+    g = g if gts.dim() == 3 else g[None]
+    a = _rect_rows(anchors.float())
+
+    def gcol(c):
+        return g[..., c:c + 1]  # (B, K, 1)
+
+    def arow(c):
+        return a[:, c]  # (N,)
+
+    gcx, gcy, gw2, gh2 = gcol(8), gcol(9), gcol(10), gcol(11)
+    acx, acy, aw2, ah2 = arow(8), arow(9), arow(10), arow(11)
+    dx_c = acx - gcx  # (B, K, N)
+    dy_c = acy - gcy
+    # w2 + h2 >= half-diagonal, so rsum bounds the max overlap distance
+    rsum = (gw2 + gh2) + (aw2 + ah2)
+    touching = dx_c * dx_c + dy_c * dy_c < rsum * rsum
+
+    gcos, gsin, g_area = gcol(12), gcol(13), gcol(14)
+    acos, asin, a_area = arow(12), arow(13), arow(14)
+    # anchor corners in the gt frame: R(-tg) @ (a_rel + d)
+    pax, pay = [], []
+    for c in range(4):
+        wx = arow(c) + dx_c
+        wy = arow(4 + c) + dy_c
+        pax.append(gcos * wx + gsin * wy)
+        pay.append(gcos * wy - gsin * wx)
+    # gt corners in the anchor frame: R(-ta) @ (g_rel - d)
+    pgx, pgy = [], []
+    for c in range(4):
+        wx = gcol(c) - dx_c
+        wy = gcol(4 + c) - dy_c
+        pgx.append(acos * wx + asin * wy)
+        pgy.append(acos * wy - asin * wx)
+
+    scale = torch.maximum(gw2 + gh2, aw2 + ah2)
+    tol = 1e-5 * scale + _PAR_EPS
+    s1, d1x_l, d1y_l = _rect_clip_green(pax, pay, gw2, gh2, tol)
+    s2, _, _ = _rect_clip_green(pgx, pgy, aw2, ah2, tol)
+    # origin correction: direction 1 used origin g_c (gt frame), direction
+    # 2 origin a_c; for the closed loop the mismatch contributes
+    # cross(O1 - O2, D1), D1 = direction 1's sum(v - u) in world axes
+    d1x = gcos * d1x_l - gsin * d1y_l
+    d1y = gsin * d1x_l + gcos * d1y_l
+    corr = dy_c * d1x - dx_c * d1y
+    s = s1 + s2 + corr
+    inter = (0.5 * s).clamp(min=0.0)
+    union = g_area + a_area - inter
+    out = torch.where(
+        touching & (union > 1e-9), inter / union.clamp(min=1e-9), 0.0
+    )
+    return out if gts.dim() == 3 else out[0]
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = path if path and os.path.exists(path) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is required")
+    return path
+
+
+def build():
+    """Compile `csrc/rotated_iou.cu` (once per source hash) and load it.
+    Returns the loaded library; the nvcc log sits beside it as `.log`."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    flags = " ".join(NVCC_FLAGS).encode()
+    key = hashlib.sha256(SOURCE.read_bytes() + flags).hexdigest()[:16]
+    so = BUILD_DIR / f"rotated_iou_{key}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.rotated_iou_rect.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.rotated_iou_rect.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def box_iou_rotated_rect(gts, anchors):
+    """Pairwise rotated IoU, gts (K, 5) or (B, K, 5) against anchors
+    (N, 5) -> (K, N) or (B, K, N) float32, forward only.
+
+    A CUDA tensor launches the kernel (one launch for the whole batch) or
+    raises; a CPU tensor goes to `box_iou_rotated_rect_reference`."""
+    global LAUNCHES
+    if gts.dim() not in (2, 3) or gts.shape[-1] != 5:
+        raise ValueError(f"gts must be (K, 5) or (B, K, 5), got {tuple(gts.shape)}")
+    if anchors.dim() != 2 or anchors.shape[-1] != 5:
+        raise ValueError(f"anchors must be (N, 5), got {tuple(anchors.shape)}")
+    if gts.dtype != torch.float32 or anchors.dtype != torch.float32:
+        raise TypeError(f"float32 only, got {gts.dtype} / {anchors.dtype}")
+    if gts.device != anchors.device:
+        raise ValueError(f"gts on {gts.device}, anchors on {anchors.device}")
+    if not (gts.is_contiguous() and anchors.is_contiguous()):
+        raise ValueError("gts and anchors must be contiguous")
+    if gts.device.type == "cpu":
+        return box_iou_rotated_rect_reference(gts, anchors)
+    if gts.device.type != "cuda":
+        raise ValueError(f"unsupported device {gts.device}")
+
+    g = gts if gts.dim() == 3 else gts[None]
+    B, K, _ = g.shape
+    N = anchors.shape[0]
+    if B > 65535 or K > 4 * 65535 or N >= 1 << 31:
+        raise ValueError(f"shape out of the kernel's grid: B={B} K={K} N={N}")
+    out = torch.empty((B, K, N), device=gts.device, dtype=torch.float32)
+    if out.numel():
+        lib = build()
+        with torch.cuda.device(gts.device):
+            rc = lib.rotated_iou_rect(
+                g.data_ptr(), anchors.data_ptr(), out.data_ptr(),
+                B, K, N, torch.cuda.current_stream().cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"rotated_iou_rect launch failed: CUDA error {rc}")
+        LAUNCHES += 1
+    return out if gts.dim() == 3 else out[0]
