@@ -5,18 +5,29 @@
 
 1. Checks for a card (exits non-zero without one) and prints its name and
    power limit.
-2. Builds every hand-written kernel of the main path from the sources in
-   the checkout (`jdet_torch/csrc/`).
+2. Builds the hand-written kernels from the sources in the checkout
+   (`jdet_torch/csrc/rotated_iou.cu`: K1, the rect IoU kernel of the
+   anchor assigner, and K2, the generic IoU kernel).
 3. Holds each kernel against its plain PyTorch version on the card: the
-   edge cases of the CPU tests and the main path's shape.
+   edge cases of the CPU tests and the main path's shape; times both.
 4. Builds Rotated RetinaNet-OBB R50-FPN from
    `configs/rotated_retinanet_obb_r50_fpn_1x_dota.py` at full width with
    random weights, checks the card against the CPU on a small input, then
-   drives the main path once at B=2, 1024²: the loss forward, `predict`
-   at the config's test_cfg, and `predict` with score_thr=0.0. Kernel
-   launch counts are read around that run. Then times each phase.
-5. Prints a `{"kernels": [...]}` line, the card line again, and as the last
+   drives the serving path once at B=2, 1024²: the loss forward, `predict`
+   at the config's test_cfg, and `predict` with score_thr=0.0. Then times
+   each phase.
+5. Drives K2's own entry point, `box_iou_rotated_generic`, on the main
+   path's operands (no train or predict path reaches it).
+6. Checks the train step on the card against the CPU (B=1, 512², 2 SGD
+   steps, same weights), then trains at the config's traffic: B=4, 1024²,
+   512 gt slots with 64 real gts per image, uint8 images normalized and
+   flipped inside the step, the config's SGD and warmup, 20 steps on one
+   batch. Then times the step and its parts.
+7. Prints a `{"kernels": [...]}` line, the card line again, and as the last
    line `{"ok": true, "device": {...}}`.
+
+Each path (serving, K2's entry point, training) runs with the launch
+counters set to 0 just before it and read just after.
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
@@ -37,6 +48,13 @@ FP32_FLOPS_PER_S = 67e12
 # rect-frame IoU arithmetic for one pair whose boxes can touch
 # (the reference kernel's cost estimate, jdet_tpu/ops/pallas_iou.py:306)
 IOU_FLOPS_PER_TOUCHING_PAIR = 300
+# generic quad-quad IoU arithmetic for every pair (the reference's cost
+# estimate for kernel="generic", same line)
+IOU_FLOPS_PER_PAIR_GENERIC = 700
+# The schedule's epoch length comes from the dataset, which the checkout
+# does not hold: take 1000 steps per epoch. The 20 steps here see only the
+# warmup (500 iterations); the milestones (epochs 8, 11) lie far beyond.
+STEPS_PER_EPOCH = 1000
 CONFIG = Path(__file__).resolve().parent / "configs/rotated_retinanet_obb_r50_fpn_1x_dota.py"
 
 
@@ -73,11 +91,15 @@ def median_ms(fn, warmup=3, iters=10):
     return float(np.median(times))
 
 
-def synth_batch(B, size, K=32, real=8, seed=0):
+def synth_batch(B, size, K=32, real=8, seed=0, uint8=False):
     """Images and padded targets made like `__graft_entry__._synth_batch`:
-    `real` gts per image, the rest padding."""
+    `real` gts per image, the rest padding. `uint8` images are the float
+    ones scaled to 0..255, as `__graft_entry__.dryrun_multichip` ships
+    them."""
     rng = np.random.RandomState(seed)
     images = rng.rand(B, size, size, 3).astype(np.float32)
+    if uint8:
+        images = (images * 255).astype(np.uint8)
     gt = np.zeros((B, K, 5), np.float32)
     mask = np.zeros((B, K), bool)
     labels = np.zeros((B, K), np.int64)
@@ -196,6 +218,241 @@ def check_iou_kernel(rik, head):
     }
 
 
+def check_generic_kernel(rik, anchors):
+    """K2 against its plain version on the card; returns its entry of the
+    kernels line (launches filled in later) and its main-path gts."""
+    dev = "cuda"
+    g, a = edge_case_boxes()
+    g, a = torch.as_tensor(g, device=dev), torch.as_tensor(a, device=dev)
+    got = rik.box_iou_rotated_generic(g, a)
+    want = rik.box_iou_rotated_generic_reference(g, a)
+    torch.cuda.synchronize()
+    err_edge = (got - want).abs().max().item()
+    K = g.shape[1]
+    diag = got[0, torch.arange(K), torch.arange(K)]
+    diag_err = (diag - 1).abs().max().item()
+    log(f"generic iou kernel, edge cases (2, {K}, {a.shape[0]}): "
+        f"max_abs_err={err_edge:.3e} diag_err={diag_err:.3e}")
+    check(err_edge <= 2e-4, f"generic kernel, edge cases disagree: {err_edge}")
+    check(diag_err <= 1e-5, f"generic kernel, identical boxes: IoU off 1 by {diag_err}")
+
+    # the main path's shape, (2, 32, 196416), every slot a real gt: K2 has
+    # no early-out, and against a zero-size box parked at FAR_CENTER its
+    # clip arithmetic at |x| ~ 1e6 gives rounding noise in any
+    # implementation, so padding is left out here
+    _, t = synth_batch(2, 1024, K=32, real=32, seed=2)
+    gts = torch.as_tensor(t["gt_bboxes"], device=dev)
+    B, K, N = gts.shape[0], gts.shape[1], anchors.shape[0]
+    got = rik.box_iou_rotated_generic(gts, anchors)
+    want = rik.box_iou_rotated_generic_reference(gts, anchors)
+    torch.cuda.synchronize()
+    err_main = (got - want).abs().max().item()
+    log(f"generic iou kernel, main path ({B}, {K}, {N}): max_abs_err={err_main:.3e} "
+        f"nonzero={int((got > 0).sum())}")
+    check(err_main <= 2e-4, f"generic kernel, main-path shape disagrees: {err_main}")
+    check(torch.isfinite(got).all().item(), "generic kernel: non-finite IoU")
+
+    ms = median_ms(lambda: rik.box_iou_rotated_generic(gts, anchors), iters=20)
+    plain_ms = median_ms(lambda: rik.box_iou_rotated_generic_reference(gts, anchors))
+    nbytes = (B * K * 5 + N * 5 + B * K * N) * 4
+    ops = IOU_FLOPS_PER_PAIR_GENERIC * B * K * N
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    log(f"generic iou kernel timing: {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
+        f"{max(bytes_ms, ops_ms):.4f} ms = max(bytes {nbytes} -> {bytes_ms:.4f}, "
+        f"ops {ops} for {B * K * N} pairs -> {ops_ms:.4f})")
+
+    # the config's gt budget (max_gt=512), kernel alone
+    _, t512 = synth_batch(2, 1024, K=512, real=512, seed=1)
+    g512 = torch.as_tensor(t512["gt_bboxes"], device=dev)
+    ms512 = median_ms(lambda: rik.box_iou_rotated_generic(g512, anchors))
+    log(f"generic iou kernel at (2, 512, {N}): {ms512:.4f} ms, operations bound "
+        f"{IOU_FLOPS_PER_PAIR_GENERIC * 2 * 512 * N / FP32_FLOPS_PER_S * 1e3:.4f} ms")
+    return {
+        "name": "rotated_iou_generic",
+        "route": "cuda",
+        "source": "jdet_torch/csrc/rotated_iou.cu",
+        "replaces": "jdet_tpu/ops/pallas_iou.py:219",
+        "launches": None,
+        "max_abs_err": max(err_edge, err_main),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }, gts
+
+
+def assignment_margin(head, targets, size):
+    """Smallest distance between a gt's best IoU and its second best, and
+    between an anchor's best IoU and the 0.4 / 0.5 thresholds, from the
+    plain IoU on the CPU. The assigner's low-quality match takes every
+    anchor whose IoU equals the gt's best exactly, so K1's rounding and the
+    plain version's can break such a tie differently and train on other
+    targets; a batch with a margin has no such tie."""
+    from jdet_torch.ops import box_iou_rotated
+
+    anchors = head._flat_anchors([(size // s, size // s) for s in head.anchor_strides], "cpu")
+    margin = np.inf
+    for gt, m in zip(targets["gt_bboxes"], targets["gt_mask"]):
+        iou = box_iou_rotated(torch.as_tensor(gt[m]), anchors).double()
+        top2 = iou.topk(2, dim=1).values
+        best = iou.max(0).values
+        margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item(),
+                     (best - 0.5).abs().min().item(), (best - 0.4).abs().min().item())
+    return margin
+
+
+def build_trainer(cfg, model, augment=True):
+    """The train step of `model` with the config's optimizer, schedule,
+    device normalization and (if `augment`) device augmentation, mapped
+    from the config as `jdet_tpu/runner/runner.py` maps them. Returns the
+    step and its optimizer, normalizer and augmenter."""
+    from jdet_torch.optim import build_lr_schedule, build_optimizer
+    from jdet_torch.parallel import (build_train_step, make_device_augmenter,
+                                     make_device_normalizer)
+
+    ocfg, scfg = cfg["optimizer"], cfg["scheduler"]
+    schedule = build_lr_schedule(
+        ocfg["lr"], scheduler_type=scfg["type"], milestones=scfg["milestones"],
+        gamma=scfg["gamma"], steps_per_epoch=STEPS_PER_EPOCH,
+        max_steps=cfg["max_epoch"] * STEPS_PER_EPOCH, warmup=scfg["warmup"],
+        warmup_iters=scfg["warmup_iters"], warmup_ratio=scfg["warmup_ratio"])
+    opt = build_optimizer(
+        model, opt_type=ocfg["type"], lr_schedule=schedule,
+        momentum=ocfg["momentum"], weight_decay=ocfg["weight_decay"],
+        grad_clip=ocfg["grad_clip"],
+        frozen_stages=cfg["model"]["backbone"]["frozen_stages"])
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    augment = make_device_augmenter(**cfg["device_augment"]) if augment else None
+    step = build_train_step(model, opt, preprocess=normalize, augment=augment,
+                            seed=cfg["seed"])
+    return step, opt, normalize, augment
+
+
+def check_train_card_against_cpu(cfg, rik):
+    """Two train steps of the full-width model with the same random
+    weights on the card and on the CPU, B=1 at 512² (the card's assigner
+    takes K1, the CPU's the plain version), augmentation off."""
+    from jdet_torch.models.builder import build_detector
+
+    models = {dev: build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
+              for dev in ("cuda", "cpu")}
+    # what the initializer sets to a constant (BN affine and statistics,
+    # zero conv biases) drawn at random, as the CPU parity tests do, so
+    # that no parameter's scale is its own 2-step update
+    rng = np.random.RandomState(4)
+    with torch.no_grad():
+        for mod in models["cpu"].modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                n = mod.num_features
+                for t, draw in ((mod.weight, rng.uniform(0.5, 1.5, n)),
+                                (mod.bias, rng.normal(0.0, 0.1, n)),
+                                (mod.running_mean, rng.normal(0.0, 0.1, n)),
+                                (mod.running_var, rng.uniform(0.5, 1.5, n))):
+                    t.copy_(torch.as_tensor(draw))
+            elif getattr(mod, "bias", None) is not None and not mod.bias.any():
+                mod.bias.copy_(torch.as_tensor(rng.normal(0.0, 0.01, mod.bias.shape)))
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    start = {n: p.detach().clone() for n, p in models["cpu"].named_parameters()}
+    # the first seed from 5 whose assignment has no near tie
+    seed = next(s for s in range(5, 100)
+                if assignment_margin(models["cpu"].bbox_head,
+                                     synth_batch(1, 512, seed=s)[1], 512) > 1e-5)
+    images, targets = synth_batch(1, 512, seed=seed, uint8=True)
+    losses = {}
+    for dev, m in models.items():
+        step = build_trainer(cfg, m, augment=False)[0]
+        x, t = to_device(images, targets, dev)
+        launches = rik.LAUNCHES
+        losses[dev] = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
+        if dev == "cuda":
+            check(rik.LAUNCHES - launches == 2, "the card's train steps did not launch K1")
+    log(f"train card vs cpu at 512², B=1, batch seed {seed}: losses "
+        f"{losses['cuda']} vs {losses['cpu']}")
+    for it in range(2):
+        for k, want in losses["cpu"][it].items():
+            got = losses["cuda"][it][k]
+            check(abs(got - want) <= 1e-3 * abs(want), f"step {it} {k}: card {got} cpu {want}")
+    cpu_params = dict(models["cpu"].named_parameters())
+    worst, worst_update, n = 0.0, 0.0, 0
+    for name, p in models["cuda"].named_parameters():
+        if not p.requires_grad:
+            continue
+        want = cpu_params[name].detach()
+        err = (p.detach().cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        check(err <= 1e-3 * scale, f"parameter {name} after 2 steps: err {err}, max {scale}")
+        update = (want - start[name]).abs().max().item()
+        worst, n = max(worst, err / scale), n + 1
+        worst_update = max(worst_update, err / max(update, 1e-30))
+    log(f"train card vs cpu: {n} trainable parameters agree after 2 steps, worst "
+        f"error {worst:.3e} of the tensor's largest value ({worst_update:.3e} of its "
+        f"largest 2-step change)")
+
+
+def train_at_config_traffic(cfg, model, rik):
+    """The train step at the config's batch (B=4) at 1024², 512 gt slots
+    with 64 real gts per image: 20 steps on one batch, then the step timed
+    whole and in parts. Returns the kernel launches of the 20 steps."""
+    step, opt, normalize, augment = build_trainer(cfg, model)
+    images, targets = to_device(*synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True),
+                                "cuda")
+
+    # the training path, with the launch counters read around it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rik.LAUNCHES = rik.GENERIC_LAUNCHES = 0
+    log_vars, per_step = [], []
+    for it in range(20):
+        before = rik.LAUNCHES
+        log_vars.append(step(images, targets, it))
+        per_step.append(rik.LAUNCHES - before)
+    torch.cuda.synchronize()
+    launches = {"rotated_iou_rect": rik.LAUNCHES, "rotated_iou_generic": rik.GENERIC_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [{k: v.item() for k, v in lv.items()} for lv in log_vars]
+    for it, lv in enumerate(losses):
+        log(f"train step {it}: " + " ".join(f"{k}={v:.6f}" for k, v in lv.items())
+            + f" lr={opt.lr_schedule(it):.6g}")
+    log(f"training path: launches {launches} (K1 per step {per_step}), "
+        f"peak memory {peak} bytes")
+    check(all(np.isfinite(v) for lv in losses for v in lv.values()), "non-finite train loss")
+    check(losses[-1]["total_loss"] < losses[0]["total_loss"],
+          f"the loss did not fall: {losses[0]['total_loss']} -> {losses[-1]['total_loss']}")
+    check(min(per_step) >= 1, f"K1 not launched in every train step: {per_step}")
+
+    counter = iter(range(20, 10**6))
+    times = {"train_step_ms": median_ms(lambda: step(images, targets, next(counter)))}
+
+    # the step's parts, timed apart on the same objects as the step
+    from jdet_torch.utils.general import parse_losses
+
+    parts = {"forward_loss_ms": [], "backward_ms": [], "clip_sgd_ms": []}
+    for i in range(13):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        model.train()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cfg["seed"] * 2**32 + 100 + i)
+        x, t = augment(images, targets, gen)
+        total, _ = parse_losses(model.loss(normalize(x), t))
+        ev[1].record()
+        opt.zero_grad()
+        total.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= 3:
+            for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
+                parts[k].append(ev[a].elapsed_time(ev[b]))
+    times.update({k: float(np.median(v)) for k, v in parts.items()})
+    times["peak_memory_bytes"] = peak
+    log(f"train step at 1024², B=4, K=512 (median of 10 after 3): {json.dumps(times)}")
+    return launches
+
+
 def check_card_against_cpu(model, cpu_model):
     """The full-width model on the card against the same weights on the
     CPU, B=1 at 512² (large enough that the card's assigner takes the
@@ -250,7 +507,8 @@ def main():
     log(f"build: {time.perf_counter() - t0:.2f} s ({lib._name})")
     log(Path(lib._name).with_suffix(".log").read_text().strip())
 
-    cfg = load_cfg_file(CONFIG)["model"]
+    full_cfg = load_cfg_file(CONFIG)
+    cfg = full_cfg["model"]
     model = build_detector(cfg, device="cuda", seed=0, load_pretrained=False)
     head = model.bbox_head
     check(model.backbone.depth == 50 and model.neck.out_channels == 256
@@ -259,6 +517,9 @@ def main():
     log(f"model: {sum(p.numel() for p in model.parameters())} parameters")
 
     entry = check_iou_kernel(rik, head)
+    anchors = head._flat_anchors([(1024 // st, 1024 // st) for st in head.anchor_strides],
+                                 "cuda")
+    generic_entry, generic_gts = check_generic_kernel(rik, anchors)
 
     cpu_model = build_detector(cfg, device="cpu", seed=0, load_pretrained=False)
     check_card_against_cpu(model, cpu_model)
@@ -277,19 +538,20 @@ def main():
         head.test_cfg = dict(test_cfg, score_thr=score_thr)
         return model.predict(images)
 
-    # the main path, once, with the launch counts read around it
+    # the serving path, once, with the launch counts read around it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rik.LAUNCHES = 0
+    rik.LAUNCHES = rik.GENERIC_LAUNCHES = 0
     losses = loss_fwd()
     torch.cuda.synchronize()
     loss_launches = rik.LAUNCHES
     det = predict(test_cfg["score_thr"])
     det0 = predict(0.0)
     torch.cuda.synchronize()
-    entry["launches"] = rik.LAUNCHES
+    serving_launches = {"rotated_iou_rect": rik.LAUNCHES,
+                        "rotated_iou_generic": rik.GENERIC_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path: launches {rik.LAUNCHES} (loss forward {loss_launches}), "
+    log(f"serving path: launches {serving_launches} (loss forward {loss_launches}), "
         f"peak memory {peak} bytes")
     check(loss_launches >= 1, "the loss forward did not launch the IoU kernel")
 
@@ -341,7 +603,32 @@ def main():
             times[name] = median_ms(fn, warmup=2, iters=10)
     log(f"phases at 1024², B=2 (median of 10): {json.dumps(times)}")
 
-    log(json.dumps({"kernels": [entry]}))
+    # K2's path: its entry point on the main path's operands, once
+    from jdet_torch.ops import box_iou_rotated_generic
+
+    torch.cuda.synchronize()
+    rik.LAUNCHES = rik.GENERIC_LAUNCHES = 0
+    iou = box_iou_rotated_generic(generic_gts, anchors)
+    torch.cuda.synchronize()
+    generic_launches = {"rotated_iou_rect": rik.LAUNCHES,
+                        "rotated_iou_generic": rik.GENERIC_LAUNCHES}
+    log(f"generic iou path: launches {generic_launches}, output {tuple(iou.shape)}")
+    check(generic_launches["rotated_iou_generic"] == 1, "the entry point did not launch K2")
+    check(iou.shape == (2, 32, 196416) and torch.isfinite(iou).all().item()
+          and ((iou >= 0) & (iou <= 1 + 1e-5)).all().item(), "K2's entry point: bad IoU")
+    del iou
+
+    check_train_card_against_cpu(full_cfg, rik)
+    train_launches = train_at_config_traffic(full_cfg, model, rik)
+
+    # launches per path: serving (loss forward + 2 predicts), K2's entry
+    # point, training (20 steps)
+    paths = {"serving": serving_launches, "generic_iou": generic_launches,
+             "train_20_steps": train_launches}
+    for e in (entry, generic_entry):
+        e["launches_by_path"] = {p: n[e["name"]] for p, n in paths.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(json.dumps({"kernels": [entry, generic_entry]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

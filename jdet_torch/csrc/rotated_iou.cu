@@ -1,8 +1,11 @@
 // Pairwise rotated IoU of K gts against N anchors, for a batch of B images
 // that share one anchor set: out[b, k, n] = IoU(gt[b, k], anchor[n]).
+// Two kernels, one per Pallas body: the rect kernel (rotated_iou_rect) and,
+// further down, the generic kernel (rotated_iou_generic).
 //
-// Replaces jdet_tpu/ops/pallas_iou.py::_iou_kernel_rect (the Pallas body
-// behind the anchor assigner's IoU matrix). Same math, per pair: each box's
+// The rect kernel replaces jdet_tpu/ops/pallas_iou.py::_iou_kernel_rect
+// (the Pallas body behind the anchor assigner's IoU matrix). Same math,
+// per pair: each box's
 // edges are clipped against the other box's axis-aligned slab in that box's
 // own frame (Liang-Barsky on a rectangle), the Green's-theorem cross terms
 // of both directions are summed, shared (collinear) edges weigh 1/2, and the
@@ -31,7 +34,8 @@
 // never written is left for later.
 //
 // Built without --use_fast_math: the parallel and collinear tolerances
-// (1e-5 * scale + 1e-12) compare against IEEE division and products.
+// (1e-5 * scale + 1e-12 here, 1e-6 / 1e-5 * qn * |.| + 1e-12 in the generic
+// kernel) compare against IEEE division and products.
 
 #include <cuda_runtime.h>
 
@@ -181,14 +185,151 @@ __global__ void __launch_bounds__(kBlockN* kBlockK)
   out[(static_cast<size_t>(b) * K + k) * N + n] = iou;
 }
 
+// ---------------------------------------------------------------------------
+// The generic kernel: the same IoU by general quad-quad clipping.
+//
+// Replaces jdet_tpu/ops/pallas_iou.py::_iou_kernel (with _green_sum and the
+// operands of _planar_rows), the Pallas body that box_iou_rotated_pallas
+// runs for kernel="generic". Per pair, both boxes are placed in the pair's
+// midpoint frame (anchor corners + d/2, gt corners - d/2, d = a_c - g_c,
+// corners relative to each box's own center, so fp32 stays precise at image
+// coordinates ~1e3), each box's edges are clipped Liang-Barsky style against
+// the other's four half-planes, and the Green's-theorem cross terms of both
+// directions are summed; edges collinear with a clip line weigh 1/2. No
+// early-out: the Pallas body has none, and this kernel's output must stay
+// its output (a zero-size box, for one, is not 0 here as it is under the
+// rect kernel's circle test).
+//
+// What bounds it on an H100: arithmetic. The reference's cost estimate is
+// 700 flops per pair (pallas_iou.py:306), every pair pays it, and each of
+// the 32 edge-line tests divides; at B=2, K=32, N=196,416 that is 8.8e9
+// flops (0.13 ms at 67 TFLOP/s fp32) against 54 MB of traffic (16 us). The
+// design is one thread per pair with no shared state beyond the block's 4
+// gts, expanded once into shared memory; making it fast (fewer divisions,
+// an early-out that keeps K2's values) is left for later.
+//
+// Operands as for the rect kernel: gt (B, K, 5), anchors (N, 5), out
+// (B, K, N), float32 (cx, cy, w, h, theta). Each box is expanded to the
+// plain version's generic rows (rotated_iou_kernel.py::_rect_rows columns
+// 0-9 and 14): relx0-3, rely0-3, cx, cy, area.
+
+constexpr int kGenRows = 11;  // floats per expanded gt
+
+// Directed-boundary Green contribution of P's edges clipped to Q:
+// sum over P's edges of cross(u, v) for the part [u, v] of the edge that
+// lies inside Q = {p : cross(q_{j+1} - q_j, p - q_j) >= 0 for all j}.
+__device__ __forceinline__ float green_sum(const float px[4],
+                                           const float py[4],
+                                           const float qx[4],
+                                           const float qy[4]) {
+  float qvx[4], qvy[4], qn[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    qvx[j] = qx[(j + 1) & 3] - qx[j];
+    qvy[j] = qy[(j + 1) & 3] - qy[j];
+    qn[j] = fabsf(qvx[j]) + fabsf(qvy[j]);
+  }
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float ax = px[i], ay = py[i];
+    const float dx = px[(i + 1) & 3] - ax;
+    const float dy = py[(i + 1) & 3] - ay;
+    const float dn = fabsf(dx) + fabsf(dy);
+    float t_lo = 0.f, t_hi = 1.f;
+    bool alive = true, on_b = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // f(t) = cross(qv_j, p(t) - q_j) = f0 + t * df must stay >= 0
+      const float rx = ax - qx[j];
+      const float ry = ay - qy[j];
+      const float f0 = qvx[j] * ry - rx * qvy[j];
+      const float df = qvx[j] * dy - dx * qvy[j];
+      const bool par = fabsf(df) <= 1e-6f * qn[j] * dn + kParEps;
+      const bool col =
+          par && fabsf(f0) <= 1e-5f * qn[j] * (fabsf(rx) + fabsf(ry)) + kParEps;
+      on_b = on_b || col;
+      alive = alive && (!par || col || f0 >= 0.f);
+      const float tstar = -f0 / (par ? 1.f : df);
+      if (!par && df > 0.f) t_lo = fmaxf(t_lo, tstar);
+      if (!par && df < 0.f) t_hi = fminf(t_hi, tstar);
+    }
+    if (alive && t_lo < t_hi) {
+      // an edge collinear with a clip line is shared boundary: weight 1/2
+      const float wgt = on_b ? 0.5f : 1.0f;
+      const float ux = ax + t_lo * dx, uy = ay + t_lo * dy;
+      const float vx = ax + t_hi * dx, vy = ay + t_hi * dy;
+      total += wgt * (ux * vy - vx * uy);
+    }
+  }
+  return total;
+}
+
+__global__ void __launch_bounds__(kBlockN* kBlockK)
+    rotated_iou_generic_kernel(const float* __restrict__ gt,
+                               const float* __restrict__ an,
+                               float* __restrict__ out, int K, int N) {
+  // per gt: relx0-3, rely0-3, cx, cy, area
+  __shared__ float sg[kBlockK][kGenRows];
+  const int b = blockIdx.z;
+  const int k0 = blockIdx.y * kBlockK;
+  const int tid = threadIdx.y * kBlockN + threadIdx.x;
+  if (tid < kBlockK && k0 + tid < K) {
+    const float* box = gt + (static_cast<size_t>(b) * K + k0 + tid) * 5;
+    float* row = sg[tid];
+    float sin_t, cos_t;
+    sincosf(box[4], &sin_t, &cos_t);
+    rel_corners(box[2], box[3], cos_t, sin_t, row, row + 4);
+    row[8] = box[0];
+    row[9] = box[1];
+    row[10] = box[2] * box[3];
+  }
+  __syncthreads();
+
+  const int n = blockIdx.x * kBlockN + threadIdx.x;
+  const int k = k0 + threadIdx.y;
+  if (n >= N || k >= K) return;
+  const float* g = sg[threadIdx.y];
+  const float* a = an + static_cast<size_t>(n) * 5;
+  float asin_, acos_;
+  sincosf(a[4], &asin_, &acos_);
+  float arx[4], ary[4];
+  rel_corners(a[2], a[3], acos_, asin_, arx, ary);
+  // pair midframe: anchor corners +d/2, gt corners -d/2, d = a_c - g_c
+  const float hdx = 0.5f * (a[0] - g[8]);
+  const float hdy = 0.5f * (a[1] - g[9]);
+  float pax[4], pay[4], pgx[4], pgy[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pax[c] = arx[c] + hdx;
+    pay[c] = ary[c] + hdy;
+    pgx[c] = g[c] - hdx;
+    pgy[c] = g[4 + c] - hdy;
+  }
+  const float s = green_sum(pax, pay, pgx, pgy) + green_sum(pgx, pgy, pax, pay);
+  const float inter = fmaxf(0.5f * s, 0.f);
+  const float uni = g[10] + a[2] * a[3] - inter;
+  out[(static_cast<size_t>(b) * K + k) * N + n] =
+      uni > 1e-9f ? inter / fmaxf(uni, 1e-9f) : 0.f;
+}
+
 }  // namespace
 
-// Launches on stream s and returns cudaGetLastError() (0 on success).
+// Each launches on stream s and returns cudaGetLastError() (0 on success).
 extern "C" int rotated_iou_rect(const float* gt, const float* anchors,
                                 float* out, int B, int K, int N,
                                 cudaStream_t s) {
   const dim3 block(kBlockN, kBlockK);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (K + kBlockK - 1) / kBlockK, B);
   rotated_iou_rect_kernel<<<grid, block, 0, s>>>(gt, anchors, out, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rotated_iou_generic(const float* gt, const float* anchors,
+                                   float* out, int B, int K, int N,
+                                   cudaStream_t s) {
+  const dim3 block(kBlockN, kBlockK);
+  const dim3 grid((N + kBlockN - 1) / kBlockN, (K + kBlockK - 1) / kBlockK, B);
+  rotated_iou_generic_kernel<<<grid, block, 0, s>>>(gt, anchors, out, K, N);
   return static_cast<int>(cudaGetLastError());
 }

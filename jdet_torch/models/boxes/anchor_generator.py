@@ -42,6 +42,9 @@ class AnchorGeneratorRotated:
         else:
             raise ValueError("need scales or octave scales")
         self.base_anchors = self._gen_base_anchors()
+        # base anchors per device, copied once: a host-to-device copy in
+        # every forward would synchronize the train step with the host
+        self._base_on = {}
 
     @property
     def num_base_anchors(self):
@@ -70,10 +73,13 @@ class AnchorGeneratorRotated:
     def grid_anchors(self, featmap_size, stride, device="cuda"):
         """(H*W*A, 5) float32 anchors for a feature map, on `device`."""
         feat_h, feat_w = featmap_size
+        device = torch.device(device)
         sx = torch.arange(feat_w, dtype=torch.float32, device=device) * stride
         sy = torch.arange(feat_h, dtype=torch.float32, device=device) * stride
         shifts = torch.zeros(feat_h, feat_w, 5, device=device)
         shifts[..., 0] = sx[None, :]
         shifts[..., 1] = sy[:, None]
-        base = torch.as_tensor(self.base_anchors, device=device)
+        base = self._base_on.get(device)
+        if base is None:
+            base = self._base_on[device] = torch.as_tensor(self.base_anchors, device=device)
         return (shifts.reshape(-1, 1, 5) + base[None]).reshape(-1, 5)

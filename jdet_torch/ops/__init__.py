@@ -4,6 +4,8 @@ from .box_iou_rotated import box_iou_rotated, box_iou_rotated_aligned
 from .nms_rotated import multiclass_nms_rotated, nms_rotated
 from .rotated_iou_kernel import (
     FAR_CENTER,
+    box_iou_rotated_generic,
+    box_iou_rotated_generic_reference,
     box_iou_rotated_rect,
     box_iou_rotated_rect_reference,
     park_masked_boxes,

@@ -1,8 +1,9 @@
 """Rotated-box IoU — exact, sort-free, differentiable (Green's theorem).
 
 Port of `jdet_tpu/ops/box_iou_rotated.py` (`_corners_xy` :34,
-`_edges_green_contrib` :60, `_intersection_area` :112,
-`box_iou_rotated_aligned` :147, `box_iou_rotated` :162).
+`_edges_green_contrib` :60 as `rotated_iou_kernel.edges_green_sum`,
+`_intersection_area` :112, `box_iou_rotated_aligned` :147,
+`box_iou_rotated` :162).
 
 The boundary of P∩Q is (∂P clipped to Q) ∪ (∂Q clipped to P); by Green's
 theorem area = 1/2 Σ cross(u, v) over the directed boundary segments in
@@ -18,9 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from .rotated_iou_kernel import box_iou_rotated_rect
+from .rotated_iou_kernel import box_iou_rotated_rect, edges_green_sum
 
-_PAR_EPS = 1e-12
 # pair count from which an `iou` matrix on the card goes to the kernel
 # (the reference's auto-dispatch bar, box_iou_rotated.py:184)
 KERNEL_MIN_PAIRS = 1 << 20
@@ -43,52 +43,6 @@ def _corners_xy(boxes):
     return [x0, x1, x2, x3], [y0, y1, y2, y3]
 
 
-def _edges_green_contrib(px, py, qx, qy):
-    """Sum of cross(u, v) over P's edges clipped to rectangle Q.
-
-    Q's interior is {p : cross(q_edge_j, p - q_j) >= 0} for all j."""
-    qvx = [qx[(j + 1) % 4] - qx[j] for j in range(4)]
-    qvy = [qy[(j + 1) % 4] - qy[j] for j in range(4)]
-
-    total = 0.0
-    for i in range(4):
-        ax, ay = px[i], py[i]
-        bx, by = px[(i + 1) % 4], py[(i + 1) % 4]
-        dx, dy = bx - ax, by - ay
-
-        t_lo = torch.zeros_like(ax)
-        t_hi = torch.ones_like(ax)
-        alive = torch.ones_like(ax, dtype=torch.bool)
-        on_boundary = torch.zeros_like(ax, dtype=torch.bool)
-        for j in range(4):
-            # f(t) = cross(qv_j, p(t) - q_j) = f0 + t * df  must stay >= 0
-            rx = ax - qx[j]
-            ry = ay - qy[j]
-            f0 = qvx[j] * ry - rx * qvy[j]
-            df = qvx[j] * dy - dx * qvy[j]
-            qnorm = qvx[j].abs() + qvy[j].abs()
-            par = df.abs() <= 1e-6 * qnorm * (dx.abs() + dy.abs()) + _PAR_EPS
-            col = par & (
-                f0.abs() <= 1e-5 * qnorm * (rx.abs() + ry.abs()) + _PAR_EPS
-            )
-            # an edge collinear with a clip line is shared boundary: each
-            # polygon counts it with weight 1/2
-            on_boundary = on_boundary | col
-            alive = alive & (~par | col | (f0 >= 0))
-            tstar = -f0 / torch.where(par, 1.0, df)
-            t_lo = torch.where(~par & (df > 0), torch.maximum(t_lo, tstar), t_lo)
-            t_hi = torch.where(~par & (df < 0), torch.minimum(t_hi, tstar), t_hi)
-
-        keep = alive & (t_lo < t_hi)
-        w = torch.where(on_boundary, 0.5, 1.0)
-        ux = ax + t_lo * dx
-        uy = ay + t_lo * dy
-        vx = ax + t_hi * dx
-        vy = ay + t_hi * dy
-        total = total + torch.where(keep, w * (ux * vy - vx * uy), 0.0)
-    return total
-
-
 def _intersection_area(b1, b2):
     """Exact intersection area for broadcast-compatible (..., 5) boxes."""
     # Recenter near the pair midpoint: Green contributions are ~|p|^2, so
@@ -103,9 +57,7 @@ def _intersection_area(b1, b2):
     c2x = [x - mx for x in c2x]
     c2y = [y - my for y in c2y]
 
-    s = _edges_green_contrib(c1x, c1y, c2x, c2y) + _edges_green_contrib(
-        c2x, c2y, c1x, c1y
-    )
+    s = edges_green_sum(c1x, c1y, c2x, c2y) + edges_green_sum(c2x, c2y, c1x, c1y)
     return (0.5 * s).clamp(min=0.0)
 
 

@@ -1,9 +1,18 @@
 """Pairwise rotated IoU of gts against anchors: the hand-written CUDA
-kernel `csrc/rotated_iou.cu`, its wrapper, and its plain PyTorch version.
+kernels of `csrc/rotated_iou.cu`, their wrappers, and their plain PyTorch
+versions.
 
-Replaces `jdet_tpu/ops/pallas_iou.py::_iou_kernel_rect` (:148), launched
-there by `_pallas_iou_2d` (:300) for the anchor assigner. Also here:
-`park_masked_boxes` (:290) and `FAR_CENTER`.
+- `box_iou_rotated_rect` replaces `jdet_tpu/ops/pallas_iou.py::
+  _iou_kernel_rect` (:148), launched there by `_pallas_iou_2d` (:300) for
+  the anchor assigner.
+- `box_iou_rotated_generic` replaces `_iou_kernel` (:219, with
+  `_green_sum` :43 and `_planar_rows` :249), the body that
+  `box_iou_rotated_pallas(..., kernel="generic")` (:329) runs. No default
+  path reaches it.
+
+Also here: `park_masked_boxes` (:290), `FAR_CENTER`, and `edges_green_sum`,
+the Liang-Barsky Green sum that the generic kernel and the differentiable
+path of `box_iou_rotated.py` share.
 
 Each box is expanded to the rows of `_rect_rows` (the reference's
 `_planar_rows_rect` :268): the 4 center-relative corner x's, 4 corner
@@ -33,8 +42,10 @@ _PAR_EPS = 1e-12
 # fails the circle pre-test against every anchor and skips the clip math
 FAR_CENTER = -1e6
 
-# kernel launches made by `box_iou_rotated_rect`; callers may reset it
+# kernel launches made by `box_iou_rotated_rect` and by
+# `box_iou_rotated_generic`; callers may reset them
 LAUNCHES = 0
+GENERIC_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rotated_iou.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -180,6 +191,73 @@ def box_iou_rotated_rect_reference(gts, anchors):
     return out if gts.dim() == 3 else out[0]
 
 
+def edges_green_sum(px, py, qx, qy):
+    """Sum of cross(u, v) over P's edges clipped to rectangle Q.
+
+    Q's interior is {p : cross(q_edge_j, p - q_j) >= 0} for all j."""
+    qvx = [qx[(j + 1) % 4] - qx[j] for j in range(4)]
+    qvy = [qy[(j + 1) % 4] - qy[j] for j in range(4)]
+
+    total = 0.0
+    for i in range(4):
+        ax, ay = px[i], py[i]
+        bx, by = px[(i + 1) % 4], py[(i + 1) % 4]
+        dx, dy = bx - ax, by - ay
+
+        t_lo = torch.zeros_like(ax)
+        t_hi = torch.ones_like(ax)
+        alive = torch.ones_like(ax, dtype=torch.bool)
+        on_boundary = torch.zeros_like(ax, dtype=torch.bool)
+        for j in range(4):
+            # f(t) = cross(qv_j, p(t) - q_j) = f0 + t * df  must stay >= 0
+            rx = ax - qx[j]
+            ry = ay - qy[j]
+            f0 = qvx[j] * ry - rx * qvy[j]
+            df = qvx[j] * dy - dx * qvy[j]
+            qnorm = qvx[j].abs() + qvy[j].abs()
+            par = df.abs() <= 1e-6 * qnorm * (dx.abs() + dy.abs()) + _PAR_EPS
+            col = par & (
+                f0.abs() <= 1e-5 * qnorm * (rx.abs() + ry.abs()) + _PAR_EPS
+            )
+            # an edge collinear with a clip line is shared boundary: each
+            # polygon counts it with weight 1/2
+            on_boundary = on_boundary | col
+            alive = alive & (~par | col | (f0 >= 0))
+            tstar = -f0 / torch.where(par, 1.0, df)
+            t_lo = torch.where(~par & (df > 0), torch.maximum(t_lo, tstar), t_lo)
+            t_hi = torch.where(~par & (df < 0), torch.minimum(t_hi, tstar), t_hi)
+
+        keep = alive & (t_lo < t_hi)
+        w = torch.where(on_boundary, 0.5, 1.0)
+        ux = ax + t_lo * dx
+        uy = ay + t_lo * dy
+        vx = ax + t_hi * dx
+        vy = ay + t_hi * dy
+        total = total + torch.where(keep, w * (ux * vy - vx * uy), 0.0)
+    return total
+
+
+def box_iou_rotated_generic_reference(gts, anchors):
+    """Plain PyTorch version of the generic kernel: general quad-quad
+    clipping in each pair's midpoint frame, no early-out. gts (K, 5) or
+    (B, K, 5), anchors (N, 5) -> (K, N) or (B, K, N) float32."""
+    g = _rect_rows(gts.float())
+    g = g if gts.dim() == 3 else g[None]
+    a = _rect_rows(anchors.float())
+    # pair midframe: anchor corners +d/2, gt corners -d/2, d = a_c - g_c
+    hdx = 0.5 * (a[:, 8] - g[..., 8:9])  # (B, K, N)
+    hdy = 0.5 * (a[:, 9] - g[..., 9:10])
+    pax = [a[:, c] + hdx for c in range(4)]
+    pay = [a[:, 4 + c] + hdy for c in range(4)]
+    pgx = [g[..., c:c + 1] - hdx for c in range(4)]
+    pgy = [g[..., 4 + c:5 + c] - hdy for c in range(4)]
+    s = edges_green_sum(pax, pay, pgx, pgy) + edges_green_sum(pgx, pgy, pax, pay)
+    inter = (0.5 * s).clamp(min=0.0)
+    union = g[..., 14:15] + a[:, 14] - inter
+    out = torch.where(union > 1e-9, inter / union.clamp(min=1e-9), 0.0)
+    return out if gts.dim() == 3 else out[0]
+
+
 def _nvcc():
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -211,22 +289,19 @@ def build():
         so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.rotated_iou_rect.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.rotated_iou_rect.restype = ctypes.c_int
+    for fn in (lib.rotated_iou_rect, lib.rotated_iou_generic):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
-def box_iou_rotated_rect(gts, anchors):
-    """Pairwise rotated IoU, gts (K, 5) or (B, K, 5) against anchors
-    (N, 5) -> (K, N) or (B, K, N) float32, forward only.
-
-    A CUDA tensor launches the kernel (one launch for the whole batch) or
-    raises; a CPU tensor goes to `box_iou_rotated_rect_reference`."""
-    global LAUNCHES
+def _check_operands(gts, anchors):
+    """Raise on what the kernels do not take. True for CPU tensors, which
+    go to the plain versions; False for CUDA tensors."""
     if gts.dim() not in (2, 3) or gts.shape[-1] != 5:
         raise ValueError(f"gts must be (K, 5) or (B, K, 5), got {tuple(gts.shape)}")
     if anchors.dim() != 2 or anchors.shape[-1] != 5:
@@ -237,11 +312,14 @@ def box_iou_rotated_rect(gts, anchors):
         raise ValueError(f"gts on {gts.device}, anchors on {anchors.device}")
     if not (gts.is_contiguous() and anchors.is_contiguous()):
         raise ValueError("gts and anchors must be contiguous")
-    if gts.device.type == "cpu":
-        return box_iou_rotated_rect_reference(gts, anchors)
-    if gts.device.type != "cuda":
+    if gts.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {gts.device}")
+    return gts.device.type == "cpu"
 
+
+def _launch(kernel, gts, anchors):
+    """Run the library's `kernel` on checked CUDA operands, one launch for
+    the whole batch (none for an empty output)."""
     g = gts if gts.dim() == 3 else gts[None]
     B, K, _ = g.shape
     N = anchors.shape[0]
@@ -249,13 +327,43 @@ def box_iou_rotated_rect(gts, anchors):
         raise ValueError(f"shape out of the kernel's grid: B={B} K={K} N={N}")
     out = torch.empty((B, K, N), device=gts.device, dtype=torch.float32)
     if out.numel():
-        lib = build()
+        fn = getattr(build(), kernel)
         with torch.cuda.device(gts.device):
-            rc = lib.rotated_iou_rect(
-                g.data_ptr(), anchors.data_ptr(), out.data_ptr(),
-                B, K, N, torch.cuda.current_stream().cuda_stream,
-            )
+            rc = fn(g.data_ptr(), anchors.data_ptr(), out.data_ptr(),
+                    B, K, N, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"rotated_iou_rect launch failed: CUDA error {rc}")
-        LAUNCHES += 1
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
     return out if gts.dim() == 3 else out[0]
+
+
+def box_iou_rotated_rect(gts, anchors):
+    """Pairwise rotated IoU, gts (K, 5) or (B, K, 5) against anchors
+    (N, 5) -> (K, N) or (B, K, N) float32, forward only.
+
+    A CUDA tensor launches the rect kernel (one launch for the whole batch)
+    or raises; a CPU tensor goes to `box_iou_rotated_rect_reference`."""
+    global LAUNCHES
+    if _check_operands(gts, anchors):
+        return box_iou_rotated_rect_reference(gts, anchors)
+    out = _launch("rotated_iou_rect", gts, anchors)
+    if out.numel():
+        LAUNCHES += 1
+    return out
+
+
+def box_iou_rotated_generic(gts, anchors):
+    """The same IoU by general quad-quad clipping, the counterpart of
+    `box_iou_rotated_pallas(..., kernel="generic")`: gts (K, 5) or
+    (B, K, 5) against anchors (N, 5) -> (K, N) or (B, K, N) float32,
+    forward only.
+
+    A CUDA tensor launches the generic kernel (one launch for the whole
+    batch) or raises; a CPU tensor goes to
+    `box_iou_rotated_generic_reference`."""
+    global GENERIC_LAUNCHES
+    if _check_operands(gts, anchors):
+        return box_iou_rotated_generic_reference(gts, anchors)
+    out = _launch("rotated_iou_generic", gts, anchors)
+    if out.numel():
+        GENERIC_LAUNCHES += 1
+    return out

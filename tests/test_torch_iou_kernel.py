@@ -126,3 +126,89 @@ def test_kernel_matches_plain_version_on_card():
     K = len(gts)
     diag = got[0, torch.arange(K), torch.arange(K)]
     torch.testing.assert_close(diag, torch.ones_like(diag), rtol=0, atol=1e-5)
+
+
+# K2: the generic kernel (box_iou_rotated_pallas(..., kernel="generic")) ----
+
+def _pallas_generic(gts, an):
+    return np.asarray(box_iou_rotated_pallas(jnp.asarray(gts), jnp.asarray(an),
+                                             interpret=True, kernel="generic"))
+
+
+def test_generic_reference_matches_pallas_interpret():
+    gts, an = _case()
+    got = rik.box_iou_rotated_generic_reference(torch.from_numpy(gts),
+                                                torch.from_numpy(an)).numpy()
+    want = _pallas_generic(gts, an)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    K = len(gts)
+    np.testing.assert_allclose(got[np.arange(K), np.arange(K)], 1.0, atol=1e-5)
+    # crossed and touching anchors overlap their gt partly
+    assert (got[np.arange(K), K + np.arange(K)] > 0).all()
+    assert (got[np.arange(K), 2 * K + np.arange(K)] < 1).all()
+
+
+def test_generic_reference_batched_matches_pallas_vmapped():
+    gts, an = _case(seed=5)
+    gts_b = np.stack([gts, gts[::-1]]).astype(np.float32)
+    want = np.asarray(jax.vmap(
+        lambda g: box_iou_rotated_pallas(g, jnp.asarray(an), interpret=True,
+                                         kernel="generic")
+    )(jnp.asarray(gts_b)))
+    got = rik.box_iou_rotated_generic_reference(torch.from_numpy(gts_b),
+                                                torch.from_numpy(an)).numpy()
+    assert got.shape == want.shape == (2, len(gts), len(an))
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    # the same IoU as the rect kernel's plain version
+    rect = rik.box_iou_rotated_rect_reference(torch.from_numpy(gts_b),
+                                              torch.from_numpy(an)).numpy()
+    np.testing.assert_allclose(got, rect, atol=2e-4)
+
+
+def test_generic_wrapper_on_cpu_routes_to_plain_version():
+    gts, an = _case()
+    g, a = torch.from_numpy(gts), torch.from_numpy(an)
+    before = rik.GENERIC_LAUNCHES, rik.LAUNCHES
+    got = rik.box_iou_rotated_generic(g, a)
+    assert (rik.GENERIC_LAUNCHES, rik.LAUNCHES) == before
+    torch.testing.assert_close(got, rik.box_iou_rotated_generic_reference(g, a),
+                               rtol=0, atol=0)
+    got_b = rik.box_iou_rotated_generic(torch.stack([g, g]), a)
+    assert got_b.shape == (2, len(gts), len(an))
+    torch.testing.assert_close(got_b[1], got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "gt_shape", "anchor_shape", "strided", "devices"])
+def test_generic_wrapper_rejects_bad_inputs(bad):
+    gts, an = _case()
+    g, a = torch.from_numpy(gts), torch.from_numpy(an)
+    if bad == "dtype":
+        a = a.half()
+    elif bad == "gt_shape":
+        g = g[None, None]
+    elif bad == "anchor_shape":
+        a = a[:, :4].contiguous()
+    elif bad == "strided":
+        g = torch.from_numpy(np.ascontiguousarray(np.tile(gts, (1, 2))))[:, ::2]
+    else:
+        g = g.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        rik.box_iou_rotated_generic(g, a)
+
+
+@pytest.mark.cuda
+def test_generic_kernel_matches_plain_version_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gts, an = _case()
+    g = torch.from_numpy(np.stack([gts, gts[::-1]])).cuda()
+    a = torch.from_numpy(an).cuda()
+    before = rik.GENERIC_LAUNCHES
+    got = rik.box_iou_rotated_generic(g, a)
+    torch.cuda.synchronize()
+    assert rik.GENERIC_LAUNCHES == before + 1
+    want = rik.box_iou_rotated_generic_reference(g, a)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
+    K = len(gts)
+    diag = got[0, torch.arange(K), torch.arange(K)]
+    torch.testing.assert_close(diag, torch.ones_like(diag), rtol=0, atol=1e-5)
