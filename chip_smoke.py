@@ -6,10 +6,15 @@
 1. Checks for a card (exits non-zero without one) and prints its name and
    power limit.
 2. Builds the hand-written kernels from the sources in the checkout
-   (`jdet_torch/csrc/rotated_iou.cu`: K1, the rect IoU kernel of the
-   anchor assigner, and K2, the generic IoU kernel).
+   (`jdet_torch/csrc/rotated_iou.cu`: K1, the rect IoU, as a matrix kernel
+   and as the max-IoU assigner fused onto it; K2, the generic IoU kernel).
 3. Holds each kernel against its plain PyTorch version on the card: the
-   edge cases of the CPU tests and the main path's shape; times both.
+   edge cases of the CPU tests and the main path's shapes; times both.
+   K1's matrix route at the NMS's (30, 512, 512) per-class self-IoU, timed
+   against the plain path `predict` ran before it (in turns); the fused
+   assigner at the train step's (4, 512, 196416), identical to the
+   unfused route (K1's matrix, then the PyTorch assigner) and timed
+   against it in turns, and within atol of the plain version on the CPU.
 4. Builds Rotated RetinaNet-OBB R50-FPN from
    `configs/rotated_retinanet_obb_r50_fpn_1x_dota.py` at full width with
    random weights, checks the card against the CPU on a small input, then
@@ -27,12 +32,15 @@
    line `{"ok": true, "device": {...}}`.
 
 Each path (serving, K2's entry point, training) runs with the launch
-counters set to 0 just before it and read just after.
+counters set to 0 just before it and read just after: one fused assigner
+launch per loss forward and per train step, one K1 matrix launch per
+`predict`.
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +64,20 @@ IOU_FLOPS_PER_PAIR_GENERIC = 700
 # warmup (500 iterations); the milestones (epochs 8, 11) lie far beyond.
 STEPS_PER_EPOCH = 1000
 CONFIG = Path(__file__).resolve().parent / "configs/rotated_retinanet_obb_r50_fpn_1x_dota.py"
+
+
+# each kernel's launch counter in jdet_torch/ops/rotated_iou_kernel.py
+COUNTERS = {"rotated_iou_rect": "LAUNCHES", "max_iou_assign_rect": "ASSIGN_LAUNCHES",
+            "rotated_iou_generic": "GENERIC_LAUNCHES"}
+
+
+def launch_counts(rik):
+    return {name: getattr(rik, attr) for name, attr in COUNTERS.items()}
+
+
+def reset_launch_counts(rik):
+    for attr in COUNTERS.values():
+        setattr(rik, attr, 0)
 
 
 def check(cond, msg):
@@ -118,57 +140,114 @@ def to_device(images, targets, device):
             {k: torch.as_tensor(v, device=device) for k, v in targets.items()})
 
 
-def edge_case_boxes(K=10, N=300, seed=3):
-    """Identical, crossed and touching anchors beside random ones (the
-    cases of tests/test_torch_iou_kernel.py)."""
-    rng = np.random.RandomState(seed)
-
-    def boxes(n):
-        return np.stack([rng.uniform(0, 500, n), rng.uniform(0, 500, n),
-                         rng.uniform(8, 200, n), rng.uniform(8, 120, n),
-                         rng.uniform(-np.pi, np.pi, n)], 1).astype(np.float32)
-
-    gts, an = boxes(K), boxes(N)
-    an[:K] = gts
-    an[K:2 * K] = gts
-    an[K:2 * K, 4] += np.pi / 2
-    an[2 * K:3 * K] = gts
-    an[2 * K:3 * K, 0] += gts[:, 2]
-    return np.stack([gts, gts[::-1]]), an
-
-
-def touching_pairs(gts, anchors):
-    """Pairs that pass the kernel's circle pre-test (its data-dependent
-    work)."""
-    g = gts.reshape(-1, 5)
+def touching_pairs(gts, anchors, gt_mask=None):
+    """Pairs that pass the kernels' circle pre-test (their data-dependent
+    work): gts (B, K, 5) against anchors (N, 5) or (B, N, 5), over the
+    gts of `gt_mask` if given."""
     n = 0
-    for lo in range(0, g.shape[0], 64):
-        gb = g[lo:lo + 64, None, :]
-        d2 = ((anchors[None, :, :2] - gb[..., :2]) ** 2).sum(-1)
-        rsum = 0.5 * (gb[..., 2] + gb[..., 3] + anchors[None, :, 2] + anchors[None, :, 3])
-        n += int((d2 < rsum * rsum).sum())
+    for b in range(gts.shape[0]):
+        a = anchors[b] if anchors.dim() == 3 else anchors
+        g = gts[b] if gt_mask is None else gts[b][gt_mask[b]]
+        for lo in range(0, g.shape[0], 64):
+            gb = g[lo:lo + 64, None, :]
+            d2 = ((a[None, :, :2] - gb[..., :2]) ** 2).sum(-1)
+            rsum = 0.5 * (gb[..., 2] + gb[..., 3] + a[None, :, 2] + a[None, :, 3])
+            n += int((d2 < rsum * rsum).sum())
     return n
 
 
+def in_turns(old, new, iters=10):
+    """Median ms of old, new, new, old (in that order); returns the mean
+    of each pair and the four medians."""
+    t = [median_ms(fn, iters=iters) for fn in (old, new, new, old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def peak_bytes(fn):
+    """Device memory that fn() holds at its peak beyond what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def device_profile(fn, iters=5):
+    """fn() under torch.profiler: device ms per call of each kernel it
+    launches (by short name, busiest first; empty if the profiler saw no
+    device time), their sum, and the wall ms per call of the same window,
+    from the synchronize before the first call to the one after the last
+    (the profiler's own overhead included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ours = re.search(r"(assign_pass\d_kernel|rotated_iou_(?:rect|generic)_kernel)", e.key)
+            name = ours.group(1) if ours else re.sub(r"^void |<.*", "", e.key)[:48]
+            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total / 1e3 / iters
+    kernels = dict(sorted(kernels.items(), key=lambda kv: -kv[1]))
+    return kernels, sum(kernels.values()), wall_ms
+
+
+def bound(nbytes, ops):
+    """(bound ms, what bounds it) from the bytes moved and the float32
+    operations, at the H100's peaks."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def nms_candidates(B=2, C=15, K=512, seed=7):
+    """The NMS's per-class candidates at predict's shapes: B images x C
+    classes x K boxes, uniform over a 1024² tile, as (B * C, K, 5)."""
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(np.stack([
+        rng.uniform(0, 1024, (B * C, K)), rng.uniform(0, 1024, (B * C, K)),
+        rng.uniform(10, 200, (B * C, K)), rng.uniform(10, 100, (B * C, K)),
+        rng.uniform(-np.pi / 4, 3 * np.pi / 4, (B * C, K))], -1),
+        dtype=torch.float32, device="cuda")
+
+
 def check_iou_kernel(rik, head):
-    """The IoU kernel against its plain version on the card; returns its
-    entry of the kernels line (launches filled in later)."""
+    """K1's matrix route against its plain version on the card; times it
+    at the NMS's per-class self-IoU against the plain path `predict` ran
+    before. Returns its entry of the kernels line (launches filled in
+    later)."""
+    from jdet_torch.ops import box_iou_rotated
+    from jdet_torch.utils.edge_cases import edge_case_boxes
+
     dev = "cuda"
     g, a = edge_case_boxes()
     g, a = torch.as_tensor(g, device=dev), torch.as_tensor(a, device=dev)
-    got = rik.box_iou_rotated_rect(g, a)
-    want = rik.box_iou_rotated_rect_reference(g, a)
-    torch.cuda.synchronize()
-    err_edge = (got - want).abs().max().item()
+    a2 = torch.stack([a, a.flip(0)])  # per-image anchors
+    err_edge = 0.0
+    for anchors in (a, a2):
+        got = rik.box_iou_rotated_rect(g, anchors)
+        want = rik.box_iou_rotated_rect_reference(g, anchors)
+        torch.cuda.synchronize()
+        err_edge = max(err_edge, (got - want).abs().max().item())
     K = g.shape[1]
     diag = got[0, torch.arange(K), torch.arange(K)]
     diag_err = (diag - 1).abs().max().item()
-    log(f"iou kernel, edge cases (2, {K}, {a.shape[0]}): max_abs_err={err_edge:.3e} "
-        f"diag_err={diag_err:.3e}")
+    log(f"iou kernel, edge cases (2, {K}, {a.shape[0]}), shared and per-image anchors: "
+        f"max_abs_err={err_edge:.3e} diag_err={diag_err:.3e}")
     check(err_edge <= 2e-4, f"edge cases disagree: {err_edge}")
     check(diag_err <= 1e-5, f"identical boxes: IoU off 1 by {diag_err}")
 
-    # the main path's shape: all anchors at 1024², gts of B=2 x K=32 (8 real)
+    # the loss forward's shape before the fused assigner: B=2 x K=32 (8 real)
     sizes = [(1024 // s, 1024 // s) for s in head.anchor_strides]
     anchors = head._flat_anchors(sizes, dev)
     _, t = synth_batch(2, 1024)
@@ -180,47 +259,203 @@ def check_iou_kernel(rik, head):
     want = rik.box_iou_rotated_rect_reference(gts, anchors)
     torch.cuda.synchronize()
     err_main = (got - want).abs().max().item()
-    log(f"iou kernel, main path ({B}, {K}, {N}): max_abs_err={err_main:.3e} "
-        f"nonzero={int((got > 0).sum())}")
-    check(err_main <= 2e-4, f"main-path shape disagrees: {err_main}")
+    log(f"iou kernel ({B}, {K}, {N}): max_abs_err={err_main:.3e} "
+        f"nonzero={int((got > 0).sum())}, "
+        f"{median_ms(lambda: rik.box_iou_rotated_rect(gts, anchors), iters=20):.4f} ms")
+    check(err_main <= 2e-4, f"(2, 32, N) disagrees: {err_main}")
     check(torch.isfinite(got).all().item(), "non-finite IoU")
 
-    ms = median_ms(lambda: rik.box_iou_rotated_rect(gts, anchors), iters=20)
-    plain_ms = median_ms(lambda: rik.box_iou_rotated_rect_reference(gts, anchors))
-    nbytes = (B * K * 5 + N * 5 + B * K * N) * 4
-    touching = touching_pairs(gts.cpu().numpy(), anchors.cpu().numpy())
-    ops = IOU_FLOPS_PER_TOUCHING_PAIR * touching
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    log(f"iou kernel timing: {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms = max(bytes {nbytes} -> {bytes_ms:.4f}, "
-        f"ops {ops} for {touching} touching pairs -> {ops_ms:.4f})")
-
-    # the config's gt budget (max_gt=512), kernel alone: 512 real gts per image
-    _, t512 = synth_batch(2, 1024, K=512, real=512, seed=1)
-    g512 = torch.as_tensor(t512["gt_bboxes"], device=dev)
-    ms512 = median_ms(lambda: rik.box_iou_rotated_rect(g512, anchors))
-    log(f"iou kernel at (2, 512, {N}): {ms512:.4f} ms, output "
-        f"{2 * 512 * N * 4} bytes -> bytes bound "
-        f"{2 * 512 * N * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    # the main path's matrix route: predict's per-class NMS self-IoU
+    cand = nms_candidates()
+    B, K = cand.shape[:2]
+    got = rik.box_iou_rotated_rect(cand, cand)
+    want = rik.box_iou_rotated_rect_reference(cand, cand)
+    torch.cuda.synchronize()
+    err_nms = (got - want).abs().max().item()
+    diag_err = (got.diagonal(dim1=1, dim2=2) - 1).abs().max().item()
+    log(f"iou kernel, NMS self-IoU ({B}, {K}, {K}): max_abs_err={err_nms:.3e} "
+        f"diag_err={diag_err:.3e} nonzero={int((got > 0).sum())}")
+    check(err_nms <= 2e-4 and diag_err <= 1e-5, f"NMS self-IoU disagrees: {err_nms}, {diag_err}")
+    cand4 = cand.reshape(2, 15, K, 5)
+    old_ms, ms, turns = in_turns(lambda: box_iou_rotated(cand4, cand4, impl="xla"),
+                                 lambda: rik.box_iou_rotated_rect(cand, cand))
+    plain_ms = median_ms(lambda: rik.box_iou_rotated_rect_reference(cand, cand))
+    kernels, device_ms, _ = device_profile(lambda: rik.box_iou_rotated_rect(cand, cand))
+    log(f"NMS self-IoU on K1 under the profiler, device ms per call: {kernels}")
+    nbytes = (2 * B * K * 5 + B * K * K) * 4
+    touching = touching_pairs(cand, cand)
+    bound_ms, bound_by = bound(nbytes, IOU_FLOPS_PER_TOUCHING_PAIR * touching)
+    log(f"NMS self-IoU ({B}, {K}, {K}), in turns old/new/new/old {turns}: plain path "
+        f"(predict before) {old_ms:.4f} ms, K1 {ms:.4f} ms (rect plain version "
+        f"{plain_ms:.4f} ms); bound {bound_ms:.4f} ms by {bound_by} (bytes {nbytes}, "
+        f"{touching} touching pairs x {IOU_FLOPS_PER_TOUCHING_PAIR} flops)")
     return {
         "name": "rotated_iou_rect",
         "route": "cuda",
         "source": "jdet_torch/csrc/rotated_iou.cu",
         "replaces": "jdet_tpu/ops/pallas_iou.py:148",
         "launches": None,
-        "max_abs_err": max(err_edge, err_main),
+        "max_abs_err": max(err_edge, err_main, err_nms),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
+        "shape": [B, K, K],
+        "device_ms": device_ms,
+        "old_route_ms": old_ms,
+    }
+
+
+def decisive_anchors(ov, gt_mask):
+    """(B, N) mask of the anchors whose assignment no change below 1e-5 in
+    an IoU can flip: the max IoU off 0.4 and 0.5, no second gt within 1e-5
+    of a positive's best, and no IoU within 1e-5 of its gt's max."""
+    ov = ov.masked_fill(~gt_mask[..., None], float("-inf"))
+    top2 = ov.topk(2, dim=1).values
+    mo = top2[:, 0]
+    ok = ((mo - 0.4).abs() >= 1e-5) & ((mo - 0.5).abs() >= 1e-5)
+    ok &= ~((mo >= 0.5 - 1e-5) & (top2[:, 0] - top2[:, 1] < 1e-5))
+    return ok & ~((ov - ov.amax(-1, keepdim=True)).abs() < 1e-5).any(1)
+
+
+def check_assign_kernel(rik, anchors):
+    """The fused assigner on the card: identical to the unfused route (K1's
+    matrix, then the PyTorch assigner) on the edge cases and at the train
+    step's shape, within atol of the plain version on the CPU, and timed
+    against the unfused route in turns. Returns its entry of the kernels
+    line (launches filled in later)."""
+    from jdet_torch.models.boxes.assigner import assign_wrt_overlaps, max_iou_assign_rotated
+    from jdet_torch.ops import box_iou_rotated
+    from jdet_torch.utils.edge_cases import ASSIGN_CASES, assign_edge_case
+
+    thr = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+
+    def assign(gts, mask, labels, an, am):
+        """The assigner's entry point, which on the card launches the
+        fused kernel."""
+        return max_iou_assign_rotated(an, gts, mask, labels, anchor_mask=am, **thr)
+
+    def unfused(gts, mask, labels, an, am):
+        """The route the fused kernel replaces: K1's matrix, then the
+        PyTorch assigner."""
+        ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), an)
+        return assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **thr)
+
+    def plain(gts, mask, labels, an, am, iou_chunk=512):
+        """The plain version on any device: the assigner on the matrix of
+        the differentiable IoU path, `iou_chunk` gt rows at a time."""
+        ov = box_iou_rotated(rik.park_masked_boxes(gts, mask), an, chunk=iou_chunk, impl="xla")
+        return assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **thr)
+
+    def routes(gts, mask, labels, an, am, iou_chunk=512):
+        """Fused and unfused on the card, checked identical, and the plain
+        version on the CPU with its max_overlaps error."""
+        fused = assign(gts, mask, labels, an, am)
+        want = unfused(gts, mask, labels, an, am)
+        cpu = plain(*(None if x is None else x.cpu() for x in (gts, mask, labels, an, am)),
+                    iou_chunk=iou_chunk)
+        for k in fused:
+            check(fused[k].dtype == want[k].dtype and torch.equal(fused[k], want[k]),
+                  f"fused assigner: {k} differs from the unfused route")
+        mo, mo_cpu = fused["max_overlaps"].cpu(), cpu["max_overlaps"]
+        check(torch.equal(torch.isfinite(mo), torch.isfinite(mo_cpu)), "-inf slots differ")
+        fin = torch.isfinite(mo_cpu)
+        return fused, cpu, (mo[fin] - mo_cpu[fin]).abs().max().item()
+
+    err = 0.0
+    for name in ASSIGN_CASES:
+        gts, mask, labels, an, am, about = assign_edge_case(name)
+        am = None if am is None else torch.as_tensor(am, device="cuda")
+        fused, cpu, e = routes(*(torch.as_tensor(x, device="cuda")
+                                 for x in (gts, mask, labels, an)), am)
+        for k in ("gt_inds", "labels"):
+            check(torch.equal(fused[k].cpu(), cpu[k]), f"{name}: {k} differs from the CPU")
+        err = max(err, e)
+        log(f"fused assigner, {name}: identical to the unfused route, matches the CPU "
+            f"(max_overlaps err {e:.2e}); gt_inds at {about}: "
+            f"{fused['gt_inds'][0, about].tolist()}")
+    check(err <= 2e-4, f"edge cases: max_overlaps off the CPU by {err}")
+
+    # the train step's shape: B=4 x 512 gt slots, 64 real, all anchors
+    _, t = synth_batch(4, 1024, K=512, real=64, seed=3)
+    gts, mask, labels = (torch.as_tensor(t[k], device="cuda")
+                         for k in ("gt_bboxes", "gt_mask", "gt_labels"))
+    am = torch.ones(anchors.shape[0], dtype=torch.bool, device="cuda")
+    B, K, N = gts.shape[0], gts.shape[1], anchors.shape[0]
+    fused = assign(gts, mask, labels, anchors, am)
+    want = unfused(gts, mask, labels, anchors, am)
+    for k in fused:
+        check(torch.equal(fused[k], want[k]), f"train shape: {k} differs from the unfused route")
+    # the CPU plain version on the real slots (the first 64; padding slots
+    # are -inf and claim nothing in every route)
+    real = int(mask.sum(1).max())
+    check(bool(mask[:, :real].all()) and not mask[:, real:].any(), "real gts not first")
+    t0 = time.perf_counter()
+    _, cpu, e = routes(gts[:, :real].contiguous(), mask[:, :real].contiguous(),
+                       labels[:, :real].contiguous(), anchors, am, iou_chunk=16)
+    cpu_s = time.perf_counter() - t0
+    ov = rik.box_iou_rotated_rect(gts[:, :real].contiguous(), anchors)
+    ok = decisive_anchors(ov, mask[:, :real]).cpu()
+    del ov
+    agree = {k: int((fused[k].cpu()[ok] != cpu[k][ok]).sum()) for k in ("gt_inds", "labels")}
+    log(f"fused assigner ({B}, {K}, {N}), {real} real gts: identical to the unfused route; "
+        f"vs the CPU plain version ({cpu_s:.1f} s): max_overlaps err {e:.2e}, "
+        f"{int(ok.sum())} of {ok.numel()} anchors decisive, disagreements there {agree}, "
+        f"positives {int((fused['gt_inds'] > 0).sum())}")
+    check(e <= 2e-4 and ok.float().mean() > 0.99 and not any(agree.values()),
+          "train shape: the fused assigner is off the CPU plain version")
+    err = max(err, e)
+
+    old_ms, ms, turns = in_turns(
+        lambda: unfused(gts, mask, labels, anchors, am),
+        lambda: assign(gts, mask, labels, anchors, am))
+    matrix_ms = median_ms(lambda: rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask),
+                                                           anchors))
+    # the plain version on the card, its IoU rows in chunks of 32 gts
+    plain_ms = median_ms(lambda: plain(gts, mask, labels, anchors, am, iou_chunk=32),
+                         warmup=1, iters=3)
+    kernels, device_ms, _ = device_profile(
+        lambda: assign(gts, mask, labels, anchors, am))
+    log(f"fused assigner under the profiler, device ms per call: {kernels} "
+        f"(sum {device_ms:.4f}; the rest of the {ms:.4f} ms is the host's)")
+    mem = {name: peak_bytes(fn) for name, fn in (
+        ("unfused", lambda: unfused(gts, mask, labels, anchors, am)),
+        ("fused", lambda: assign(gts, mask, labels, anchors, am)))}
+    nbytes = B * K * (5 * 4 + 1 + 8) + N * (5 * 4 + 1) + B * N * (8 + 4 + 8)
+    touching = touching_pairs(gts, anchors, mask)
+    bound_ms, bound_by = bound(nbytes, IOU_FLOPS_PER_TOUCHING_PAIR * touching)
+    log(f"fused assigner ({B}, {K}, {N}), in turns old/new/new/old {turns}: unfused "
+        f"route {old_ms:.4f} ms (K1 matrix alone {matrix_ms:.4f} ms), fused {ms:.4f} ms, "
+        f"plain version {plain_ms:.4f} ms; peak bytes {mem}; bound {bound_ms:.4f} ms by "
+        f"{bound_by} (bytes {nbytes}, {touching} touching pairs x "
+        f"{IOU_FLOPS_PER_TOUCHING_PAIR} flops)")
+    return {
+        "name": "max_iou_assign_rect",
+        "route": "cuda",
+        "source": "jdet_torch/csrc/rotated_iou.cu",
+        "replaces": "jdet_tpu/ops/pallas_iou.py:148",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [B, K, N],
+        "device_ms": device_ms,
+        "device_ms_by_kernel": kernels,
+        "old_route_ms": old_ms,
+        "old_route_matrix_ms": matrix_ms,
+        "peak_bytes": mem,
     }
 
 
 def check_generic_kernel(rik, anchors):
     """K2 against its plain version on the card; returns its entry of the
     kernels line (launches filled in later) and its main-path gts."""
+    from jdet_torch.utils.edge_cases import edge_case_boxes
+
     dev = "cuda"
     g, a = edge_case_boxes()
     g, a = torch.as_tensor(g, device=dev), torch.as_tensor(a, device=dev)
@@ -333,7 +568,8 @@ def build_trainer(cfg, model, augment=True):
 def check_train_card_against_cpu(cfg, rik):
     """Two train steps of the full-width model with the same random
     weights on the card and on the CPU, B=1 at 512² (the card's assigner
-    takes K1, the CPU's the plain version), augmentation off."""
+    takes the fused kernel, the CPU's the plain version), augmentation
+    off."""
     from jdet_torch.models.builder import build_detector
 
     models = {dev: build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
@@ -364,10 +600,11 @@ def check_train_card_against_cpu(cfg, rik):
     for dev, m in models.items():
         step = build_trainer(cfg, m, augment=False)[0]
         x, t = to_device(images, targets, dev)
-        launches = rik.LAUNCHES
+        launches = rik.ASSIGN_LAUNCHES
         losses[dev] = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
         if dev == "cuda":
-            check(rik.LAUNCHES - launches == 2, "the card's train steps did not launch K1")
+            check(rik.ASSIGN_LAUNCHES - launches == 2,
+                  "the card's train steps did not launch the fused assigner")
     log(f"train card vs cpu at 512², B=1, batch seed {seed}: losses "
         f"{losses['cuda']} vs {losses['cpu']}")
     for it in range(2):
@@ -402,25 +639,26 @@ def train_at_config_traffic(cfg, model, rik):
     # the training path, with the launch counters read around it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rik.LAUNCHES = rik.GENERIC_LAUNCHES = 0
+    reset_launch_counts(rik)
     log_vars, per_step = [], []
     for it in range(20):
-        before = rik.LAUNCHES
+        before = rik.ASSIGN_LAUNCHES
         log_vars.append(step(images, targets, it))
-        per_step.append(rik.LAUNCHES - before)
+        per_step.append(rik.ASSIGN_LAUNCHES - before)
     torch.cuda.synchronize()
-    launches = {"rotated_iou_rect": rik.LAUNCHES, "rotated_iou_generic": rik.GENERIC_LAUNCHES}
+    launches = launch_counts(rik)
     peak = torch.cuda.max_memory_allocated()
     losses = [{k: v.item() for k, v in lv.items()} for lv in log_vars]
     for it, lv in enumerate(losses):
         log(f"train step {it}: " + " ".join(f"{k}={v:.6f}" for k, v in lv.items())
             + f" lr={opt.lr_schedule(it):.6g}")
-    log(f"training path: launches {launches} (K1 per step {per_step}), "
+    log(f"training path: launches {launches} (fused assigner per step {per_step}), "
         f"peak memory {peak} bytes")
     check(all(np.isfinite(v) for lv in losses for v in lv.values()), "non-finite train loss")
     check(losses[-1]["total_loss"] < losses[0]["total_loss"],
           f"the loss did not fall: {losses[0]['total_loss']} -> {losses[-1]['total_loss']}")
-    check(min(per_step) >= 1, f"K1 not launched in every train step: {per_step}")
+    check(per_step == [1] * 20 and launches["rotated_iou_rect"] == 0,
+          f"not one fused assigner launch per train step: {per_step}, {launches}")
 
     counter = iter(range(20, 10**6))
     times = {"train_step_ms": median_ms(lambda: step(images, targets, next(counter)))}
@@ -449,14 +687,23 @@ def train_at_config_traffic(cfg, model, rik):
                 parts[k].append(ev[a].elapsed_time(ev[b]))
     times.update({k: float(np.median(v)) for k, v in parts.items()})
     times["peak_memory_bytes"] = peak
+    # device time and wall time of the same 3 profiled steps
+    kernels, device_ms, wall_ms = device_profile(lambda: step(images, targets, next(counter)),
+                                                 iters=3)
+    times["profiled_step_device_ms"] = device_ms
+    times["profiled_step_wall_ms"] = wall_ms
+    times["device_busy_share"] = device_ms / wall_ms
     log(f"train step at 1024², B=4, K=512 (median of 10 after 3): {json.dumps(times)}")
+    log("train step under the profiler, the 8 busiest kernels, device ms per step: "
+        + json.dumps(dict(list(kernels.items())[:8])))
     return launches
 
 
 def check_card_against_cpu(model, cpu_model):
     """The full-width model on the card against the same weights on the
     CPU, B=1 at 512² (large enough that the card's assigner takes the
-    kernel, the CPU's the plain version)."""
+    fused kernel, the CPU's the plain version; the card's NMS IoU takes K1,
+    the CPU's the plain path)."""
     images, targets = synth_batch(1, 512, seed=5)
     out = {}
     for name, m, dev in (("cuda", model, "cuda"), ("cpu", cpu_model, "cpu")):
@@ -499,7 +746,6 @@ def main():
 
     from jdet_torch.config import load_cfg_file
     from jdet_torch.models.builder import build_detector
-    from jdet_torch.ops import box_iou_rotated
     from jdet_torch.ops import rotated_iou_kernel as rik
 
     t0 = time.perf_counter()
@@ -519,6 +765,7 @@ def main():
     entry = check_iou_kernel(rik, head)
     anchors = head._flat_anchors([(1024 // st, 1024 // st) for st in head.anchor_strides],
                                  "cuda")
+    assign_entry = check_assign_kernel(rik, anchors)
     generic_entry, generic_gts = check_generic_kernel(rik, anchors)
 
     cpu_model = build_detector(cfg, device="cpu", seed=0, load_pretrained=False)
@@ -541,19 +788,22 @@ def main():
     # the serving path, once, with the launch counts read around it
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rik.LAUNCHES = rik.GENERIC_LAUNCHES = 0
+    reset_launch_counts(rik)
     losses = loss_fwd()
     torch.cuda.synchronize()
-    loss_launches = rik.LAUNCHES
+    loss_launches = launch_counts(rik)
     det = predict(test_cfg["score_thr"])
     det0 = predict(0.0)
     torch.cuda.synchronize()
-    serving_launches = {"rotated_iou_rect": rik.LAUNCHES,
-                        "rotated_iou_generic": rik.GENERIC_LAUNCHES}
+    serving_launches = launch_counts(rik)
     peak = torch.cuda.max_memory_allocated()
     log(f"serving path: launches {serving_launches} (loss forward {loss_launches}), "
         f"peak memory {peak} bytes")
-    check(loss_launches >= 1, "the loss forward did not launch the IoU kernel")
+    check(loss_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 1,
+                            "rotated_iou_generic": 0},
+          f"not one fused assigner launch in the loss forward: {loss_launches}")
+    check(serving_launches["rotated_iou_rect"] == 2,
+          f"not one K1 matrix launch per predict: {serving_launches}")
 
     lv = {k: v.item() for k, v in losses.items()}
     log(f"losses at 1024², B=2: {lv}")
@@ -580,13 +830,8 @@ def main():
         head.test_cfg = dict(test_cfg, score_thr=score_thr)
         return head.predict(outs)
 
-    # the NMS's per-class IoU blocks alone: 15 classes x 512 candidates
-    rng = np.random.RandomState(7)
-    cand = torch.as_tensor(np.stack([
-        rng.uniform(0, 1024, (2, 15, 512)), rng.uniform(0, 1024, (2, 15, 512)),
-        rng.uniform(10, 200, (2, 15, 512)), rng.uniform(10, 100, (2, 15, 512)),
-        rng.uniform(-np.pi / 4, 3 * np.pi / 4, (2, 15, 512))], -1),
-        dtype=torch.float32, device="cuda")
+    # the NMS's per-class IoU blocks alone, as predict runs them
+    cand = nms_candidates()
 
     thr = test_cfg["score_thr"]
     times = {"loss_forward_ms": median_ms(loss_fwd, warmup=2, iters=10)}
@@ -598,7 +843,7 @@ def main():
             ("head_loss_ms", lambda: head.loss(outs, targets)),
             ("head_predict_ms", lambda: head_predict(thr)),
             ("head_predict_score_thr0_ms", lambda: head_predict(0.0)),
-            ("nms_class_iou_ms", lambda: box_iou_rotated(cand, cand)),
+            ("nms_class_iou_ms", lambda: rik.box_iou_rotated_rect(cand, cand)),
         ):
             times[name] = median_ms(fn, warmup=2, iters=10)
     log(f"phases at 1024², B=2 (median of 10): {json.dumps(times)}")
@@ -607,11 +852,10 @@ def main():
     from jdet_torch.ops import box_iou_rotated_generic
 
     torch.cuda.synchronize()
-    rik.LAUNCHES = rik.GENERIC_LAUNCHES = 0
+    reset_launch_counts(rik)
     iou = box_iou_rotated_generic(generic_gts, anchors)
     torch.cuda.synchronize()
-    generic_launches = {"rotated_iou_rect": rik.LAUNCHES,
-                        "rotated_iou_generic": rik.GENERIC_LAUNCHES}
+    generic_launches = launch_counts(rik)
     log(f"generic iou path: launches {generic_launches}, output {tuple(iou.shape)}")
     check(generic_launches["rotated_iou_generic"] == 1, "the entry point did not launch K2")
     check(iou.shape == (2, 32, 196416) and torch.isfinite(iou).all().item()
@@ -625,10 +869,11 @@ def main():
     # point, training (20 steps)
     paths = {"serving": serving_launches, "generic_iou": generic_launches,
              "train_20_steps": train_launches}
-    for e in (entry, generic_entry):
+    kernels = [entry, assign_entry, generic_entry]
+    for e in kernels:
         e["launches_by_path"] = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())
-    log(json.dumps({"kernels": [entry, generic_entry]}))
+    log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

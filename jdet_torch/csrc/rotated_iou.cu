@@ -1,50 +1,85 @@
-// Pairwise rotated IoU of K gts against N anchors, for a batch of B images
-// that share one anchor set: out[b, k, n] = IoU(gt[b, k], anchor[n]).
-// Two kernels, one per Pallas body: the rect kernel (rotated_iou_rect) and,
-// further down, the generic kernel (rotated_iou_generic).
+// Rotated IoU of K gts against N anchors, for a batch of B images, as
+// three entry points: the rect matrix kernel (rotated_iou_rect), the max-IoU
+// assigner fused onto the same IoU (max_iou_assign_rect) and, further down,
+// the generic matrix kernel (rotated_iou_generic).
 //
-// The rect kernel replaces jdet_tpu/ops/pallas_iou.py::_iou_kernel_rect
-// (the Pallas body behind the anchor assigner's IoU matrix). Same math,
-// per pair: each box's
-// edges are clipped against the other box's axis-aligned slab in that box's
-// own frame (Liang-Barsky on a rectangle), the Green's-theorem cross terms
-// of both directions are summed, shared (collinear) edges weigh 1/2, and the
-// closed-loop origin correction cross(g_c - a_c, D1) joins the two frames.
-// Corners are kept relative to each box's center (fp32 stays precise at
-// image coordinates ~1e3). Forward only.
+// The rect IoU replaces jdet_tpu/ops/pallas_iou.py::_iou_kernel_rect (the
+// Pallas body behind the anchor assigner's IoU matrix). Same math, per
+// pair: each box's edges are clipped against the other box's axis-aligned
+// slab in that box's own frame (Liang-Barsky on a rectangle), the Green's-
+// theorem cross terms of both directions are summed, shared (collinear)
+// edges weigh 1/2, and the closed-loop origin correction
+// cross(g_c - a_c, D1) joins the two frames. Corners are kept relative to
+// each box's center (fp32 stays precise at image coordinates ~1e3).
+// Forward only.
 //
 // Operands: boxes as (cx, cy, w, h, theta), float32, contiguous.
 //   gt      (B, K, 5): a block's gts are expanded once into shared memory.
-//   anchors (N, 5): shared by the B images; neighbouring threads read
+//   anchors (N, 5) shared by the B images, or (B, N, 5) one set per image
+//           (the batch stride is 0 or N*5); neighbouring threads read
 //           neighbouring anchors.
-//   out     (B, K, N) float32.
 // Each box is expanded to the first 15 values of the plain version's rows
 // (jdet_torch/ops/rotated_iou_kernel.py::_rect_rows): relx0-3, rely0-3,
-// cx, cy, w/2, h/2, cos, sin, area. A thread expands its anchor only when
-// the pair can touch.
+// cx, cy, w/2, h/2, cos, sin, area. Every kernel here runs one copy of the
+// expansion (expand_rect_row) and of the pair IoU (pair_iou, whose clip
+// math touching_iou is not inlined), so the fused assigner's IoUs are the
+// bits the matrix kernel writes, and its "IoU == the gt's max" test agrees
+// with the plain PyTorch assigner run on the matrix.
 //
-// What bounds it on an H100: the B*K*N*4-byte output write (50 MB at
-// B=2, K=32, N=196,416; 15 us at 3.35 TB/s), plus about 300 flops for each
-// pair whose boxes can touch. Most pairs cannot: anchors tile the image,
-// gts are small, and padding gts are parked at FAR_CENTER. The design
-// answer is a per-pair early-out: one thread per (gt, anchor) pair tests
+// rotated_iou_rect: out (B, K, N) float32, one thread per pair. What
+// bounds it on an H100: the B*K*N*4-byte output write (at the NMS's
+// (30, 512, 512), 31 MB: 9 us at 3.35 TB/s), plus about 300 flops for each
+// pair whose boxes can touch. Most pairs cannot, so each pair first tests
 // the circle bound |c_a - c_g| < (w_g+h_g)/2 + (w_a+h_a)/2 and writes 0
 // without the clip math when it fails (the TPU kernel's per-tile test gave
-// the same zeros). Fusing the assigner's max/argmax so that the matrix is
-// never written is left for later.
+// the same zeros). Padding gts parked at FAR_CENTER fail it too.
+//
+// max_iou_assign_rect: the assigner of jdet_tpu/models/boxes/assigner.py
+// (assign_wrt_overlaps :45 on the IoU of max_iou_assign_rotated :135), with
+// the (B, K, N) matrix never written. Outputs per (image, anchor): gt_inds
+// int64 (-1 ignore, 0 negative, k+1 positive), max_overlaps float32 (-inf
+// for a masked anchor, 0 in an image with no real gt) and labels int64.
+// What bounds it: the bytes are the boxes in and 20 bytes out per (image,
+// anchor) (at the train step's (4, 512, 196416), 20 MB: 6 us), and the
+// operations are ~300 flops per touching pair of a real gt and an anchor
+// (~3e6 pairs there: 1e9 flops, 15 us at 67 TFLOP/s fp32). Two passes,
+// one thread per anchor, blocks of kAssignThreads anchors of one image:
+//   pass 1: the block stages its image's real gts, kAssignThreads at a
+//     time, in shared memory and keeps those whose circle can reach the
+//     bounding box of the block's anchor circles (a conservative cull:
+//     every gt it drops fails each pair's circle test, so its IoU is the 0
+//     that pair_iou gives). Each thread takes its anchor's max IoU and the
+//     first gt index reaching it; a real gt that is culled or does not
+//     touch has IoU 0, so the max starts at 0 with the first real gt. The
+//     gts' maxima over anchors (gt_max) come from warp reductions and an
+//     atomicMax on the float's bits into a (B, K) int32 scratch that the
+//     wrapper zeroes: IoU >= 0, so the bit order is the value order, and a
+//     max does not depend on the order of the atomics.
+//   pass 2: each eligible gt (real, gt_max >= min_pos_iou, some anchor
+//     unmasked) claims the anchors whose IoU equals its gt_max; the largest
+//     claiming gt index wins. For gt_max > 0 only touching pairs can be
+//     equal, so pass 2 recomputes those of the block's culled list. A gt
+//     with gt_max == 0 has IoU 0 against every anchor and so claims every
+//     unmasked one (the reference's and mmdet's behaviour, e.g. for a gt
+//     outside all anchors): per image, k0 = the largest such k, and an
+//     anchor's claim is max(k0, its pass-2 claim).
 //
 // Built without --use_fast_math: the parallel and collinear tolerances
 // (1e-5 * scale + 1e-12 here, 1e-6 / 1e-5 * qn * |.| + 1e-12 in the generic
 // kernel) compare against IEEE division and products.
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
 constexpr int kRows = 15;     // floats per expanded gt
 constexpr int kBlockN = 128;  // anchors per block (threadIdx.x)
 constexpr int kBlockK = 4;    // gts per block (threadIdx.y)
+constexpr int kAssignThreads = 128;  // anchors per block, gts per chunk
+constexpr int kAssignWarps = kAssignThreads / 32;
 constexpr float kParEps = 1e-12f;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // Green contributions of the edges (px, py) clipped to the rect
 // [-w2, w2] x [-h2, h2]: sum cross(u, v) and sum (v - u).
@@ -107,82 +142,327 @@ __device__ __forceinline__ void rel_corners(float w, float h, float cos_t,
   ry[3] = -ry[1];
 }
 
+// A (cx, cy, w, h, theta) gt expanded to its 15 rect rows:
+// relx0-3, rely0-3, cx, cy, w/2, h/2, cos, sin, area.
+__device__ __noinline__ void expand_rect_row(const float* box, float* row) {
+  const float w = box[2], h = box[3];
+  float sin_t, cos_t;
+  sincosf(box[4], &sin_t, &cos_t);
+  rel_corners(w, h, cos_t, sin_t, row, row + 4);
+  row[8] = box[0];
+  row[9] = box[1];
+  row[10] = w * 0.5f;
+  row[11] = h * 0.5f;
+  row[12] = cos_t;
+  row[13] = sin_t;
+  row[14] = w * h;
+}
+
+// The circle pre-test: can the gt (expanded row g) and the anchor touch?
+// w2 + h2 >= half-diagonal, so rsum bounds the max overlap distance.
+// Rounded op by op (no contraction into FMAs), so every caller takes the
+// same branch.
+__device__ __forceinline__ bool circle_touch(const float* g, float acx,
+                                             float acy, float aw, float ah) {
+  const float dx = __fsub_rn(acx, g[8]);
+  const float dy = __fsub_rn(acy, g[9]);
+  const float rsum = __fadd_rn(__fadd_rn(g[10], g[11]),
+                               __fadd_rn(__fmul_rn(aw, 0.5f),
+                                         __fmul_rn(ah, 0.5f)));
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <
+         __fmul_rn(rsum, rsum);
+}
+
+// IoU of a gt row and an anchor (cx, cy, w, h, theta) that pass
+// circle_touch.
+__device__ __noinline__ float touching_iou(const float* g, float acx,
+                                           float acy, float aw, float ah,
+                                           float at) {
+  const float gcx = g[8], gcy = g[9], gw2 = g[10], gh2 = g[11];
+  const float gcos = g[12], gsin = g[13], g_area = g[14];
+  const float aw2 = aw * 0.5f, ah2 = ah * 0.5f;
+  const float dx_c = acx - gcx;
+  const float dy_c = acy - gcy;
+  float acos_, asin_;
+  sincosf(at, &asin_, &acos_);
+  const float a_area = aw * ah;
+  float arx[4], ary[4];
+  rel_corners(aw, ah, acos_, asin_, arx, ary);
+  float pax[4], pay[4], pgx[4], pgy[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    // anchor corners in the gt frame: R(-tg) @ (a_rel + d)
+    const float wx = arx[c] + dx_c;
+    const float wy = ary[c] + dy_c;
+    pax[c] = gcos * wx + gsin * wy;
+    pay[c] = gcos * wy - gsin * wx;
+    // gt corners in the anchor frame: R(-ta) @ (g_rel - d)
+    const float vx = g[c] - dx_c;
+    const float vy = g[4 + c] - dy_c;
+    pgx[c] = acos_ * vx + asin_ * vy;
+    pgy[c] = acos_ * vy - asin_ * vx;
+  }
+  const float scale = fmaxf(gw2 + gh2, aw2 + ah2);
+  const float tol = 1e-5f * scale + kParEps;
+  float s1, d1x_l, d1y_l, s2, unused_x, unused_y;
+  rect_clip_green(pax, pay, gw2, gh2, tol, s1, d1x_l, d1y_l);
+  rect_clip_green(pgx, pgy, aw2, ah2, tol, s2, unused_x, unused_y);
+  // origin correction: rotate direction 1's sum(v - u) back to world axes
+  const float d1x = gcos * d1x_l - gsin * d1y_l;
+  const float d1y = gsin * d1x_l + gcos * d1y_l;
+  const float corr = dy_c * d1x - dx_c * d1y;  // cross(g_c - a_c, D1)
+  const float s = s1 + s2 + corr;
+  const float inter = fmaxf(0.5f * s, 0.f);
+  const float uni = g_area + a_area - inter;
+  return uni > 1e-9f ? inter / fmaxf(uni, 1e-9f) : 0.f;
+}
+
+// The pair IoU of every kernel here: 0 unless the circles touch.
+__device__ __forceinline__ float pair_iou(const float* g, float acx,
+                                          float acy, float aw, float ah,
+                                          float at) {
+  return circle_touch(g, acx, acy, aw, ah)
+             ? touching_iou(g, acx, acy, aw, ah, at)
+             : 0.f;
+}
+
 __global__ void __launch_bounds__(kBlockN* kBlockK)
     rotated_iou_rect_kernel(const float* __restrict__ gt,
                             const float* __restrict__ an,
-                            float* __restrict__ out, int K, int N) {
-  // per gt: relx0-3, rely0-3, cx, cy, w/2, h/2, cos, sin, area
+                            float* __restrict__ out, int K, int N,
+                            long long an_batch_stride) {
   __shared__ float sg[kBlockK][kRows];
   const int b = blockIdx.z;
   const int k0 = blockIdx.y * kBlockK;
   const int tid = threadIdx.y * kBlockN + threadIdx.x;
   if (tid < kBlockK && k0 + tid < K) {
-    const float* box = gt + (static_cast<size_t>(b) * K + k0 + tid) * 5;
-    float* row = sg[tid];
-    const float w = box[2], h = box[3];
-    float sin_t, cos_t;
-    sincosf(box[4], &sin_t, &cos_t);
-    rel_corners(w, h, cos_t, sin_t, row, row + 4);
-    row[8] = box[0];
-    row[9] = box[1];
-    row[10] = w * 0.5f;
-    row[11] = h * 0.5f;
-    row[12] = cos_t;
-    row[13] = sin_t;
-    row[14] = w * h;
+    expand_rect_row(gt + (static_cast<size_t>(b) * K + k0 + tid) * 5, sg[tid]);
   }
   __syncthreads();
 
   const int n = blockIdx.x * kBlockN + threadIdx.x;
   const int k = k0 + threadIdx.y;
   if (n >= N || k >= K) return;
-  const float* g = sg[threadIdx.y];
-  const float* a = an + static_cast<size_t>(n) * 5;
-  const float gcx = g[8], gcy = g[9], gw2 = g[10], gh2 = g[11];
-  const float aw = a[2], ah = a[3];
-  const float aw2 = aw * 0.5f, ah2 = ah * 0.5f;
+  const float* a = an + b * an_batch_stride + static_cast<size_t>(n) * 5;
+  out[(static_cast<size_t>(b) * K + k) * N + n] =
+      pair_iou(sg[threadIdx.y], a[0], a[1], a[2], a[3], a[4]);
+}
 
-  const float dx_c = a[0] - gcx;
-  const float dy_c = a[1] - gcy;
-  // w2 + h2 >= half-diagonal, so rsum bounds the max overlap distance
-  const float rsum = (gw2 + gh2) + (aw2 + ah2);
-  float iou = 0.f;
-  if (dx_c * dx_c + dy_c * dy_c < rsum * rsum) {
-    const float gcos = g[12], gsin = g[13], g_area = g[14];
-    float acos_, asin_;
-    sincosf(a[4], &asin_, &acos_);
-    const float a_area = aw * ah;
-    float arx[4], ary[4];
-    rel_corners(aw, ah, acos_, asin_, arx, ary);
-    float pax[4], pay[4], pgx[4], pgy[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      // anchor corners in the gt frame: R(-tg) @ (a_rel + d)
-      const float wx = arx[c] + dx_c;
-      const float wy = ary[c] + dy_c;
-      pax[c] = gcos * wx + gsin * wy;
-      pay[c] = gcos * wy - gsin * wx;
-      // gt corners in the anchor frame: R(-ta) @ (g_rel - d)
-      const float vx = g[c] - dx_c;
-      const float vy = g[4 + c] - dy_c;
-      pgx[c] = acos_ * vx + asin_ * vy;
-      pgy[c] = acos_ * vy - asin_ * vx;
-    }
-    const float scale = fmaxf(gw2 + gh2, aw2 + ah2);
-    const float tol = 1e-5f * scale + kParEps;
-    float s1, d1x_l, d1y_l, s2, unused_x, unused_y;
-    rect_clip_green(pax, pay, gw2, gh2, tol, s1, d1x_l, d1y_l);
-    rect_clip_green(pgx, pgy, aw2, ah2, tol, s2, unused_x, unused_y);
-    // origin correction: rotate direction 1's sum(v - u) back to world axes
-    const float d1x = gcos * d1x_l - gsin * d1y_l;
-    const float d1y = gsin * d1x_l + gcos * d1y_l;
-    const float corr = dy_c * d1x - dx_c * d1y;  // cross(g_c - a_c, D1)
-    const float s = s1 + s2 + corr;
-    const float inter = fmaxf(0.5f * s, 0.f);
-    const float uni = g_area + a_area - inter;
-    iou = uni > 1e-9f ? inter / fmaxf(uni, 1e-9f) : 0.f;
+// ---------------------------------------------------------------------------
+// The fused assigner's two passes.
+
+struct Anchor {
+  bool active;  // in range and unmasked
+  float cx, cy, w, h, t;
+};
+
+__device__ __forceinline__ Anchor load_anchor(const float* __restrict__ an,
+                                              const unsigned char* an_mask,
+                                              int n, int N) {
+  Anchor a{false, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (n < N && (an_mask == nullptr || an_mask[n])) {
+    const float* p = an + static_cast<size_t>(n) * 5;
+    a = Anchor{true, p[0], p[1], p[2], p[3], p[4]};
   }
-  out[(static_cast<size_t>(b) * K + k) * N + n] = iou;
+  return a;
+}
+
+// The bounding box of the block's active anchors' circles (center +-
+// (w/2 + h/2)) into box[0..3] = xlo, xhi, ylo, yhi, and the largest |bound|
+// into box[4]. Every thread calls it; returns whether any anchor of the
+// block is active.
+__device__ bool block_anchor_bounds(const Anchor& a, float* box,
+                                    float (*red)[kAssignWarps]) {
+  const float ra = a.w * 0.5f + a.h * 0.5f;
+  // all four as minima: -xhi and -yhi
+  float v[4] = {a.active ? a.cx - ra : INFINITY,
+                a.active ? -(a.cx + ra) : INFINITY,
+                a.active ? a.cy - ra : INFINITY,
+                a.active ? -(a.cy + ra) : INFINITY};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v[i] = fminf(v[i], __shfl_xor_sync(kFullMask, v[i], off));
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red[i][threadIdx.x >> 5] = v[i];
+  }
+  const bool any = __syncthreads_or(a.active);
+  if (threadIdx.x == 0) {
+    float m[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = red[i][0];
+      for (int w = 1; w < kAssignWarps; ++w) m[i] = fminf(m[i], red[i][w]);
+    }
+    box[0] = m[0];
+    box[1] = -m[1];
+    box[2] = m[2];
+    box[3] = -m[3];
+    box[4] = fmaxf(fmaxf(fabsf(m[0]), fabsf(m[1])),
+                   fmaxf(fabsf(m[2]), fabsf(m[3])));
+  }
+  __syncthreads();
+  return any;
+}
+
+// Can the gt (expanded row g) touch any anchor of the block whose circles'
+// bounding box is `box`? Conservative: a pair passes circle_touch only if
+// |dx| and |dy| are below rsum, and the slack of 1e-3 of the magnitudes
+// involved covers the rounding of both tests many times over.
+__device__ __forceinline__ bool may_touch_block(const float* g,
+                                                const float* box) {
+  const float rg = g[10] + g[11];
+  const float tol =
+      1e-3f * (1.f + fabsf(g[8]) + fabsf(g[9]) + rg + box[4]);
+  return g[8] + rg > box[0] - tol && g[8] - rg < box[1] + tol &&
+         g[9] + rg > box[2] - tol && g[9] - rg < box[3] + tol;
+}
+
+__global__ void __launch_bounds__(kAssignThreads)
+    assign_pass1_kernel(const float* __restrict__ gt,
+                        const unsigned char* __restrict__ gt_mask,
+                        const float* __restrict__ an,
+                        const unsigned char* an_mask,
+                        unsigned* __restrict__ gt_max_bits,
+                        int* __restrict__ any_anchor,
+                        long long* __restrict__ gt_inds,
+                        float* __restrict__ max_overlaps, int K, int N,
+                        float pos_thr, float neg_thr) {
+  __shared__ float sg[kAssignThreads][kRows];
+  __shared__ int slist[kAssignThreads];
+  __shared__ unsigned smax[kAssignThreads];
+  __shared__ float sbox[5];
+  __shared__ float sred[4][kAssignWarps];
+  __shared__ int scount, sfirst;
+
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int n = blockIdx.x * kAssignThreads + t;
+  const Anchor a = load_anchor(an, an_mask, n, N);
+  if (t == 0) sfirst = K;
+  const bool any_active = block_anchor_bounds(a, sbox, sred);
+  if (t == 0 && any_active) *any_anchor = 1;
+
+  // the anchor's max IoU over the touching gts, ties to the smallest k
+  float best = 0.f;
+  int arg = K;
+  for (int c0 = 0; c0 < K; c0 += kAssignThreads) {
+    if (t == 0) scount = 0;
+    smax[t] = 0u;
+    __syncthreads();
+    const int k = c0 + t;
+    if (k < K && gt_mask[static_cast<size_t>(b) * K + k]) {
+      atomicMin(&sfirst, k);
+      if (any_active) {
+        expand_rect_row(gt + (static_cast<size_t>(b) * K + k) * 5, sg[t]);
+        if (may_touch_block(sg[t], sbox)) slist[atomicAdd(&scount, 1)] = t;
+      }
+    }
+    __syncthreads();
+    const int cnt = scount;
+    for (int j = 0; j < cnt; ++j) {
+      const int s = slist[j];
+      const float iou =
+          a.active ? pair_iou(sg[s], a.cx, a.cy, a.w, a.h, a.t) : 0.f;
+      if (iou > best || (iou == best && c0 + s < arg)) {
+        best = iou;
+        arg = c0 + s;
+      }
+      const unsigned v = __reduce_max_sync(kFullMask, __float_as_uint(fabsf(iou)));
+      if ((t & 31) == 0 && v) atomicMax(&smax[s], v);
+    }
+    __syncthreads();
+    if (smax[t]) atomicMax(&gt_max_bits[static_cast<size_t>(b) * K + k], smax[t]);
+  }
+  __syncthreads();
+
+  if (n >= N) return;
+  const bool any_gt = sfirst < K;
+  // every real gt has IoU 0 here unless one is larger: argmax is the first
+  if (!(best > 0.f)) arg = sfirst;
+  const float mo = !any_gt ? 0.f : (a.active ? best : -INFINITY);
+  long long assigned = (mo >= 0.f && mo < neg_thr) ? 0 : -1;
+  // an all -inf column's argmax is 0
+  if (mo >= pos_thr) assigned = (any_gt && a.active ? arg : 0) + 1;
+  const size_t o = static_cast<size_t>(b) * N + n;
+  max_overlaps[o] = mo;
+  gt_inds[o] = assigned;
+}
+
+__global__ void __launch_bounds__(kAssignThreads)
+    assign_pass2_kernel(const float* __restrict__ gt,
+                        const unsigned char* __restrict__ gt_mask,
+                        const long long* __restrict__ gt_labels,
+                        const float* __restrict__ an,
+                        const unsigned char* an_mask,
+                        const unsigned* __restrict__ gt_max_bits,
+                        const int* __restrict__ any_anchor,
+                        long long* __restrict__ gt_inds,
+                        long long* __restrict__ labels, int K, int N,
+                        float min_pos) {
+  __shared__ float sg[kAssignThreads][kRows];
+  __shared__ int slist[kAssignThreads];
+  __shared__ float sgm[kAssignThreads];
+  __shared__ float sbox[5];
+  __shared__ float sred[4][kAssignWarps];
+  __shared__ int scount, sk0;
+
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int n = blockIdx.x * kAssignThreads + t;
+  const Anchor a = load_anchor(an, an_mask, n, N);
+  if (t == 0) sk0 = -1;
+  const bool any_active = block_anchor_bounds(a, sbox, sred);
+  // with every anchor masked, each gt_max is -inf: no gt is eligible
+  const bool anchors_seen = *any_anchor != 0;
+
+  int claim = -1;
+  for (int c0 = 0; c0 < K; c0 += kAssignThreads) {
+    if (t == 0) scount = 0;
+    __syncthreads();
+    const int k = c0 + t;
+    if (anchors_seen && k < K && gt_mask[static_cast<size_t>(b) * K + k]) {
+      const float gm =
+          __uint_as_float(gt_max_bits[static_cast<size_t>(b) * K + k]);
+      if (gm >= min_pos) {
+        if (gm == 0.f) {
+          atomicMax(&sk0, k);
+        } else if (any_active) {
+          expand_rect_row(gt + (static_cast<size_t>(b) * K + k) * 5, sg[t]);
+          if (may_touch_block(sg[t], sbox)) {
+            sgm[t] = gm;
+            slist[atomicAdd(&scount, 1)] = t;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    const int cnt = scount;
+    if (a.active) {
+      for (int j = 0; j < cnt; ++j) {
+        const int s = slist[j];
+        if (pair_iou(sg[s], a.cx, a.cy, a.w, a.h, a.t) == sgm[s]) {
+          claim = max(claim, c0 + s);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (n >= N) return;
+  const size_t o = static_cast<size_t>(b) * N + n;
+  long long assigned = gt_inds[o];
+  claim = max(claim, sk0);
+  if (claim >= 0) assigned = claim + 1;
+  if (!a.active) assigned = -1;
+  gt_inds[o] = assigned;
+  labels[o] = assigned > 0
+                  ? gt_labels[static_cast<size_t>(b) * K + assigned - 1]
+                  : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -316,12 +596,38 @@ __global__ void __launch_bounds__(kBlockN* kBlockK)
 }  // namespace
 
 // Each launches on stream s and returns cudaGetLastError() (0 on success).
+// an_batch_stride: 0 for anchors shared by the batch, N * 5 for (B, N, 5).
 extern "C" int rotated_iou_rect(const float* gt, const float* anchors,
                                 float* out, int B, int K, int N,
-                                cudaStream_t s) {
+                                long long an_batch_stride, cudaStream_t s) {
   const dim3 block(kBlockN, kBlockK);
   const dim3 grid((N + kBlockN - 1) / kBlockN, (K + kBlockK - 1) / kBlockK, B);
-  rotated_iou_rect_kernel<<<grid, block, 0, s>>>(gt, anchors, out, K, N);
+  rotated_iou_rect_kernel<<<grid, block, 0, s>>>(gt, anchors, out, K, N,
+                                                 an_batch_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Both passes of the fused assigner. gt_mask (B, K) and anchor_mask (N,)
+// are bools as bytes (anchor_mask may be null: every anchor unmasked);
+// gt_labels (B, K) int64; scratch (B * K + 1) int32, zeroed by the caller:
+// the gts' max IoU bits, then a flag "some anchor is unmasked".
+extern "C" int max_iou_assign_rect(
+    const float* gt, const unsigned char* gt_mask, const long long* gt_labels,
+    const float* anchors, const unsigned char* anchor_mask, int* scratch,
+    long long* gt_inds, float* max_overlaps, long long* labels, int B, int K,
+    int N, float pos_iou_thr, float neg_iou_thr, float min_pos_iou,
+    cudaStream_t s) {
+  const dim3 grid((N + kAssignThreads - 1) / kAssignThreads, B);
+  unsigned* gt_max_bits = reinterpret_cast<unsigned*>(scratch);
+  int* any_anchor = scratch + static_cast<size_t>(B) * K;
+  assign_pass1_kernel<<<grid, kAssignThreads, 0, s>>>(
+      gt, gt_mask, anchors, anchor_mask, gt_max_bits, any_anchor, gt_inds,
+      max_overlaps, K, N, pos_iou_thr, neg_iou_thr);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  assign_pass2_kernel<<<grid, kAssignThreads, 0, s>>>(
+      gt, gt_mask, gt_labels, anchors, anchor_mask, gt_max_bits, any_anchor,
+      gt_inds, labels, K, N, min_pos_iou);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,8 @@ Port of the rotated, pseudo-sampler branch of
 `jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single` :37,
 `anchor_target_batch` :148). The reference vmaps the single-image
 function over the batch; here `anchor_target_single` takes any leading
-batch dimensions, so `anchor_target_batch` calls it once and the IoU
-kernel runs once for all images.
+batch dimensions, so `anchor_target_batch` calls it once and the
+assigner's kernel runs once for all images.
 """
 from __future__ import annotations
 

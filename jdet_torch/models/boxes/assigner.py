@@ -10,13 +10,20 @@ Per anchor the outputs are:
   max_overlaps: float
   labels:       0 background, 1-based class for positives
 Padding gt rows never match: their IoU rows are masked to -inf.
+
+`max_iou_assign_rotated` is the wrapper of the fused CUDA assigner
+(`ops/rotated_iou_kernel.py::launch_max_iou_assign_rect`), which never
+writes the IoU matrix: every CUDA call launches it. Its plain version,
+for CPU tensors, is the composition here, `assign_wrt_overlaps` on
+`box_iou_rotated`'s matrix; it lives here and not in `ops/`, because
+`ops/` does not depend on `models/`.
 """
 from __future__ import annotations
 
 import torch
 
 from ...ops.box_iou_rotated import box_iou_rotated
-from ...ops.rotated_iou_kernel import park_masked_boxes
+from ...ops.rotated_iou_kernel import launch_max_iou_assign_rect, park_masked_boxes
 
 
 def assign_wrt_overlaps(
@@ -87,8 +94,20 @@ def max_iou_assign_rotated(
     anchor_mask=None,
     iou_chunk=512,
 ):
-    """Rotated MaxIoU assignment. anchors (n, 5); gt_bboxes (..., k, 5)
-    padded; gt_mask (..., k) bool; gt_labels (..., k)."""
+    """Rotated MaxIoU assignment. anchors (n, 5); gt_bboxes (k, 5) or
+    (B, k, 5) padded; gt_mask and gt_labels of gt_bboxes' leading shape,
+    bool and integer; anchor_mask (n,) bool or None. Returns
+    `assign_wrt_overlaps`' dict.
+
+    A CUDA tensor launches the fused kernel (one launch for the batch) or
+    raises; a CPU tensor is assigned on `box_iou_rotated`'s matrix,
+    `iou_chunk` gt rows at a time (the plain version)."""
+    if gt_bboxes.is_cuda:
+        return launch_max_iou_assign_rect(
+            gt_bboxes.float().contiguous(), gt_mask, gt_labels,
+            anchors.float().contiguous(), anchor_mask, pos_iou_thr,
+            neg_iou_thr, min_pos_iou,
+        )
     overlaps = box_iou_rotated(
         park_masked_boxes(gt_bboxes, gt_mask), anchors, chunk=iou_chunk
     )

@@ -5,12 +5,17 @@ Port of `jdet_tpu/ops/nms_rotated.py` (`_greedy_sweep` :29, `nms_rotated`
 `max_per_img` budget with a validity mask; invalid slots hold zero boxes,
 score 0 and label -1. The reference's vmap over classes (and over images)
 is a batch dimension written out.
+
+`multiclass_nms_rotated`'s per-class self-IoU runs on the rect IoU kernel
+for a CUDA tensor (one launch for all images and classes) and on the
+plain differentiable path for a CPU tensor, as the reference runs it.
 """
 from __future__ import annotations
 
 import torch
 
 from .box_iou_rotated import box_iou_rotated
+from .rotated_iou_kernel import box_iou_rotated_rect
 
 
 def _greedy_sweep(overlap, valid):
@@ -82,7 +87,11 @@ def multiclass_nms_rotated(
     )  # (B, C, K, 5)
     v = torch.isfinite(top_s)
 
-    iou = box_iou_rotated(b, b, impl="xla")  # (B, C, K, K)
+    if b.is_cuda:
+        flat = b.reshape(B * num_classes, K, 5).float().contiguous()
+        iou = box_iou_rotated_rect(flat, flat).reshape(B, num_classes, K, K)
+    else:
+        iou = box_iou_rotated(b, b, impl="xla")  # (B, C, K, K)
     keep = _greedy_sweep(iou > nms_iou_thr, v)
 
     flat_s = torch.where(keep, top_s, float("-inf")).reshape(B, -1)

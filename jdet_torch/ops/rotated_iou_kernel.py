@@ -4,7 +4,13 @@ versions.
 
 - `box_iou_rotated_rect` replaces `jdet_tpu/ops/pallas_iou.py::
   _iou_kernel_rect` (:148), launched there by `_pallas_iou_2d` (:300) for
-  the anchor assigner.
+  the anchor assigner. Anchors are shared (N, 5) or per image (B, N, 5):
+  the NMS's per-class self-IoU takes the second form.
+- `launch_max_iou_assign_rect` runs the max-IoU assigner fused onto the
+  same IoU, so that the (B, K, N) matrix is never written. Its wrapper,
+  with the plain version for CPU tensors, is
+  `jdet_torch/models/boxes/assigner.py::max_iou_assign_rotated`: the plain
+  version is the assigner composed on the IoU matrix, which lives there.
 - `box_iou_rotated_generic` replaces `_iou_kernel` (:219, with
   `_green_sum` :43 and `_planar_rows` :249), the body that
   `box_iou_rotated_pallas(..., kernel="generic")` (:329) runs. No default
@@ -22,7 +28,7 @@ pair, the other box is only shifted by the center offset. The plain
 version expands in PyTorch; the kernel reads the (cx, cy, w, h, theta)
 boxes and expands them itself.
 
-The kernel is built with nvcc from the source in the checkout on first
+The kernels are built with nvcc from the source in the checkout on first
 use, into `build/` at the repository root, keyed by a hash of the source
 and flags, and loaded with ctypes.
 """
@@ -42,9 +48,11 @@ _PAR_EPS = 1e-12
 # fails the circle pre-test against every anchor and skips the clip math
 FAR_CENTER = -1e6
 
-# kernel launches made by `box_iou_rotated_rect` and by
-# `box_iou_rotated_generic`; callers may reset them
+# kernel launches made by `box_iou_rotated_rect`, by
+# `launch_max_iou_assign_rect` and by `box_iou_rotated_generic`; callers
+# may reset them
 LAUNCHES = 0
+ASSIGN_LAUNCHES = 0
 GENERIC_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rotated_iou.cu"
@@ -136,16 +144,17 @@ def _rect_clip_green(px, py, w2, h2, tol_xy):
 def box_iou_rotated_rect_reference(gts, anchors):
     """Plain PyTorch version of the kernel: the same rect-frame math on
     pair-shaped (B, K, N) tensors. gts (K, 5) or (B, K, 5), anchors (N, 5)
-    -> (K, N) or (B, K, N) float32."""
+    or, with (B, K, 5) gts, (B, N, 5) -> (K, N) or (B, K, N) float32."""
     g = _rect_rows(gts.float())
     g = g if gts.dim() == 3 else g[None]
     a = _rect_rows(anchors.float())
+    a = a[:, None] if anchors.dim() == 3 else a  # (B, 1, N, 15) or (N, 15)
 
     def gcol(c):
         return g[..., c:c + 1]  # (B, K, 1)
 
     def arow(c):
-        return a[:, c]  # (N,)
+        return a[..., c]  # (B, 1, N) or (N,)
 
     gcx, gcy, gw2, gh2 = gcol(8), gcol(9), gcol(10), gcol(11)
     acx, acy, aw2, ah2 = arow(8), arow(9), arow(10), arow(11)
@@ -289,65 +298,177 @@ def build():
         so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for fn in (lib.rotated_iou_rect, lib.rotated_iou_generic):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    # (pointers..., ints..., stream): see the extern "C" functions of SOURCE
+    signatures = {
+        "rotated_iou_rect": [ptr] * 3 + [i32] * 3 + [i64, ptr],
+        "rotated_iou_generic": [ptr] * 3 + [i32] * 3 + [ptr],
+        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [f32] * 3 + [ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
-def _check_operands(gts, anchors):
-    """Raise on what the kernels do not take. True for CPU tensors, which
-    go to the plain versions; False for CUDA tensors."""
+def _run(kernel, device, *args):
+    """Call the library's `kernel` with `args` on the current stream of
+    `device`; raise on the CUDA error it returns."""
+    fn = getattr(build(), kernel)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+def _check_device(*tensors):
+    """Raise unless all tensors share one CPU or CUDA device. True for
+    CPU tensors, which go to the plain versions; False for CUDA tensors."""
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"operands on {device} and {t.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cpu"
+
+
+def _check_operands(gts, anchors, batched_anchors=False):
+    """Raise on what the matrix kernels do not take (per-image anchors
+    only where `batched_anchors`). True for CPU tensors, False for CUDA
+    tensors."""
     if gts.dim() not in (2, 3) or gts.shape[-1] != 5:
         raise ValueError(f"gts must be (K, 5) or (B, K, 5), got {tuple(gts.shape)}")
-    if anchors.dim() != 2 or anchors.shape[-1] != 5:
-        raise ValueError(f"anchors must be (N, 5), got {tuple(anchors.shape)}")
+    per_image = batched_anchors and gts.dim() == 3 and anchors.dim() == 3
+    if anchors.shape[-1] != 5 or not (
+        anchors.dim() == 2 or (per_image and anchors.shape[0] == gts.shape[0])
+    ):
+        want = "(N, 5) or (B, N, 5) with (B, K, 5) gts" if batched_anchors else "(N, 5)"
+        raise ValueError(f"anchors must be {want}, got {tuple(anchors.shape)} "
+                         f"against gts {tuple(gts.shape)}")
     if gts.dtype != torch.float32 or anchors.dtype != torch.float32:
         raise TypeError(f"float32 only, got {gts.dtype} / {anchors.dtype}")
-    if gts.device != anchors.device:
-        raise ValueError(f"gts on {gts.device}, anchors on {anchors.device}")
     if not (gts.is_contiguous() and anchors.is_contiguous()):
         raise ValueError("gts and anchors must be contiguous")
-    if gts.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {gts.device}")
-    return gts.device.type == "cpu"
+    return _check_device(gts, anchors)
 
 
 def _launch(kernel, gts, anchors):
-    """Run the library's `kernel` on checked CUDA operands, one launch for
-    the whole batch (none for an empty output)."""
+    """Run the library's matrix `kernel` on checked CUDA operands, one
+    launch for the whole batch (none for an empty output)."""
     g = gts if gts.dim() == 3 else gts[None]
     B, K, _ = g.shape
-    N = anchors.shape[0]
+    N = anchors.shape[-2]
     if B > 65535 or K > 4 * 65535 or N >= 1 << 31:
         raise ValueError(f"shape out of the kernel's grid: B={B} K={K} N={N}")
     out = torch.empty((B, K, N), device=gts.device, dtype=torch.float32)
     if out.numel():
-        fn = getattr(build(), kernel)
-        with torch.cuda.device(gts.device):
-            rc = fn(g.data_ptr(), anchors.data_ptr(), out.data_ptr(),
-                    B, K, N, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+        args = [g.data_ptr(), anchors.data_ptr(), out.data_ptr(), B, K, N]
+        if kernel == "rotated_iou_rect":
+            args.append(N * 5 if anchors.dim() == 3 else 0)  # anchor batch stride
+        _run(kernel, gts.device, *args)
     return out if gts.dim() == 3 else out[0]
 
 
 def box_iou_rotated_rect(gts, anchors):
     """Pairwise rotated IoU, gts (K, 5) or (B, K, 5) against anchors
-    (N, 5) -> (K, N) or (B, K, N) float32, forward only.
+    (N, 5) or, with (B, K, 5) gts, per-image anchors (B, N, 5) -> (K, N)
+    or (B, K, N) float32, forward only.
 
     A CUDA tensor launches the rect kernel (one launch for the whole batch)
     or raises; a CPU tensor goes to `box_iou_rotated_rect_reference`."""
     global LAUNCHES
-    if _check_operands(gts, anchors):
+    if _check_operands(gts, anchors, batched_anchors=True):
         return box_iou_rotated_rect_reference(gts, anchors)
     out = _launch("rotated_iou_rect", gts, anchors)
     if out.numel():
         LAUNCHES += 1
+    return out
+
+
+def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=None):
+    """Raise on what the fused assigner does not take: gt_bboxes (K, 5)
+    or (B, K, 5) float32 contiguous with K >= 1, gt_mask bool and
+    gt_labels integer of gt_bboxes' leading shape, anchors (N, 5) float32
+    contiguous, anchor_mask (N,) bool or None. True for CPU tensors, False
+    for CUDA tensors."""
+    lead = tuple(gt_bboxes.shape[:-1])
+    if gt_bboxes.dim() not in (2, 3) or gt_bboxes.shape[-1] != 5 or lead[-1] == 0:
+        raise ValueError(f"gt_bboxes must be (K, 5) or (B, K, 5) with K >= 1, "
+                         f"got {tuple(gt_bboxes.shape)}")
+    if anchors.dim() != 2 or anchors.shape[-1] != 5:
+        raise ValueError(f"anchors must be (N, 5), got {tuple(anchors.shape)}")
+    if tuple(gt_mask.shape) != lead or tuple(gt_labels.shape) != lead:
+        raise ValueError(f"gt_mask {tuple(gt_mask.shape)} and gt_labels "
+                         f"{tuple(gt_labels.shape)} must be {lead}")
+    if anchor_mask is not None and tuple(anchor_mask.shape) != (anchors.shape[0],):
+        raise ValueError(f"anchor_mask must be ({anchors.shape[0]},), got "
+                         f"{tuple(anchor_mask.shape)}")
+    if gt_bboxes.dtype != torch.float32 or anchors.dtype != torch.float32:
+        raise TypeError(f"float32 boxes only, got {gt_bboxes.dtype} / {anchors.dtype}")
+    if gt_mask.dtype != torch.bool or (anchor_mask is not None and anchor_mask.dtype != torch.bool):
+        raise TypeError("gt_mask and anchor_mask must be bool")
+    if gt_labels.dtype.is_floating_point or gt_labels.dtype == torch.bool:
+        raise TypeError(f"gt_labels must be integer, got {gt_labels.dtype}")
+    if not (gt_bboxes.is_contiguous() and anchors.is_contiguous()):
+        raise ValueError("gt_bboxes and anchors must be contiguous")
+    masks = [] if anchor_mask is None else [anchor_mask]
+    return _check_device(gt_bboxes, gt_mask, gt_labels, anchors, *masks)
+
+
+def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
+                   pos_iou_thr, neg_iou_thr, min_pos_iou):
+    """Run both passes of the fused assigner on checked operands (one
+    call, none for an empty output)."""
+    squeeze = gt_bboxes.dim() == 2
+    g = gt_bboxes[None] if squeeze else gt_bboxes
+    B, K, _ = g.shape
+    N = anchors.shape[0]
+    if B > 65535 or N >= 1 << 31:
+        raise ValueError(f"shape out of the kernel's grid: B={B} N={N}")
+    dev = gt_bboxes.device
+    # held until the launch returns, as are the outputs and the scratch
+    gt_mask = gt_mask.reshape(B, K).contiguous()
+    gt_labels = gt_labels.reshape(B, K).long().contiguous()
+    anchor_mask = None if anchor_mask is None else anchor_mask.contiguous()
+    out = {
+        "gt_inds": torch.empty((B, N), device=dev, dtype=torch.int64),
+        "max_overlaps": torch.empty((B, N), device=dev, dtype=torch.float32),
+        "labels": torch.empty((B, N), device=dev, dtype=torch.int64),
+    }
+    if B * N:
+        # the gts' max IoU bits, then a flag "some anchor is unmasked"
+        scratch = torch.zeros(B * K + 1, device=dev, dtype=torch.int32)
+        am = 0 if anchor_mask is None else anchor_mask.data_ptr()
+        _run("max_iou_assign_rect", dev,
+             g.data_ptr(), gt_mask.data_ptr(), gt_labels.data_ptr(),
+             anchors.data_ptr(), am, scratch.data_ptr(),
+             out["gt_inds"].data_ptr(), out["max_overlaps"].data_ptr(),
+             out["labels"].data_ptr(), B, K, N,
+             pos_iou_thr, neg_iou_thr, min_pos_iou)
+    return {k: v[0] for k, v in out.items()} if squeeze else out
+
+
+def launch_max_iou_assign_rect(gt_bboxes, gt_mask, gt_labels, anchors,
+                               anchor_mask=None, pos_iou_thr=0.5,
+                               neg_iou_thr=0.4, min_pos_iou=0.0):
+    """The max-IoU assigner fused onto the rect IoU, CUDA tensors only:
+    one call of the fused kernel for the batch. Returns the dict of
+    `assign_wrt_overlaps` (gt_inds, max_overlaps, labels), each (N,) or
+    (B, N). Operands as `check_assign_operands` takes them.
+
+    Callers take `jdet_torch.models.boxes.assigner.max_iou_assign_rotated`,
+    which sends CPU tensors to the plain version."""
+    global ASSIGN_LAUNCHES
+    if check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask):
+        raise ValueError("CUDA tensors only: the plain version is "
+                         "jdet_torch.models.boxes.assigner.max_iou_assign_rotated")
+    out = _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
+                         pos_iou_thr, neg_iou_thr, min_pos_iou)
+    if out["gt_inds"].numel():
+        ASSIGN_LAUNCHES += 1
     return out
 
 

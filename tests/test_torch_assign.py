@@ -1,0 +1,260 @@
+"""The max-IoU assigner fused onto the rect IoU kernel, and the rect IoU
+with per-image anchors (the NMS's per-class self-IoU), against jdet_tpu.
+
+On the CPU, `max_iou_assign_rotated` takes its plain version: the
+assigner composed on the IoU matrix. It is held against jdet_tpu's
+`max_iou_assign_rotated` on the edge cases of
+`jdet_torch.utils.edge_cases.ASSIGN_CASES`:
+gt_inds and labels equal, max_overlaps within atol 2e-4 (the IoU's
+tolerance) with -inf in the same slots. The ties in those cases come from
+duplicated boxes, so they are exact in both frameworks; no other IoU lies
+within 1e-5 of a threshold or of its gt's max.
+
+Tests marked `cuda` hold the kernels against the unfused route and the
+plain versions on the card, and skip without one. JAX and jdet_tpu are
+imported only inside the tests that compare against them, so that on a
+machine without JAX the `cuda` tests run with
+`python -m pytest --noconftest tests/test_torch_assign.py -m cuda`."""
+import numpy as np
+import pytest
+import torch
+
+from jdet_torch.models.boxes.assigner import assign_wrt_overlaps, max_iou_assign_rotated
+from jdet_torch.ops import box_iou_rotated, multiclass_nms_rotated
+from jdet_torch.ops import rotated_iou_kernel as rik
+from jdet_torch.utils.edge_cases import ASSIGN_CASES, assign_edge_case, edge_case_boxes
+
+THR = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+
+
+def _torch_case(name):
+    gts, mask, labels, anchors, am, about = assign_edge_case(name)
+    am = None if am is None else torch.from_numpy(am)
+    return (*map(torch.from_numpy, (gts, mask, labels, anchors)), am, about)
+
+
+def _assign(gts, mask, labels, anchors, am):
+    """The port's assigner: the fused kernel on the card, the plain
+    version on the CPU."""
+    return max_iou_assign_rotated(anchors, gts, mask, labels, anchor_mask=am, **THR)
+
+
+def _reference_assign(gts, mask, labels, anchors, am):
+    """jdet_tpu's assigner, image by image (it takes one image)."""
+    import jax.numpy as jnp
+    from jdet_tpu.models.boxes.assigner import max_iou_assign_rotated as j_assign
+
+    out = [j_assign(jnp.asarray(anchors), jnp.asarray(gts[b]), jnp.asarray(mask[b]),
+                    gt_labels=jnp.asarray(labels[b]),
+                    anchor_mask=None if am is None else jnp.asarray(am), **THR)
+           for b in range(len(gts))]
+    return {k: np.stack([np.asarray(o[k]) for o in out]) for k in out[0]}
+
+
+@pytest.mark.parametrize("case", ASSIGN_CASES)
+def test_assigner_matches_reference_on_edge_cases(case):
+    gts, mask, labels, anchors, am, about = _torch_case(case)
+    got = _assign(gts, mask, labels, anchors, am)
+    want = _reference_assign(*(t.numpy() if t is not None else None
+                               for t in (gts, mask, labels, anchors, am)))
+    np.testing.assert_array_equal(got["gt_inds"].numpy(), want["gt_inds"])
+    np.testing.assert_array_equal(got["labels"].numpy(), want["labels"])
+    mo, want_mo = got["max_overlaps"].numpy(), want["max_overlaps"]
+    np.testing.assert_array_equal(np.isfinite(mo), np.isfinite(want_mo))
+    fin = np.isfinite(want_mo)
+    np.testing.assert_allclose(mo[fin], want_mo[fin], atol=2e-4, rtol=0)
+    assert (got["gt_inds"][1] > 0).any() or case == "all_gts_padding"
+
+    # what each case is about, in image 0 (gt i is gt_inds i + 1)
+    inds = got["gt_inds"][0]
+    active = torch.ones_like(inds, dtype=torch.bool) if am is None else am
+    if case == "gt_outside_all_anchors":
+        # gt 2 (IoU 0 everywhere) claims every anchor; only gts 3-5 claim over it
+        assert (inds >= 3).all() and (inds == 3).sum() > 500
+    elif case == "all_gts_padding":
+        assert (got["gt_inds"][1] == 0).all() and not got["max_overlaps"][1].any()
+    elif case == "anchor_mask_partly_false":
+        assert (inds[~active] == -1).all()
+        assert torch.isneginf(got["max_overlaps"][0][~active]).all()
+        assert (inds[active] > 0).any()
+    elif case == "gt_max_tied_on_several_anchors":
+        assert inds[about].tolist() == [2, 2, 2]
+    elif case == "two_gts_claim_one_anchor":
+        assert inds[about].tolist() == [4]
+    else:  # argmax_tie_above_pos_thr: gts 1 and 3 are one box
+        assert inds[about].tolist() == [4, 2]
+
+
+def test_rect_reference_per_image_anchors_matches_pallas_vmapped():
+    import jax
+    import jax.numpy as jnp
+    from jdet_tpu.ops.pallas_iou import box_iou_rotated_pallas
+
+    gts, an = edge_case_boxes(K=10, N=300, seed=5)
+    an_b = np.stack([an, an[::-1]]).astype(np.float32)
+    want = np.asarray(jax.vmap(
+        lambda g, a: box_iou_rotated_pallas(g, a, interpret=True)
+    )(jnp.asarray(gts), jnp.asarray(an_b)))
+    got = rik.box_iou_rotated_rect_reference(torch.from_numpy(gts), torch.from_numpy(an_b))
+    assert got.shape == want.shape == (2, 10, 300)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
+    # each image as its own shared-anchor call
+    for b in range(2):
+        one = rik.box_iou_rotated_rect_reference(torch.from_numpy(gts[b]),
+                                                 torch.from_numpy(an_b[b]))
+        torch.testing.assert_close(got[b], one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("gt_shape,anchor_shape,ok", [
+    ((2, 10, 5), (2, 30, 5), True),
+    ((2, 10, 5), (30, 5), True),
+    ((10, 5), (1, 30, 5), False),
+    ((2, 10, 5), (3, 30, 5), False),
+    ((2, 10, 5), (2, 30, 4), False),
+    ((2, 10, 5), (2, 1, 30, 5), False),
+])
+def test_rect_wrapper_anchor_shapes(gt_shape, anchor_shape, ok):
+    rng = np.random.RandomState(0)
+    g = torch.from_numpy(rng.uniform(10, 50, gt_shape).astype(np.float32))
+    a = torch.from_numpy(rng.uniform(10, 50, anchor_shape).astype(np.float32))
+    before = rik.LAUNCHES
+    if not ok:
+        with pytest.raises(ValueError):
+            rik.box_iou_rotated_rect(g, a)
+        return
+    got = rik.box_iou_rotated_rect(g, a)
+    assert rik.LAUNCHES == before and got.shape == (2, 10, 30)
+    torch.testing.assert_close(got, rik.box_iou_rotated_rect_reference(g, a), rtol=0, atol=0)
+    # K2 keeps to shared anchors
+    if a.dim() == 3:
+        with pytest.raises(ValueError):
+            rik.box_iou_rotated_generic(g, a)
+
+
+@pytest.mark.parametrize("bad", ["box_dtype", "no_gts", "mask_dtype", "mask_shape",
+                                 "float_labels", "batched_anchors", "anchor_mask_shape",
+                                 "strided_anchors", "devices"])
+def test_fused_wrapper_rejects_bad_inputs(bad):
+    gts, mask, labels, anchors, _, _ = _torch_case("anchor_mask_partly_false")
+    am = None
+    if bad == "box_dtype":
+        gts = gts.double()
+    elif bad == "no_gts":
+        gts, mask, labels = gts[:, :0], mask[:, :0], labels[:, :0]
+    elif bad == "mask_dtype":
+        mask = mask.to(torch.uint8)
+    elif bad == "mask_shape":
+        mask = mask[:, :-1]
+    elif bad == "float_labels":
+        labels = labels.float()
+    elif bad == "batched_anchors":
+        anchors = anchors[None]
+    elif bad == "anchor_mask_shape":
+        am = torch.ones(anchors.shape[0] + 1, dtype=torch.bool)
+    elif bad == "strided_anchors":
+        anchors = torch.cat([anchors, anchors], 1)[:, ::2]
+    else:
+        mask = mask.to("meta")
+    # the fused kernel's operand check; good operands pass it (on the CPU)
+    assert rik.check_assign_operands(*_torch_case("anchor_mask_partly_false")[:4])
+    with pytest.raises((TypeError, ValueError)):
+        rik.check_assign_operands(gts, mask, labels, anchors, am)
+
+
+def test_fused_wrapper_on_cpu_is_the_plain_version():
+    gts, mask, labels, anchors, am, _ = _torch_case("gt_max_tied_on_several_anchors")
+    before = rik.ASSIGN_LAUNCHES, rik.LAUNCHES
+    got = _assign(gts, mask, labels, anchors, am)
+    # the plain version: the assigner on box_iou_rotated's matrix
+    iou = box_iou_rotated(rik.park_masked_boxes(gts, mask), anchors)
+    plain = assign_wrt_overlaps(iou, mask, labels, anchor_mask=am, **THR)
+    overlaps = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), anchors)
+    unfused = assign_wrt_overlaps(overlaps, mask, labels, anchor_mask=am, **THR)
+    for k in ("gt_inds", "labels"):
+        torch.testing.assert_close(got[k], plain[k], rtol=0, atol=0)
+        torch.testing.assert_close(got[k], unfused[k], rtol=0, atol=0)
+    torch.testing.assert_close(got["max_overlaps"], plain["max_overlaps"], rtol=0, atol=0)
+    # one image without a batch dimension
+    one = _assign(gts[0], mask[0], labels[0], anchors, am)
+    assert all(torch.equal(one[k], got[k][0]) for k in one)
+    # the launcher takes CUDA tensors only; above the pair bar, the CPU
+    # stays on the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        rik.launch_max_iou_assign_rect(gts, mask, labels, anchors, am, 0.5, 0.4, 0.0)
+    big = anchors.repeat(440, 1)  # 4 * 264,000 pairs >= 2^20
+    out = max_iou_assign_rotated(big, gts[:, :4], mask[:, :4], labels[:, :4], **THR)
+    assert out["gt_inds"].shape == (2, big.shape[0])
+    assert (rik.ASSIGN_LAUNCHES, rik.LAUNCHES) == before
+
+
+# On the card --------------------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ASSIGN_CASES)
+def test_fused_kernel_identical_to_unfused_route_on_card(case):
+    dev = _card()
+    gts, mask, labels, anchors, am, _ = _torch_case(case)
+    gts, mask, labels, anchors = (t.to(dev) for t in (gts, mask, labels, anchors))
+    am = None if am is None else am.to(dev)
+    before = rik.ASSIGN_LAUNCHES
+    got = _assign(gts, mask, labels, anchors, am)
+    torch.cuda.synchronize()
+    assert rik.ASSIGN_LAUNCHES == before + 1
+    ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), anchors)
+    unfused = assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **THR)
+    for k in got:
+        assert got[k].dtype == unfused[k].dtype
+        assert torch.equal(got[k], unfused[k]), k
+    plain = _assign(*(None if t is None else t.cpu()
+                      for t in (gts, mask, labels, anchors, am)))
+    for k in ("gt_inds", "labels"):
+        torch.testing.assert_close(got[k].cpu(), plain[k], rtol=0, atol=0)
+    torch.testing.assert_close(got["max_overlaps"].cpu(), plain["max_overlaps"],
+                               rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_rect_kernel_per_image_anchors_on_card():
+    dev = _card()
+    gts, an = edge_case_boxes(K=10, N=300, seed=5)
+    g = torch.from_numpy(gts).to(dev)
+    a = torch.from_numpy(np.stack([an, an[::-1]]).astype(np.float32)).to(dev)
+    before = rik.LAUNCHES
+    got = rik.box_iou_rotated_rect(g, a)
+    torch.cuda.synchronize()
+    assert rik.LAUNCHES == before + 1
+    torch.testing.assert_close(got, rik.box_iou_rotated_rect_reference(g, a),
+                               rtol=0, atol=2e-4)
+    for b in range(2):
+        assert torch.equal(got[b], rik.box_iou_rotated_rect(g[b], a[b].contiguous()))
+
+
+@pytest.mark.cuda
+def test_multiclass_nms_on_card_matches_cpu():
+    dev = _card()
+    # 30 clusters of 8 jittered boxes, 3 classes, distinct scores
+    rng = np.random.RandomState(2)
+    centers = rng.uniform(0, 600, (30, 1, 2))
+    boxes = np.concatenate([
+        centers + rng.normal(0, 6, (30, 8, 2)),
+        np.abs(rng.uniform(20, 80, (30, 1, 2)) + rng.normal(0, 4, (30, 8, 2))) + 2,
+        rng.uniform(-np.pi / 4, 3 * np.pi / 4, (30, 1, 1)) + rng.normal(0, 0.2, (30, 8, 1)),
+    ], -1).reshape(240, 5).astype(np.float32)
+    scores = ((rng.permutation(720) + 1) / 721).reshape(240, 3).astype(np.float32)
+    kw = dict(score_thr=0.05, nms_iou_thr=0.1, max_per_img=100)
+    before = rik.LAUNCHES
+    got = multiclass_nms_rotated(torch.from_numpy(boxes)[None].to(dev),
+                                 torch.from_numpy(scores)[None].to(dev), **kw)
+    assert rik.LAUNCHES == before + 1
+    want = multiclass_nms_rotated(torch.from_numpy(boxes)[None],
+                                  torch.from_numpy(scores)[None], **kw)
+    v = want["valid"]
+    assert torch.equal(got["valid"].cpu(), v) and v.any()
+    for k in ("boxes", "scores", "labels"):
+        assert torch.equal(got[k].cpu()[v], want[k][v]), k

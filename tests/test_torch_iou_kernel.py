@@ -3,16 +3,15 @@
 The Pallas kernel runs in interpret mode on the CPU, as the JAX suite runs
 it (tests/test_box_iou_rotated.py). Tolerances are the reference's own for
 that kernel: identical boxes give 1 within 1e-5, everything else within
-atol 2e-4. The test marked `cuda` holds the CUDA kernel against the plain
-version on the card and skips where there is none."""
+atol 2e-4. The tests marked `cuda` hold the CUDA kernels against the plain
+versions on the card and skip where there is none. JAX and jdet_tpu are
+imported inside the tests that use them, so that on a machine without JAX
+the `cuda` tests run with `python -m pytest --noconftest
+tests/test_torch_iou_kernel.py -m cuda`."""
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
-from jdet_tpu.ops.pallas_iou import box_iou_rotated_pallas
-from jdet_tpu.ops.pallas_iou import park_masked_boxes as j_park
 from jdet_torch.ops import rotated_iou_kernel as rik
 from jdet_torch.ops.box_iou_rotated import box_iou_rotated
 
@@ -35,9 +34,22 @@ def _case(seed=3, K=10, N=300):
     return gts, an
 
 
-def _pallas(gts, an):
+def _pallas(gts, an, **kw):
+    import jax.numpy as jnp
+    from jdet_tpu.ops.pallas_iou import box_iou_rotated_pallas
+
     return np.asarray(box_iou_rotated_pallas(jnp.asarray(gts), jnp.asarray(an),
-                                             interpret=True))
+                                             interpret=True, **kw))
+
+
+def _pallas_vmapped(gts_b, an, **kw):
+    import jax
+    import jax.numpy as jnp
+    from jdet_tpu.ops.pallas_iou import box_iou_rotated_pallas
+
+    return np.asarray(jax.vmap(
+        lambda g: box_iou_rotated_pallas(g, jnp.asarray(an), interpret=True, **kw)
+    )(jnp.asarray(gts_b)))
 
 
 def test_reference_matches_pallas_interpret():
@@ -53,9 +65,7 @@ def test_reference_matches_pallas_interpret():
 def test_reference_batched_matches_pallas_vmapped():
     gts, an = _case()
     gts_b = np.stack([gts, gts[::-1]]).astype(np.float32)
-    want = np.asarray(jax.vmap(
-        lambda g: box_iou_rotated_pallas(g, jnp.asarray(an), interpret=True)
-    )(jnp.asarray(gts_b)))
+    want = _pallas_vmapped(gts_b, an)
     got = rik.box_iou_rotated_rect_reference(torch.from_numpy(gts_b),
                                              torch.from_numpy(an)).numpy()
     assert got.shape == want.shape == (2, len(gts), len(an))
@@ -63,6 +73,9 @@ def test_reference_batched_matches_pallas_vmapped():
 
 
 def test_parked_pad_gts():
+    import jax.numpy as jnp
+    from jdet_tpu.ops.pallas_iou import park_masked_boxes as j_park
+
     gts, an = _case(seed=7, K=12, N=400)
     mask = np.zeros((2, 12), bool)
     mask[0, :5] = True
@@ -131,8 +144,7 @@ def test_kernel_matches_plain_version_on_card():
 # K2: the generic kernel (box_iou_rotated_pallas(..., kernel="generic")) ----
 
 def _pallas_generic(gts, an):
-    return np.asarray(box_iou_rotated_pallas(jnp.asarray(gts), jnp.asarray(an),
-                                             interpret=True, kernel="generic"))
+    return _pallas(gts, an, kernel="generic")
 
 
 def test_generic_reference_matches_pallas_interpret():
@@ -151,10 +163,7 @@ def test_generic_reference_matches_pallas_interpret():
 def test_generic_reference_batched_matches_pallas_vmapped():
     gts, an = _case(seed=5)
     gts_b = np.stack([gts, gts[::-1]]).astype(np.float32)
-    want = np.asarray(jax.vmap(
-        lambda g: box_iou_rotated_pallas(g, jnp.asarray(an), interpret=True,
-                                         kernel="generic")
-    )(jnp.asarray(gts_b)))
+    want = _pallas_vmapped(gts_b, an, kernel="generic")
     got = rik.box_iou_rotated_generic_reference(torch.from_numpy(gts_b),
                                                 torch.from_numpy(an)).numpy()
     assert got.shape == want.shape == (2, len(gts), len(an))
