@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (`jdet_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --old-generic build/parent_rotated_iou.cu
+                                   # also times another copy's K2 in turns
 
 1. Checks for a card (exits non-zero without one) and prints its name and
    power limit.
@@ -15,6 +17,10 @@
    assigner at the train step's (4, 512, 196416), identical to the
    unfused route (K1's matrix, then the PyTorch assigner) and timed
    against it in turns, and within atol of the plain version on the CPU.
+   K2 on the edge cases, on the degenerate operands and at the main path's
+   (2, 32, 196416), with exact zeros from kernel and plain version on every
+   early-out pair; timed there and at (2, 512, 196416) against its bound,
+   which counts the clip's flops only for the pairs that do the clip.
 4. Builds Rotated RetinaNet-OBB R50-FPN from
    `configs/rotated_retinanet_obb_r50_fpn_1x_dota.py` at full width with
    random weights, checks the card against the CPU on a small input, then
@@ -56,8 +62,8 @@ FP32_FLOPS_PER_S = 67e12
 # rect-frame IoU arithmetic for one pair whose boxes can touch
 # (the reference kernel's cost estimate, jdet_tpu/ops/pallas_iou.py:306)
 IOU_FLOPS_PER_TOUCHING_PAIR = 300
-# generic quad-quad IoU arithmetic for every pair (the reference's cost
-# estimate for kernel="generic", same line)
+# generic quad-quad IoU arithmetic for one pair that does the clip (the
+# reference's cost estimate for kernel="generic", same line)
 IOU_FLOPS_PER_PAIR_GENERIC = 700
 # The schedule's epoch length comes from the dataset, which the checkout
 # does not hold: take 1000 steps per epoch. The 20 steps here see only the
@@ -451,12 +457,63 @@ def check_assign_kernel(rik, anchors):
     }
 
 
-def check_generic_kernel(rik, anchors):
-    """K2 against its plain version on the card; returns its entry of the
-    kernels line (launches filled in later) and its main-path gts."""
-    from jdet_torch.utils.edge_cases import edge_case_boxes
+def build_old_generic(rik, src):
+    """The `rotated_iou_generic` C entry point of another copy of
+    `rotated_iou.cu` (e.g. the parent commit's), built with the same flags
+    into `build/`."""
+    import ctypes
+
+    so = rik.BUILD_DIR / f"old_generic_{Path(src).stem}.so"
+    rik.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([rik._nvcc(), *rik.NVCC_FLAGS, "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(so)).rotated_iou_generic
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def generic_launcher(fn):
+    """A function (gts (B, K, 5), anchors (N, 5), out=None) -> out that
+    calls the C entry point `fn` directly, without the wrapper's checks and
+    allocation when `out` is given: back to back, such calls time the
+    kernel and not the host."""
+    def launch(gts, anchors, out=None):
+        B, K, _ = gts.shape
+        if out is None:
+            out = torch.empty((B, K, anchors.shape[0]), device=gts.device)
+        rc = fn(gts.data_ptr(), anchors.data_ptr(), out.data_ptr(), B, K,
+                anchors.shape[0], torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"generic kernel: CUDA error {rc}")
+        return out
+    return launch
+
+
+def back_to_back_ms(launch, *args, reps=20):
+    """ms per call of `reps` calls of launch(*args) queued back to back
+    (median of 10 such runs)."""
+    return median_ms(lambda: [launch(*args) for _ in range(reps)]) / reps
+
+
+def check_generic_kernel(rik, anchors, old_srcs=()):
+    """K2 against its plain version on the card: the edge cases, the
+    degenerate operands and the main path's shape, with exact zeros from
+    both on every early-out pair. Times it at (2, 32, N) and (2, 512, N)
+    against its data-dependent bound and against the K2 of each of
+    `old_srcs` (other copies of `rotated_iou.cu`) in turns. Returns its entry
+    of the kernels line (launches filled in later) and its main-path gts."""
+    from jdet_torch.utils.edge_cases import degenerate_boxes, edge_case_boxes
 
     dev = "cuda"
+
+    def zeros_on_early(got, want, g, a):
+        """The early-out pairs, checked exact zeros in kernel and plain
+        version; returns their count."""
+        early = rik.generic_early_out_pairs(g, a)
+        check(not got[early].any() and not want[early].any(),
+              "generic kernel: nonzero IoU on an early-out pair")
+        return int(early.sum())
+
     g, a = edge_case_boxes()
     g, a = torch.as_tensor(g, device=dev), torch.as_tensor(a, device=dev)
     got = rik.box_iou_rotated_generic(g, a)
@@ -466,15 +523,31 @@ def check_generic_kernel(rik, anchors):
     K = g.shape[1]
     diag = got[0, torch.arange(K), torch.arange(K)]
     diag_err = (diag - 1).abs().max().item()
+    early = zeros_on_early(got, want, g, a)
     log(f"generic iou kernel, edge cases (2, {K}, {a.shape[0]}): "
-        f"max_abs_err={err_edge:.3e} diag_err={diag_err:.3e}")
+        f"max_abs_err={err_edge:.3e} diag_err={diag_err:.3e}, {early} early-out pairs all 0")
     check(err_edge <= 2e-4, f"generic kernel, edge cases disagree: {err_edge}")
     check(diag_err <= 1e-5, f"generic kernel, identical boxes: IoU off 1 by {diag_err}")
 
-    # the main path's shape, (2, 32, 196416), every slot a real gt: K2 has
-    # no early-out, and against a zero-size box parked at FAR_CENTER its
+    # zero-size, needle, thin, 1e-3 apart, multiples of pi/2, near 1e4; the
+    # pairs whose fp32 value is rounding noise (the parked gt's among them)
+    # are left out of the comparison, not out of the exact-zero check
+    g, a, checked = (torch.as_tensor(x, device=dev) for x in degenerate_boxes())
+    got = rik.box_iou_rotated_generic(g, a)
+    want = rik.box_iou_rotated_generic_reference(g, a)
+    torch.cuda.synchronize()
+    err_deg = (got - want)[checked].abs().max().item()
+    early = zeros_on_early(got, want, g, a)
+    log(f"generic iou kernel, degenerate operands {tuple(got.shape)}: max_abs_err="
+        f"{err_deg:.3e} on {int(checked.sum())} compared pairs; zero-size gt row "
+        f"{got[0, 0][checked[0, 0]].min().item():.6f}..{got[0, 0][checked[0, 0]].max().item():.6f}; "
+        f"{early} early-out pairs all 0")
+    check(err_deg <= 2e-4, f"generic kernel, degenerate operands disagree: {err_deg}")
+
+    # the main path's shape, (2, 32, 196416), every slot a real gt (a gt
+    # parked at FAR_CENTER is zero-size, so it takes the full path, and its
     # clip arithmetic at |x| ~ 1e6 gives rounding noise in any
-    # implementation, so padding is left out here
+    # implementation)
     _, t = synth_batch(2, 1024, K=32, real=32, seed=2)
     gts = torch.as_tensor(t["gt_bboxes"], device=dev)
     B, K, N = gts.shape[0], gts.shape[1], anchors.shape[0]
@@ -482,40 +555,89 @@ def check_generic_kernel(rik, anchors):
     want = rik.box_iou_rotated_generic_reference(gts, anchors)
     torch.cuda.synchronize()
     err_main = (got - want).abs().max().item()
+    early = zeros_on_early(got, want, gts, anchors)
     log(f"generic iou kernel, main path ({B}, {K}, {N}): max_abs_err={err_main:.3e} "
-        f"nonzero={int((got > 0).sum())}")
+        f"nonzero={int((got > 0).sum())}, early-out {early} of {B * K * N} pairs "
+        f"({early / (B * K * N):.4f}), all 0")
     check(err_main <= 2e-4, f"generic kernel, main-path shape disagrees: {err_main}")
     check(torch.isfinite(got).all().item(), "generic kernel: non-finite IoU")
+    del want
 
+    def bound_of(B, K, early):
+        """Bytes: the boxes in, the matrix out; operations: the clip's
+        flops for each pair that does not take the early-out."""
+        work = B * K * N - early
+        return (*bound((B * K * 5 + N * 5 + B * K * N) * 4, IOU_FLOPS_PER_PAIR_GENERIC * work),
+                work)
+
+    # device time: launches back to back (the profiler sees K2's launches
+    # but records no device time for them)
+    new = generic_launcher(rik.build().rotated_iou_generic)
     ms = median_ms(lambda: rik.box_iou_rotated_generic(gts, anchors), iters=20)
+    device_ms = back_to_back_ms(new, gts, anchors, torch.empty_like(got))
     plain_ms = median_ms(lambda: rik.box_iou_rotated_generic_reference(gts, anchors))
-    nbytes = (B * K * 5 + N * 5 + B * K * N) * 4
-    ops = IOU_FLOPS_PER_PAIR_GENERIC * B * K * N
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
-    log(f"generic iou kernel timing: {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
-        f"{max(bytes_ms, ops_ms):.4f} ms = max(bytes {nbytes} -> {bytes_ms:.4f}, "
-        f"ops {ops} for {B * K * N} pairs -> {ops_ms:.4f})")
+    bound_ms, bound_by, work = bound_of(B, K, early)
+    log(f"generic iou kernel ({B}, {K}, {N}): {ms:.4f} ms per call, {device_ms:.4f} ms "
+        f"back to back, plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({work} pairs do the clip x {IOU_FLOPS_PER_PAIR_GENERIC} flops), "
+        f"{device_ms / bound_ms:.1f}x the bound")
 
     # the config's gt budget (max_gt=512), kernel alone
     _, t512 = synth_batch(2, 1024, K=512, real=512, seed=1)
     g512 = torch.as_tensor(t512["gt_bboxes"], device=dev)
+    got512 = rik.box_iou_rotated_generic(g512, anchors)
+    early512 = rik.generic_early_out_pairs(g512, anchors)
+    check(not got512[early512].any(), "generic kernel (2, 512, N): nonzero on early-out pairs")
+    check(torch.isfinite(got512).all().item(), "generic kernel (2, 512, N): non-finite IoU")
+    early512 = int(early512.sum())
     ms512 = median_ms(lambda: rik.box_iou_rotated_generic(g512, anchors))
-    log(f"generic iou kernel at (2, 512, {N}): {ms512:.4f} ms, operations bound "
-        f"{IOU_FLOPS_PER_PAIR_GENERIC * 2 * 512 * N / FP32_FLOPS_PER_S * 1e3:.4f} ms")
-    return {
+    device_ms512 = back_to_back_ms(new, g512, anchors, got512, reps=5)
+    B5, K5 = g512.shape[:2]
+    bound512, bound_by512, work512 = bound_of(B5, K5, early512)
+    log(f"generic iou kernel ({B5}, {K5}, {N}): {ms512:.4f} ms per call, {device_ms512:.4f} "
+        f"ms back to back; early-out {early512} of {B5 * K5 * N} pairs "
+        f"({early512 / (B5 * K5 * N):.4f}); bound {bound512:.4f} ms by {bound_by512} "
+        f"({work512} pairs do the clip), {device_ms512 / bound512:.1f}x the bound")
+
+    entry = {
         "name": "rotated_iou_generic",
         "route": "cuda",
         "source": "jdet_torch/csrc/rotated_iou.cu",
         "replaces": "jdet_tpu/ops/pallas_iou.py:219",
         "launches": None,
-        "max_abs_err": max(err_edge, err_main),
+        "max_abs_err": max(err_edge, err_deg, err_main),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
-    }, gts
+        "shape": [B, K, N],
+        "device_ms": device_ms,
+        "early_out_share": early / (B * K * N),
+        "ms_512": ms512,
+        "device_ms_512": device_ms512,
+        "bound_ms_512": bound512,
+        "early_out_share_512": early512 / (B5 * K5 * N),
+    }
+    for old_src in old_srcs:
+        old = generic_launcher(build_old_generic(rik, old_src))
+        for name, g_, reps in (("", gts, 20), ("_512", g512, 5)):
+            diff = (old(g_, anchors) - rik.box_iou_rotated_generic(g_, anchors)).abs().max().item()
+            old_ms, new_ms, turns = in_turns(lambda: old(g_, anchors),
+                                             lambda: rik.box_iou_rotated_generic(g_, anchors))
+            out = torch.empty((*g_.shape[:2], N), device=dev)
+            old_b2b, new_b2b, turns_b2b = in_turns(
+                lambda: [old(g_, anchors, out) for _ in range(reps)],
+                lambda: [new(g_, anchors, out) for _ in range(reps)])
+            log(f"generic iou kernel {tuple(g_.shape[:2]) + (N,)}, {old_src} against the "
+                f"checkout, in turns old/new/new/old: per call {turns}, old {old_ms:.4f} ms, "
+                f"new {new_ms:.4f} ms; back to back, ms per {reps} calls {turns_b2b}, old "
+                f"{old_b2b / reps:.4f} ms, new {new_b2b / reps:.4f} ms; max |new - old| {diff:.3e}")
+            entry.setdefault("old", {}).setdefault(Path(old_src).stem, {}).update({
+                f"ms{name}": old_ms, f"device_ms{name}": old_b2b / reps,
+                f"max_abs_diff{name}": diff})
+    del got512
+    return entry, gts
 
 
 def assignment_margin(head, targets, size):
@@ -734,6 +856,13 @@ def check_card_against_cpu(model, cpu_model):
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-generic", metavar="CU", action="append", default=[],
+                    help="another copy of rotated_iou.cu whose generic kernel is "
+                         "timed against the checkout's in turns (repeatable)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
@@ -766,7 +895,7 @@ def main():
     anchors = head._flat_anchors([(1024 // st, 1024 // st) for st in head.anchor_strides],
                                  "cuda")
     assign_entry = check_assign_kernel(rik, anchors)
-    generic_entry, generic_gts = check_generic_kernel(rik, anchors)
+    generic_entry, generic_gts = check_generic_kernel(rik, anchors, args.old_generic)
 
     cpu_model = build_detector(cfg, device="cpu", seed=0, load_pretrained=False)
     check_card_against_cpu(model, cpu_model)

@@ -475,25 +475,104 @@ __global__ void __launch_bounds__(kAssignThreads)
 // corners relative to each box's own center, so fp32 stays precise at image
 // coordinates ~1e3), each box's edges are clipped Liang-Barsky style against
 // the other's four half-planes, and the Green's-theorem cross terms of both
-// directions are summed; edges collinear with a clip line weigh 1/2. No
-// early-out: the Pallas body has none, and this kernel's output must stay
-// its output (a zero-size box, for one, is not 0 here as it is under the
-// rect kernel's circle test).
+// directions are summed; edges collinear with a clip line weigh 1/2. The
+// plain version (rotated_iou_kernel.py::box_iou_rotated_generic_reference)
+// is that arithmetic for every pair, as the Pallas body is.
 //
-// What bounds it on an H100: arithmetic. The reference's cost estimate is
-// 700 flops per pair (pallas_iou.py:306), every pair pays it, and each of
-// the 32 edge-line tests divides; at B=2, K=32, N=196,416 that is 8.8e9
-// flops (0.13 ms at 67 TFLOP/s fp32) against 54 MB of traffic (16 us). The
-// design is one thread per pair with no shared state beyond the block's 4
-// gts, expanded once into shared memory; making it fast (fewer divisions,
-// an early-out that keeps K2's values) is left for later.
+// What bounds it on an H100: at the main path's (2, 32, 196416) and at the
+// config's gt budget (2, 512, 196416), the B*K*N*4-byte output write (50 MB
+// and 804 MB: 15 us and 0.24 ms at 3.35 TB/s). The clip costs ~700 flops
+// and up to 32 IEEE divisions per pair, but only ~7% of those pairs need it
+// (below); their flops alone take 0.01 and 0.14 ms at 67 TFLOP/s fp32.
+// Counted in instructions rather than flops, the clip (32 line tests, each
+// with its compares and division) takes several times that, and it is what
+// keeps the kernel above the bytes bound (PERF.md has the times).
+//
+// Design: one thread per anchor of one image, blocks of kGenThreads
+// neighbouring anchors and kGenChunk gts (grid: anchor blocks x gt chunks x
+// images). A thread expands its anchor once (sincosf, the center-relative
+// corners, area, radius w/2 + h/2, shorter side); the block stages its gts
+// in shared memory, each expanded once alike, and its anchors too. The
+// thread walks the staged gts, writes 0 to out[b, k, n] for each pair that
+// takes the early-out (neighbouring threads hold neighbouring n, so each
+// gt's row is written 128 B per warp) and queues the others in shared
+// memory. Then the block's threads take the queued pairs one each, so that
+// a warp runs the clip with all its lanes busy, not with the few of its
+// anchors that touch one gt. A division of the clip is taken only on the
+// branch that uses it (!par). The chunk is small (16 gts) because a block
+// runs its queue alone: at (2, 32, 196416) a block of the coarsest level's
+// anchors with all 32 gts queues up to 3,600 pairs, 29 rounds of its 128
+// threads, and such blocks set the kernel's tail.
+//
+// The early-out, and why it keeps every value. A pair writes 0 without the
+// clip when (1) its circles do not touch, |d|^2 >= (r_g + r_a)^2 with
+// r = w/2 + h/2, rounded op by op as circle_touch, and (2) neither box is
+// degenerate at the pair's scale: min(w, h) > 1e-3 * S for both boxes, with
+// S = 1 + |dx| + |dy| + r_g + r_a (the same rounding in
+// rotated_iou_kernel.py::generic_early_out_pairs). Why the clip would give
+// exactly 0 there:
+//   - A box lies in its disk of radius sqrt(w^2 + h^2)/2, and
+//     r - sqrt(w^2 + h^2)/2 >= (1 - sqrt(2)/2) * min(w, h). So with (1) the
+//     two boxes are at least G = 0.29 * (min_g + min_a) > 5.8e-4 * S apart.
+//   - The clip keeps a part of an edge only if some point of it violates
+//     each of the other box's half-planes by at most delta: the collinear
+//     slack 1e-5 * qn * (|rx| + |ry|) is at most 2e-5 * S of distance, the
+//     parallel slack 1e-6 * qn * dn at most 4e-6 * S, the 1e-12 term at
+//     most 1e-12 / min(w, h) < 1e-9 (S >= 1), and fp32 rounding of corners,
+//     f0, df and t* a few 1e-7 * S. A point within delta of each half-plane
+//     of a rectangle is within sqrt(2) * delta < 4e-5 * S of it, far below G.
+//     So every edge of both directions is dropped, the Green sum is exactly
+//     0.f, and so is inter / union.
+//   - (2) is what makes the slacks small next to G. Without it the clip is
+//     not 0 far away: a zero-size box has qn = 0 on every edge, so every
+//     edge of the other box counts as collinear, is kept at weight 1/2, and
+//     the IoU is ~1 against every anchor, as in the Pallas body (a needle,
+//     1e-4 x 50, gives ~4e-6). A test on min_g + min_a alone would send a
+//     zero-size gt beside a large anchor to the early-out, so each box is
+//     tested. Degenerate, needle and parked (FAR_CENTER, zero-size) boxes
+//     always take the full path, whose value is the plain version's.
+// The tests check on every pair that generic_early_out_pairs selects that
+// the plain version gives exactly 0, on random sets around the circle
+// boundary and on jdet_torch/utils/edge_cases.py::degenerate_boxes.
 //
 // Operands as for the rect kernel: gt (B, K, 5), anchors (N, 5), out
-// (B, K, N), float32 (cx, cy, w, h, theta). Each box is expanded to the
-// plain version's generic rows (rotated_iou_kernel.py::_rect_rows columns
-// 0-9 and 14): relx0-3, rely0-3, cx, cy, area.
+// (B, K, N), float32 (cx, cy, w, h, theta).
 
-constexpr int kGenRows = 11;  // floats per expanded gt
+constexpr int kGenThreads = 128;  // anchors per block
+constexpr int kGenChunk = 16;     // gts per block
+constexpr int kGenRows = 13;      // floats per expanded box
+constexpr float kDegenerate = 1e-3f;
+
+// A (cx, cy, w, h, theta) box expanded to relx0-3, rely0-3, cx, cy, area,
+// r = w/2 + h/2 (rounded as circle_touch rounds it), min(w, h).
+__device__ __forceinline__ void expand_generic_row(const float* box,
+                                                   float* row) {
+  const float w = box[2], h = box[3];
+  float sin_t, cos_t;
+  sincosf(box[4], &sin_t, &cos_t);
+  rel_corners(w, h, cos_t, sin_t, row, row + 4);
+  row[8] = box[0];
+  row[9] = box[1];
+  row[10] = w * h;
+  row[11] = __fadd_rn(__fmul_rn(w, 0.5f), __fmul_rn(h, 0.5f));
+  row[12] = fminf(w, h);
+}
+
+// Does the pair of expanded rows g and a take the early-out (the circles do
+// not touch, and neither box is degenerate at the pair's scale)? Rounded op
+// by op, as generic_early_out_pairs rounds it.
+__device__ __forceinline__ bool generic_early_out(const float* g,
+                                                  const float* a) {
+  const float dx = __fsub_rn(a[8], g[8]);
+  const float dy = __fsub_rn(a[9], g[9]);
+  const float rsum = __fadd_rn(g[11], a[11]);
+  const bool apart = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) >=
+                     __fmul_rn(rsum, rsum);
+  const float scale = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fadd_rn(1.f, fabsf(dx)), fabsf(dy)), g[11]), a[11]);
+  const float lim = __fmul_rn(kDegenerate, scale);
+  return apart && g[12] > lim && a[12] > lim;
+}
 
 // Directed-boundary Green contribution of P's edges clipped to Q:
 // sum over P's edges of cross(u, v) for the part [u, v] of the edge that
@@ -530,9 +609,11 @@ __device__ __forceinline__ float green_sum(const float px[4],
           par && fabsf(f0) <= 1e-5f * qn[j] * (fabsf(rx) + fabsf(ry)) + kParEps;
       on_b = on_b || col;
       alive = alive && (!par || col || f0 >= 0.f);
-      const float tstar = -f0 / (par ? 1.f : df);
-      if (!par && df > 0.f) t_lo = fmaxf(t_lo, tstar);
-      if (!par && df < 0.f) t_hi = fminf(t_hi, tstar);
+      if (!par) {
+        const float tstar = -f0 / df;
+        if (df > 0.f) t_lo = fmaxf(t_lo, tstar);
+        if (df < 0.f) t_hi = fminf(t_hi, tstar);
+      }
     }
     if (alive && t_lo < t_hi) {
       // an edge collinear with a clip line is shared boundary: weight 1/2
@@ -545,52 +626,72 @@ __device__ __forceinline__ float green_sum(const float px[4],
   return total;
 }
 
-__global__ void __launch_bounds__(kBlockN* kBlockK)
-    rotated_iou_generic_kernel(const float* __restrict__ gt,
-                               const float* __restrict__ an,
-                               float* __restrict__ out, int K, int N) {
-  // per gt: relx0-3, rely0-3, cx, cy, area
-  __shared__ float sg[kBlockK][kGenRows];
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.y * kBlockK;
-  const int tid = threadIdx.y * kBlockN + threadIdx.x;
-  if (tid < kBlockK && k0 + tid < K) {
-    const float* box = gt + (static_cast<size_t>(b) * K + k0 + tid) * 5;
-    float* row = sg[tid];
-    float sin_t, cos_t;
-    sincosf(box[4], &sin_t, &cos_t);
-    rel_corners(box[2], box[3], cos_t, sin_t, row, row + 4);
-    row[8] = box[0];
-    row[9] = box[1];
-    row[10] = box[2] * box[3];
-  }
-  __syncthreads();
-
-  const int n = blockIdx.x * kBlockN + threadIdx.x;
-  const int k = k0 + threadIdx.y;
-  if (n >= N || k >= K) return;
-  const float* g = sg[threadIdx.y];
-  const float* a = an + static_cast<size_t>(n) * 5;
-  float asin_, acos_;
-  sincosf(a[4], &asin_, &acos_);
-  float arx[4], ary[4];
-  rel_corners(a[2], a[3], acos_, asin_, arx, ary);
+// The full quad-quad IoU of the expanded rows g and a.
+__device__ __forceinline__ float generic_iou(const float* g, const float* a) {
   // pair midframe: anchor corners +d/2, gt corners -d/2, d = a_c - g_c
-  const float hdx = 0.5f * (a[0] - g[8]);
-  const float hdy = 0.5f * (a[1] - g[9]);
+  const float hdx = 0.5f * (a[8] - g[8]);
+  const float hdy = 0.5f * (a[9] - g[9]);
   float pax[4], pay[4], pgx[4], pgy[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    pax[c] = arx[c] + hdx;
-    pay[c] = ary[c] + hdy;
+    pax[c] = a[c] + hdx;
+    pay[c] = a[4 + c] + hdy;
     pgx[c] = g[c] - hdx;
     pgy[c] = g[4 + c] - hdy;
   }
   const float s = green_sum(pax, pay, pgx, pgy) + green_sum(pgx, pgy, pax, pay);
   const float inter = fmaxf(0.5f * s, 0.f);
-  const float uni = g[10] + a[2] * a[3] - inter;
-  out[(static_cast<size_t>(b) * K + k) * N + n] =
-      uni > 1e-9f ? inter / fmaxf(uni, 1e-9f) : 0.f;
+  const float uni = g[10] + a[10] - inter;
+  return uni > 1e-9f ? inter / fmaxf(uni, 1e-9f) : 0.f;
+}
+
+__global__ void __launch_bounds__(kGenThreads)
+    rotated_iou_generic_kernel(const float* __restrict__ gt,
+                               const float* __restrict__ an,
+                               float* __restrict__ out, int K, int N) {
+  __shared__ float sg[kGenChunk][kGenRows];
+  __shared__ float sa[kGenThreads][kGenRows];
+  // the block's pairs that do the clip, as j * kGenThreads + t
+  __shared__ unsigned short sq[kGenChunk * kGenThreads];
+  __shared__ int scount;
+  const int b = blockIdx.z;
+  const int k0 = blockIdx.y * kGenChunk;
+  const int kc = min(kGenChunk, K - k0);
+  const int t = threadIdx.x;
+  // the last anchors (the coarsest level's, on the main path) touch the
+  // most gts: their blocks go first, so that they do not finish last
+  const int n0 = (gridDim.x - 1 - blockIdx.x) * kGenThreads;
+  const int n = n0 + t;
+  if (t == 0) scount = 0;
+  if (t < kc) {
+    expand_generic_row(gt + (static_cast<size_t>(b) * K + k0 + t) * 5, sg[t]);
+  }
+  float a[kGenRows];
+  if (n < N) {
+    expand_generic_row(an + static_cast<size_t>(n) * 5, a);
+#pragma unroll
+    for (int c = 0; c < kGenRows; ++c) sa[t][c] = a[c];
+  }
+  __syncthreads();
+
+  float* o = out + (static_cast<size_t>(b) * K + k0) * N;
+  if (n < N) {
+    for (int j = 0; j < kc; ++j) {
+      if (generic_early_out(sg[j], a)) {
+        o[static_cast<size_t>(j) * N + n] = 0.f;
+      } else {
+        sq[atomicAdd(&scount, 1)] =
+            static_cast<unsigned short>(j * kGenThreads + t);
+      }
+    }
+  }
+  __syncthreads();
+  // the clip, one queued pair per thread: every lane of a warp has work
+  const int cnt = scount;
+  for (int i = t; i < cnt; i += kGenThreads) {
+    const int j = sq[i] / kGenThreads, u = sq[i] % kGenThreads;
+    o[static_cast<size_t>(j) * N + n0 + u] = generic_iou(sg[j], sa[u]);
+  }
 }
 
 }  // namespace
@@ -634,8 +735,9 @@ extern "C" int max_iou_assign_rect(
 extern "C" int rotated_iou_generic(const float* gt, const float* anchors,
                                    float* out, int B, int K, int N,
                                    cudaStream_t s) {
-  const dim3 block(kBlockN, kBlockK);
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (K + kBlockK - 1) / kBlockK, B);
-  rotated_iou_generic_kernel<<<grid, block, 0, s>>>(gt, anchors, out, K, N);
+  const dim3 grid((N + kGenThreads - 1) / kGenThreads,
+                  (K + kGenChunk - 1) / kGenChunk, B);
+  rotated_iou_generic_kernel<<<grid, kGenThreads, 0, s>>>(gt, anchors, out, K,
+                                                          N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,8 @@ versions.
 - `box_iou_rotated_generic` replaces `_iou_kernel` (:219, with
   `_green_sum` :43 and `_planar_rows` :249), the body that
   `box_iou_rotated_pallas(..., kernel="generic")` (:329) runs. No default
-  path reaches it.
+  path reaches it. Its kernel skips the clip on the pairs of
+  `generic_early_out_pairs`, where the plain version gives exactly 0.
 
 Also here: `park_masked_boxes` (:290), `FAR_CENTER`, and `edges_green_sum`,
 the Liang-Barsky Green sum that the generic kernel and the differentiable
@@ -264,6 +265,29 @@ def box_iou_rotated_generic_reference(gts, anchors):
     inter = (0.5 * s).clamp(min=0.0)
     union = g[..., 14:15] + a[:, 14] - inter
     out = torch.where(union > 1e-9, inter / union.clamp(min=1e-9), 0.0)
+    return out if gts.dim() == 3 else out[0]
+
+
+def generic_early_out_pairs(gts, anchors):
+    """The pairs that the generic kernel writes as 0 without the clip:
+    their circles (radius w/2 + h/2) do not touch, and neither box is
+    degenerate at the pair's scale, min(w, h) > 1e-3 * (1 + |dx| + |dy| +
+    r_g + r_a). Rounded op by op as the kernel rounds it (`csrc/
+    rotated_iou.cu::generic_early_out`, whose note shows why the clip gives
+    exactly 0 there). gts (K, 5) or (B, K, 5), anchors (N, 5) -> bool
+    (K, N) or (B, K, N). For tests and for counting the kernel's work."""
+    g = gts.float() if gts.dim() == 3 else gts.float()[None]
+    a = anchors.float()
+    gw, gh = g[..., 2:3], g[..., 3:4]  # (B, K, 1)
+    aw, ah = a[:, 2], a[:, 3]  # (N,)
+    rg = gw * 0.5 + gh * 0.5
+    ra = aw * 0.5 + ah * 0.5
+    dx = a[:, 0] - g[..., 0:1]  # (B, K, N)
+    dy = a[:, 1] - g[..., 1:2]
+    rsum = rg + ra
+    apart = dx * dx + dy * dy >= rsum * rsum
+    lim = 1e-3 * ((((1.0 + dx.abs()) + dy.abs()) + rg) + ra)
+    out = apart & (torch.minimum(gw, gh) > lim) & (torch.minimum(aw, ah) > lim)
     return out if gts.dim() == 3 else out[0]
 
 

@@ -24,6 +24,79 @@ def edge_case_boxes(K=10, N=300, seed=3):
     return np.stack([gts, gts[::-1]]), an
 
 
+def degenerate_boxes(N=256, seed=5):
+    """Operands where the generic IoU's degenerate cases live: gts (2, K,
+    5), the second image the first reversed, anchors (N, 5), and a (2, K, N)
+    bool mask of the pairs whose values are compared.
+
+    A pair with a sub-pixel box (zero-size, needle, thin) has an IoU that
+    the Green sums compute as a ratio of areas from cross products of size
+    (|d| + r_g + r_a)^2, d the offset of the centers, r = w/2 + h/2; fp32
+    gives it to about 1e-7 * (|d| + r_g + r_a)^2 / max(area_g, area_a),
+    which reaches 0.16 for a zero-size gt against a needle 360 px away.
+    Such pairs whose estimate exceeds 2e-5 are left out of the value
+    comparison, the gt parked at FAR_CENTER (-1e6) among them: their values
+    are rounding noise in every implementation.
+
+    gts: a zero-size box inside the image (its generic IoU is ~1 against
+    every anchor), two needles (1e-4 x 50), thin boxes (40 x 0.5), boxes at
+    exact multiples of pi/2, boxes near 1e4, the parked gt, and random
+    boxes. Anchors: each gt itself, the thin boxes' neighbours along their
+    common line (10 px apart and end to end), neighbours 1e-3 apart, the
+    same boxes turned by pi/2, boxes near 1e4, then random ones."""
+    rng = np.random.RandomState(seed)
+    h2 = np.float32(np.pi / 2)
+    special = np.array([
+        [500, 500, 0, 0, 0.3],  # zero-size
+        [300, 200, 1e-4, 50, 0.7],  # needles
+        [350, 400, 50, 1e-4, 0.0],
+        [100, 100, 40, 0.5, 0.0],  # thin, along x
+        [700, 300, 40, 0.5, np.pi / 4],  # thin, along the diagonal
+        [600, 600, 30, 20, 0.0],
+        [200, 700, 60, 24, h2],  # multiples of pi/2
+        [800, 800, 36, 36, 2 * h2],
+        [450, 900, 48, 16, -h2],
+        [9000, 9500, 120, 40, 1.0],  # near 1e4
+        [9999, 9998, 64, 32, 4 * h2],
+        [-1e6, -1e6, 0, 0, 0],  # parked padding
+    ], np.float32)
+    rand = np.stack([rng.uniform(0, 1000, 4), rng.uniform(0, 1000, 4),
+                     rng.uniform(8, 200, 4), rng.uniform(8, 120, 4),
+                     rng.uniform(-np.pi, np.pi, 4)], 1).astype(np.float32)
+    gts = np.concatenate([special, rand])
+    diag = np.float32([np.cos(np.pi / 4), np.sin(np.pi / 4)])
+    near = [
+        gts[3] + [50, 0, 0, 0, 0],  # 10 px beyond the thin box's end
+        gts[3] + [40, 0, 0, 0, 0],  # end to end
+        np.r_[gts[4][:2] + 50 * diag, gts[4][2:]],  # the same, on the diagonal
+        np.r_[gts[4][:2] + 40 * diag, gts[4][2:]],
+        gts[5] + [30.001, 0, 0, 0, 0],  # 1e-3 apart
+        gts[5] + [0, 20.001, 0, 0, 0],
+        gts[6] + [0, 0, 0, 0, h2],  # turned by pi/2
+        gts[7] + [0, 0, 0, 0, h2],
+        np.r_[gts[6][:2], gts[6][3], gts[6][2], 0],  # the same box, w and h swapped
+        gts[9] + [60, 0, 0, 0, 0],  # near 1e4
+        gts[9] + [300, 0, 0, 0, 0],
+        [10000, 10000, 50, 50, 0],
+        gts[1] + [0, 0, 10, 0, 0],  # a needle widened to 10
+        gts[2] + [0, 10, 0, 0, 0],
+    ]
+    an = np.concatenate([gts[:11], np.asarray(near, np.float32)])
+    n_rand = N - len(an)
+    rand = np.stack([rng.uniform(0, 1000, n_rand), rng.uniform(0, 1000, n_rand),
+                     rng.uniform(8, 200, n_rand), rng.uniform(8, 120, n_rand),
+                     rng.uniform(-np.pi, np.pi, n_rand)], 1).astype(np.float32)
+    an = np.concatenate([an, rand]).astype(np.float32)
+    gts = np.stack([gts, gts[::-1]])
+    g, a = gts.astype(np.float64)[:, :, None], an.astype(np.float64)
+    reach = (np.hypot(a[:, 0] - g[..., 0], a[:, 1] - g[..., 1])
+             + (g[..., 2] + g[..., 3] + a[:, 2] + a[:, 3]) / 2)
+    area = np.maximum(g[..., 2] * g[..., 3], a[:, 2] * a[:, 3])
+    sub_pixel = (np.minimum(g[..., 2], g[..., 3]) < 1) | (np.minimum(a[:, 2], a[:, 3]) < 1)
+    checked = ~sub_pixel | (1e-7 * reach ** 2 <= 2e-5 * area)
+    return gts, an, checked
+
+
 # the assigner's edge cases (jdet_tpu/models/boxes/assigner.py:76-125)
 ASSIGN_CASES = (
     "gt_outside_all_anchors",  # a real gt with gt_max 0 claims every anchor
