@@ -34,18 +34,31 @@
    512 gt slots with 64 real gts per image, uint8 images normalized and
    flipped inside the step, the config's SGD and warmup, 20 steps on one
    batch. Then times the step and its parts.
-7. Prints a `{"kernels": [...]}` line, the card line again, and as the last
+7. Drives the Runner from the same config at full width on a synthetic
+   DOTA tree (16 PNG tiles of 1024² under `build/`, uint8 batches, device
+   normalize and augment, 2 spawned loader workers, the tile cache):
+   `run()` trains 2 epochs of 4 iterations with a `val` and a checkpoint
+   after each and a `test` at the end; checks the losses, the 15 class
+   APs, the test pkl and its merge into 15 `Task1_*` files; resumes from
+   the checkpoint into identical weights and momentum. Then prints the
+   loader-fed numbers: iteration time and loader wait of each epoch, val
+   and `test_time` images/s, the device busy share of a profiled
+   loader-fed epoch, the PNG decode time of a tile per row filter, and
+   peak memory.
+8. Prints a `{"kernels": [...]}` line, the card line again, and as the last
    line `{"ok": true, "device": {...}}`.
 
-Each path (serving, K2's entry point, training) runs with the launch
-counters set to 0 just before it and read just after: one fused assigner
-launch per loss forward and per train step, one K1 matrix launch per
-`predict`.
+Each path (serving, K2's entry point, training, the Runner's `run()`)
+runs with the launch counters set to 0 just before it and read just
+after: one fused assigner launch per loss forward and per train step, one
+K1 matrix launch per `predict` (per predict batch in `val` and `test`).
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
 """
 import json
+import os
+import pickle
 import re
 import subprocess
 import sys
@@ -180,16 +193,18 @@ def peak_bytes(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
-def device_profile(fn, iters=5):
+def device_profile(fn, iters=5, warmup=True):
     """fn() under torch.profiler: device ms per call of each kernel it
     launches (by short name, busiest first; empty if the profiler saw no
     device time), their sum, and the wall ms per call of the same window,
     from the synchronize before the first call to the one after the last
-    (the profiler's own overhead included)."""
+    (the profiler's own overhead included). One unprofiled call first,
+    unless warmup is False."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -855,6 +870,162 @@ def check_card_against_cpu(model, cpu_model):
     check(score_err <= 1e-4, f"scores differ by {score_err}")
 
 
+def decode_ms_by_filter(image, root, reps=3):
+    """Median ms of the port's PNG reader on `image` written with each of
+    the five row filters."""
+    from jdet_torch.data import image_io
+
+    out = {}
+    for ftype, name in enumerate(image_io.FILTER_NAMES):
+        path = str(root / f"decode_{name}.png")
+        image_io.imwrite(path, image, filter_type=ftype)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = image_io.imread(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(got, image), f"PNG {name}: the reader does not round-trip")
+        out[name] = float(np.median(times))
+    return out
+
+
+def runner_phase(cfg, rik, root, n_tiles=16):
+    """The Runner on a synthetic DOTA tree: `run()` (2 epochs of training,
+    `val` after each, a checkpoint after each, then `test` on an
+    ImageDataset of the same tiles), merged submission, resume, then the
+    loader-fed numbers. Returns the kernel launches of `run()`."""
+    import copy
+    import shutil
+
+    from jdet_torch.data import image_io
+    from jdet_torch.data.synthetic import make_synthetic_dota
+    from jdet_torch.runner import Runner
+    from jdet_torch.tools import merge_results as merge_cli
+
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = copy.deepcopy(cfg)
+    size = cfg["dataset"]["train"]["image_size"][0]
+    t0 = time.perf_counter()
+    img_dir, ann = make_synthetic_dota(str(root), n_images=n_tiles, size=size, seed=0)
+    log(f"runner phase: {n_tiles} synthetic {size}² tiles written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg["model"]["backbone"]["pretrained"] = None
+    ds = cfg["dataset"]
+    for split in ("train", "val"):
+        ds[split].update(annotations_file=ann, images_dir=img_dir, num_workers=2)
+    ds["train"]["image_cache"] = "auto"
+    ds["test"].update(images_dir=img_dir, num_workers=2)
+    cfg.update(name="runner_smoke", work_dir=str(root / "work"), max_epoch=2,
+               eval_interval=1, checkpoint_interval=1, log_interval=1)
+    B = ds["train"]["batch_size"]
+    iters = 2 * (n_tiles // B)
+
+    runner = Runner(cfg, device="cuda")
+    logged = []
+    real_log = runner.logger.log
+    runner.logger.log = lambda d: (logged.append(d), real_log(d))
+
+    # the main path through the Runner, with the launch counters read
+    # around it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts(rik)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"runner path: run() {run_s:.2f} s, launches {launches}, peak memory {peak} bytes")
+
+    losses = [d for d in logged if "total_loss" in d]
+    evals = [d for d in logged if "eval/0_meanAP" in d]
+    check(len(losses) == iters and all(np.isfinite(d[k]) for d in losses
+                                       for k in ("loss_cls", "loss_bbox", "total_loss")),
+          f"runner: {len(losses)} logged train iterations, or a non-finite loss")
+    check((runner.epoch, runner.iter) == (2, iters), f"runner at {runner.epoch}, {runner.iter}")
+    check(len(evals) == 2, f"runner: {len(evals)} val results, expected 2")
+    for m in evals:
+        aps = [k for k in m if k.startswith("eval/") and k.endswith("_AP") and k != "eval/0_meanAP"]
+        check(len(aps) == 15 and 0.0 <= m["eval/0_meanAP"] <= 1.0,
+              f"runner val: {len(aps)} class APs, meanAP {m['eval/0_meanAP']}")
+    n_val = n_tiles // B  # predict batches of one val or one test
+    check(launches == {"rotated_iou_rect": 3 * n_val, "max_iou_assign_rect": iters,
+                       "rotated_iou_generic": 0},
+          f"runner: not one fused assigner launch per train iteration and one K1 matrix "
+          f"launch per predict batch: {launches}")
+    work = root / "work"
+    test_pkl = work / "test" / "test_2.pkl"
+    check(test_pkl.exists() and (work / "checkpoints" / "ckpt_2.pkl").exists(),
+          "runner: no test pkl or checkpoint")
+    with open(test_pkl, "rb") as f:
+        results = pickle.load(f)
+    check(len(results) == n_tiles and all(np.isfinite(det["polys"]).all() for det, _ in results),
+          "runner test: missing or non-finite detections")
+    files = merge_cli.main(["--results", str(test_pkl), "--out-dir", str(work / "merged")])
+    check(len(files) == 15 and all(Path(f).name.startswith("Task1_") for f in files),
+          f"merge_results wrote {len(files)} files")
+    log(f"runner: losses {[round(d['total_loss'], 5) for d in losses]}, meanAP "
+        f"{[m['eval/0_meanAP'] for m in evals]}, test pkl {len(results)} tiles with "
+        f"{sum(int(det['valid'].sum()) for det, _ in results)} valid detections, "
+        f"{len(files)} merged submission files")
+
+    # resume: the checkpoint restores the epoch, the iteration, the weights
+    # and the momentum buffers
+    resumed = Runner(dict(cfg, resume=True), device="cuda")
+    check((resumed.epoch, resumed.iter, resumed.optimizer.count) == (2, iters, iters),
+          f"resume at {resumed.epoch}, {resumed.iter}, {resumed.optimizer.count}")
+    for (name, p), p2 in zip(runner.model.state_dict().items(),
+                             resumed.model.state_dict().values()):
+        check(torch.equal(p, p2), f"resume: {name} differs")
+    params = dict(resumed.model.named_parameters())
+    n_buf = 0
+    for name, p in runner.model.named_parameters():
+        if p in runner.optimizer.sgd.state:
+            buf = resumed.optimizer.sgd.state[params[name]]["momentum_buffer"]
+            check(torch.equal(runner.optimizer.sgd.state[p]["momentum_buffer"], buf),
+                  f"resume: momentum of {name} differs")
+            n_buf += 1
+    log(f"resume: epoch 2, iter {iters}, parameters and {n_buf} momentum buffers identical")
+    resumed.close()
+    del resumed
+
+    # loader-fed numbers. run() read the losses every iteration
+    # (log_interval=1), so its iteration times are synchronised ones
+    times = {}
+    for epoch, its in enumerate(runner.iteration_times):
+        times[f"epoch{epoch}_iteration_ms_median"] = 1e3 * float(np.median([t for _, t in its]))
+        times[f"epoch{epoch}_loader_wait_ms_median"] = 1e3 * float(np.median([w for w, _ in its]))
+        times[f"epoch{epoch}_loader_wait_ms_mean"] = 1e3 * float(np.mean([w for w, _ in its]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.val()
+    torch.cuda.synchronize()
+    times["val_images_per_s"] = n_tiles / (time.perf_counter() - t0)
+    # two more epochs from the memmap cache, losses read once per epoch: the
+    # first timed whole, the second under the profiler
+    runner.max_epoch, runner.max_iter, runner.log_interval = 4, 2 * iters, n_tiles // B
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.train_epoch()
+    torch.cuda.synchronize()
+    times["epoch2_unsynced_iteration_ms_mean"] = (time.perf_counter() - t0) * 1e3 / (n_tiles // B)
+    kernels, device_ms, wall_ms = device_profile(runner.train_epoch, iters=1, warmup=False)
+    times["profiled_epoch_device_ms"] = device_ms
+    times["profiled_epoch_wall_ms"] = wall_ms
+    times["loader_fed_device_busy_share"] = device_ms / wall_ms
+    times["test_time_images_per_s"] = runner.test_time(warmup=3, rerun=10)
+    times["run_s"] = run_s
+    times["peak_memory_bytes"] = peak
+    times["png_decode_ms_per_tile"] = decode_ms_by_filter(
+        image_io.imread(os.path.join(img_dir, "tile_0000.png")), root)
+    log(f"runner, loader-fed at {size}², B={B}: {json.dumps(times)}")
+    log("runner, profiled loader-fed epoch, the 8 busiest kernels, device ms: "
+        + json.dumps(dict(list(kernels.items())[:8])))
+    runner.close()
+    return launches
+
+
 def main():
     import argparse
 
@@ -993,11 +1164,13 @@ def main():
 
     check_train_card_against_cpu(full_cfg, rik)
     train_launches = train_at_config_traffic(full_cfg, model, rik)
+    runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
 
     # launches per path: serving (loss forward + 2 predicts), K2's entry
-    # point, training (20 steps)
+    # point, training (20 steps), the Runner's run() (8 train iterations,
+    # 2 vals and a test of 4 predict batches each)
     paths = {"serving": serving_launches, "generic_iou": generic_launches,
-             "train_20_steps": train_launches}
+             "train_20_steps": train_launches, "runner": runner_launches}
     kernels = [entry, assign_entry, generic_entry]
     for e in kernels:
         e["launches_by_path"] = {p: n[e["name"]] for p, n in paths.items()}

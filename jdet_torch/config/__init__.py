@@ -1,2 +1,2 @@
-"""Config loading, copied from jdet_tpu.config."""
-from .config import load_cfg_file, merge_dict_b2a
+"""Config loading and the global config, copied from jdet_tpu.config."""
+from .config import get_cfg, init_cfg, load_cfg_file, merge_dict_b2a, save_cfg, update_cfg

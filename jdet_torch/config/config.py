@@ -1,14 +1,18 @@
-"""`.py` config loader with recursive `_base_` merging.
+"""`.py` config loader with recursive `_base_` merging, and the global
+config.
 
 Copy of the `.py` branch of `jdet_tpu/config/config.py` (`_load_py_dict`
 :67, `merge_dict_b2a` :94, `load_cfg_file` :124): a config module's
 non-dunder globals become the dict, `_base_` names parent files merged in
 order, and a child dict carrying `_cover_: True` replaces the parent
-subtree instead of merging into it.
+subtree instead of merging into it. `init_cfg`, `get_cfg`, `update_cfg`
+and `save_cfg` (:146-180) keep one config per process, as plain dicts:
+readers use `.get`.
 """
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import sys
 import types
@@ -76,3 +80,44 @@ def load_cfg_file(filename):
         merge_dict_b2a(merged, load_cfg_file(base_file))
     merge_dict_b2a(merged, raw)
     return merged
+
+
+_cfg = {}
+
+
+def init_cfg(filename=None):
+    """Load `filename` as the global config, with `name` defaulting to the
+    file's stem and `work_dir` to exp/<name> (config.py:146-160)."""
+    global _cfg
+    _cfg = {}
+    if filename is None:
+        return _cfg
+    _cfg = load_cfg_file(filename)
+    if _cfg.get("name") is None:
+        _cfg["name"] = os.path.splitext(os.path.basename(filename))[0]
+    if _cfg.get("work_dir") is None:
+        _cfg["work_dir"] = os.path.join("exp", _cfg["name"])
+    return _cfg
+
+
+def get_cfg():
+    return _cfg
+
+
+def update_cfg(**kw):
+    _cfg.update(kw)
+    return _cfg
+
+
+def save_cfg(path=None, cfg=None):
+    """Write `cfg` (the global config by default) as JSON, to
+    work_dir/config.json by default. The reference writes config.yaml;
+    the GPU machine has no PyYAML, so the port writes JSON. Values JSON
+    cannot hold (tuples become lists) are written as their repr."""
+    cfg = get_cfg() if cfg is None else cfg
+    if path is None:
+        os.makedirs(cfg["work_dir"], exist_ok=True)
+        path = os.path.join(cfg["work_dir"], "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2, sort_keys=True, default=repr)
+    return path

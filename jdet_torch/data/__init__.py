@@ -1,0 +1,7 @@
+"""Host-side data pipeline: PNG decode, transforms, datasets, devkits."""
+from .custom import CustomDataset
+from .dota import DOTADataset, FAIR1M_1_5_Dataset, FAIRDataset, ImageDataset, SSDDDataset
+from .transforms import (
+    Compose, Normalize, Pad, RandomFlip, RandomRotateAug, Resize, RotatedRandomFlip,
+    RotatedResize,
+)

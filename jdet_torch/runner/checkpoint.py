@@ -1,0 +1,88 @@
+"""Checkpoint save/load: {meta, model, optimizer} as a pickle of numpy
+arrays.
+
+Port of `jdet_tpu/runner/checkpoint.py` (payload :57, atomic write
+:80-83). `meta` carries `jdet_torch_version`, `save_time`, `epoch`,
+`iter`, `max_epoch`, `max_iter` and `config`; `model` is the model's
+state_dict (buffers included) as numpy; `optimizer` holds the SGD
+momentum buffers by parameter name and the count of updates made.
+
+`load_checkpoint` also takes a `jdet_tpu` checkpoint (its meta carries
+`jdet_tpu_version`): the nnx parameter paths, joined by "/", go through
+`models/convert.py::params_from_jax`; epoch and iter carry over; its
+optax momentum does not, and the loader says so. EMA payloads raise
+until EMA is ported. Only files this repository wrote may be loaded:
+unpickling can run code.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+from ..models.convert import params_from_jax
+
+VERSION = "0.1.0"
+
+
+def save_checkpoint(path, model, optimizer=None, meta=None):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {
+        "meta": {
+            "jdet_torch_version": VERSION,
+            "save_time": time.strftime("%Y-%m-%d %H:%M:%S"),
+            **(meta or {}),
+        },
+        "model": {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+    }
+    if optimizer is not None:
+        state = optimizer.sgd.state
+        payload["optimizer"] = {
+            "count": optimizer.count,
+            "momentum": {
+                name: state[p]["momentum_buffer"].detach().cpu().numpy()
+                for name, p in model.named_parameters()
+                if state.get(p, {}).get("momentum_buffer") is not None
+            },
+        }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(payload, f, protocol=4)
+    os.replace(tmp, path)
+    return path
+
+
+def _load_state(model, state):
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()},
+                          strict=True)
+
+
+def load_checkpoint(path, model, optimizer=None, model_only=False):
+    """Load `path` into `model` (and `optimizer` unless model_only);
+    returns the checkpoint's meta."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    meta = dict(payload.get("meta", {})) if isinstance(payload, dict) else {}
+    if "ema" in payload:
+        raise NotImplementedError(f"{path}: EMA checkpoints wait for the port of EMA")
+    if "jdet_tpu_version" in meta:
+        flat = {k.replace("/", "."): v for k, v in payload["model"].items()}
+        _load_state(model, params_from_jax(flat))
+        if optimizer is not None and not model_only and "optimizer" in payload:
+            print(f"[checkpoint] {path}: a jdet_tpu checkpoint; its optax momentum "
+                  "is not carried over, SGD restarts from zero momentum", flush=True)
+        return meta
+    if "jdet_torch_version" not in meta:
+        raise ValueError(f"{path}: neither a jdet_torch nor a jdet_tpu checkpoint")
+    _load_state(model, payload["model"])
+    if optimizer is not None and not model_only and "optimizer" in payload:
+        opt = payload["optimizer"]
+        optimizer.count = int(opt["count"])
+        for name, p in model.named_parameters():
+            if name in opt["momentum"]:
+                optimizer.sgd.state[p]["momentum_buffer"] = torch.as_tensor(
+                    opt["momentum"][name], device=p.device).clone()
+    return meta

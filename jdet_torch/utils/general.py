@@ -1,10 +1,19 @@
 """General helpers.
 
 Copy of `jdet_tpu/utils/general.py` (`parse_losses` :27,
-`check_interval` :42), which mirror the reference's `utils/general.py`
-(:67, :117).
+`check_interval` :42, `build_file` :49, `search_ckpt` :56,
+`list_images` :69, `set_random_seed` :82), which mirror the reference's
+`utils/general.py` (:67, :117, :105, :158, :147, :82).
 """
 from __future__ import annotations
+
+import glob
+import os
+import random
+import re
+
+import numpy as np
+import torch
 
 
 def parse_losses(losses):
@@ -28,3 +37,43 @@ def check_interval(step, interval):
     if interval is None or interval <= 0:
         return False
     return step % interval == 0
+
+
+def build_file(work_dir, prefix):
+    """work_dir/prefix path with directories created (general.py:105)."""
+    path = os.path.join(work_dir, prefix)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    return path
+
+
+def search_ckpt(work_dir):
+    """Newest checkpoint by epoch number in work_dir/checkpoints
+    (general.py:158-163)."""
+    files = glob.glob(os.path.join(work_dir, "checkpoints", "ckpt_*.pkl"))
+    if not files:
+        return None
+
+    def epoch_of(f):
+        m = re.search(r"ckpt_(\d+)", os.path.basename(f))
+        return int(m.group(1)) if m else -1
+
+    return max(files, key=epoch_of)
+
+
+def list_images(path):
+    exts = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
+    if os.path.isfile(path):
+        return [path]
+    out = []
+    for root, _, names in os.walk(path):
+        out.extend(
+            os.path.join(root, n) for n in names if n.lower().endswith(exts)
+        )
+    return sorted(out)
+
+
+def set_random_seed(seed):
+    """Seed Python's, numpy's and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

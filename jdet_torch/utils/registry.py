@@ -56,3 +56,5 @@ MODELS = Registry("MODELS")
 BACKBONES = Registry("BACKBONES")
 NECKS = Registry("NECKS")
 HEADS = Registry("HEADS")
+DATASETS = Registry("DATASETS")
+TRANSFORMS = Registry("TRANSFORMS")

@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it imports nothing of JAX or jdet_tpu,
-its smoke script refuses to run without a card, and its builder defaults
+"""Boundaries of the PyTorch port: it imports nothing of JAX or jdet_tpu
+(and its data pipeline neither cv2 nor PIL), its smoke script refuses to
+run without a card, and `build_detector`, the Runner and the CLI default
 to the card."""
 import os
 import subprocess
@@ -17,8 +18,9 @@ names = [m.name for m in pkgutil.walk_packages(jdet_torch.__path__, "jdet_torch.
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "jdet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "jdet_tpu", "cv2", "PIL"))
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -31,9 +33,15 @@ def _run(args, **kw):
 def test_port_imports_no_jax_and_no_jdet_tpu():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    n, bad = proc.stdout.strip().split(" ", 1)
+    counts, names = proc.stdout.strip().split("\n")
+    n, bad = counts.split(" ", 1)
     assert int(n) >= 20
     assert bad == "[]", bad
+    walked = set(names.split())
+    for name in ("jdet_torch.data.image_io", "jdet_torch.data.devkits.voc_eval",
+                 "jdet_torch.runner.runner", "jdet_torch.runner.checkpoint",
+                 "jdet_torch.tools.run_net", "jdet_torch.tools.merge_results"):
+        assert name in walked, name
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
@@ -61,3 +69,18 @@ def test_build_detector_defaults_to_cuda():
             build_detector(cfg, load_pretrained=False)
     model = build_detector(cfg, device="cpu", load_pretrained=False)
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_runner_and_cli_default_to_cuda(tmp_path):
+    from jdet_torch.runner import Runner
+
+    cfg = dict(work_dir=str(tmp_path), max_epoch=1, model={})
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CPU-only refusal cannot be shown")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Runner(cfg)
+    proc = _run(["-m", "jdet_torch.tools.run_net", "--config-file",
+                 "configs/rotated_retinanet_obb_r50_fpn_1x_dota.py", "--save_dir",
+                 str(tmp_path), "--task", "train"])
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr

@@ -35,6 +35,17 @@ CFG = dict(
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers at once, and
+    torch's thread pool on a busy machine made these small models several
+    times slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _randomize_bn(module, seed):
     """Give every BN non-trivial statistics so the weight bridge's BN
     mapping is exercised."""

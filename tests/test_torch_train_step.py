@@ -38,6 +38,17 @@ from test_torch_retinanet import CFG, _numpy_params, _randomize_bn
 
 MEAN = [123.675, 116.28, 103.53]
 STD = [58.395, 57.12, 57.375]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers at once, and
+    torch's thread pool on a busy machine made these small models several
+    times slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 # warmup and a milestone inside 3 steps: lr(0), lr(1) warm up, step 2 is
 # past both the warmup and the first milestone (epoch 1 = step 2)
 SCHED = dict(scheduler_type="StepLR", milestones=[1, 5], gamma=0.1,
