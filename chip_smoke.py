@@ -9,7 +9,9 @@
    power limit.
 2. Builds the hand-written kernels from the sources in the checkout
    (`jdet_torch/csrc/rotated_iou.cu`: K1, the rect IoU, as a matrix kernel
-   and as the max-IoU assigner fused onto it; K2, the generic IoU kernel).
+   and as the max-IoU assigner fused onto it; K2, the generic IoU kernel)
+   with nvcc, and at the same time the host polygon library
+   (`jdet_torch/csrc/polygon.cpp`) with g++.
 3. Holds each kernel against its plain PyTorch version on the card: the
    edge cases of the CPU tests and the main path's shapes; times both.
    K1's matrix route at the NMS's (30, 512, 512) per-class self-IoU, timed
@@ -34,7 +36,15 @@
    512 gt slots with 64 real gts per image, uint8 images normalized and
    flipped inside the step, the config's SGD and warmup, 20 steps on one
    batch. Then times the step and its parts.
-7. Drives the Runner from the same config at full width on a synthetic
+7. Builds the same model under the bf16 policy
+   (`compute_dtype_scope(torch.bfloat16)`, the reference's training and
+   benchmark precision) and checks the card against the CPU at 512², B=1:
+   loss forward, `predict` and 2 train steps, each within this run's
+   f32 - bf16 gap. Then drives the bf16 serving path at B=2 and trains 20
+   bf16 steps at the config's traffic, timed as in 4 and 6, with the
+   share of the step's device time in bf16 tensor-core kernels and in
+   layout transposes.
+8. Drives the Runner from the same config at full width on a synthetic
    DOTA tree (16 PNG tiles of 1024² under `build/`, uint8 batches, device
    normalize and augment, 2 spawned loader workers, the tile cache):
    `run()` trains 2 epochs of 4 iterations with a `val` and a checkpoint
@@ -45,13 +55,24 @@
    and `test_time` images/s, the device busy share of a profiled
    loader-fed epoch, the PNG decode time of a tile per row filter, and
    peak memory.
-8. Prints a `{"kernels": [...]}` line, the card line again, and as the last
-   line `{"ok": true, "device": {...}}`.
+9. Runs the README's quick start on synthetic raw scenes:
+   `jdet_torch.tools.preprocess` tiles 2 scenes of 2000 x 1500 (tiles/s),
+   a Runner trains one epoch on the tiles, validates and tests with
+   score_thr=0.0 (every tile carries all that its NMS keeps), and the
+   test merges back into the 2 scenes. `DOTADataset.evaluate` and the
+   merge are timed on the native polygon library (`csrc/polygon.cpp`,
+   g++) and on its numpy plain path, with the same APs and merged
+   detections. `Runner.profile` records 3 steps into a trace that must
+   name the fused assigner's kernels.
+10. Prints a `{"kernels": [...]}` line, the card line again, and as the
+   last line `{"ok": true, "device": {...}}`.
 
-Each path (serving, K2's entry point, training, the Runner's `run()`)
-runs with the launch counters set to 0 just before it and read just
-after: one fused assigner launch per loss forward and per train step, one
-K1 matrix launch per `predict` (per predict batch in `val` and `test`).
+Each path (serving, K2's entry point, training, the same in bf16, the
+Runner's `run()`, the epoch on the preprocessed tiles and its val and
+test) runs with the launch counters set to 0 just before it and read
+just after: one fused assigner launch per loss forward and per train
+step, one K1 matrix launch per `predict` (per predict batch in `val` and
+`test`).
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
@@ -59,6 +80,7 @@ line. TF32 is off throughout, so float32 means float32.
 import json
 import os
 import pickle
+from collections import Counter
 import re
 import subprocess
 import sys
@@ -82,6 +104,9 @@ IOU_FLOPS_PER_PAIR_GENERIC = 700
 # does not hold: take 1000 steps per epoch. The 20 steps here see only the
 # warmup (500 iterations); the milestones (epochs 8, 11) lie far beyond.
 STEPS_PER_EPOCH = 1000
+# how far the bf16 model on the card may sit from the bf16 model on the
+# CPU, in units of the f32 - bf16 gap (check_bf16_card_against_cpu)
+BF16_GAP_FACTOR = 1.0
 CONFIG = Path(__file__).resolve().parent / "configs/rotated_retinanet_obb_r50_fpn_1x_dota.py"
 
 
@@ -193,13 +218,14 @@ def peak_bytes(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
-def device_profile(fn, iters=5, warmup=True):
+def device_profile(fn, iters=5, warmup=True, families=None):
     """fn() under torch.profiler: device ms per call of each kernel it
     launches (by short name, busiest first; empty if the profiler saw no
     device time), their sum, and the wall ms per call of the same window,
     from the synchronize before the first call to the one after the last
     (the profiler's own overhead included). One unprofiled call first,
-    unless warmup is False."""
+    unless warmup is False. With `families` ({key: regex}), a fourth value:
+    the device ms per call of the kernels whose full name matches each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -214,12 +240,18 @@ def device_profile(fn, iters=5, warmup=True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     kernels = {}
+    family_ms = dict.fromkeys(families or (), 0.0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ms = e.self_device_time_total / 1e3 / iters
             ours = re.search(r"(assign_pass\d_kernel|rotated_iou_(?:rect|generic)_kernel)", e.key)
             name = ours.group(1) if ours else re.sub(r"^void |<.*", "", e.key)[:48]
-            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total / 1e3 / iters
+            kernels[name] = kernels.get(name, 0.0) + ms
+            for key, pattern in (families or {}).items():
+                family_ms[key] += ms if re.search(pattern, e.key) else 0.0
     kernels = dict(sorted(kernels.items(), key=lambda kv: -kv[1]))
+    if families is not None:
+        return kernels, sum(kernels.values()), wall_ms, family_ms
     return kernels, sum(kernels.values()), wall_ms
 
 
@@ -702,21 +734,13 @@ def build_trainer(cfg, model, augment=True):
     return step, opt, normalize, augment
 
 
-def check_train_card_against_cpu(cfg, rik):
-    """Two train steps of the full-width model with the same random
-    weights on the card and on the CPU, B=1 at 512² (the card's assigner
-    takes the fused kernel, the CPU's the plain version), augmentation
-    off."""
-    from jdet_torch.models.builder import build_detector
-
-    models = {dev: build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
-              for dev in ("cuda", "cpu")}
-    # what the initializer sets to a constant (BN affine and statistics,
-    # zero conv biases) drawn at random, as the CPU parity tests do, so
-    # that no parameter's scale is its own 2-step update
-    rng = np.random.RandomState(4)
+def randomize_constants(model, seed=4):
+    """Draw at random what the initializer sets to a constant (BN affine
+    and statistics, zero conv biases), as the CPU parity tests do, so that
+    no parameter's scale is its own 2-step update."""
+    rng = np.random.RandomState(seed)
     with torch.no_grad():
-        for mod in models["cpu"].modules():
+        for mod in model.modules():
             if isinstance(mod, torch.nn.BatchNorm2d):
                 n = mod.num_features
                 for t, draw in ((mod.weight, rng.uniform(0.5, 1.5, n)),
@@ -726,12 +750,28 @@ def check_train_card_against_cpu(cfg, rik):
                     t.copy_(torch.as_tensor(draw))
             elif getattr(mod, "bias", None) is not None and not mod.bias.any():
                 mod.bias.copy_(torch.as_tensor(rng.normal(0.0, 0.01, mod.bias.shape)))
+
+
+def untied_batch_seed(head, size=512):
+    """The first batch seed from 5 whose B=1 assignment at `size` has no
+    near tie."""
+    return next(s for s in range(5, 100)
+                if assignment_margin(head, synth_batch(1, size, seed=s)[1], size) > 1e-5)
+
+
+def check_train_card_against_cpu(cfg, rik):
+    """Two train steps of the full-width model with the same random
+    weights on the card and on the CPU, B=1 at 512² (the card's assigner
+    takes the fused kernel, the CPU's the plain version), augmentation
+    off."""
+    from jdet_torch.models.builder import build_detector
+
+    models = {dev: build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
+              for dev in ("cuda", "cpu")}
+    randomize_constants(models["cpu"])
     models["cuda"].load_state_dict(models["cpu"].state_dict())
     start = {n: p.detach().clone() for n, p in models["cpu"].named_parameters()}
-    # the first seed from 5 whose assignment has no near tie
-    seed = next(s for s in range(5, 100)
-                if assignment_margin(models["cpu"].bbox_head,
-                                     synth_batch(1, 512, seed=s)[1], 512) > 1e-5)
+    seed = untied_batch_seed(models["cpu"].bbox_head)
     images, targets = synth_batch(1, 512, seed=seed, uint8=True)
     losses = {}
     for dev, m in models.items():
@@ -765,10 +805,97 @@ def check_train_card_against_cpu(cfg, rik):
         f"largest 2-step change)")
 
 
-def train_at_config_traffic(cfg, model, rik):
+def check_bf16_card_against_cpu(cfg, rik):
+    """The full-width model built under the bf16 policy, on the card and on
+    the CPU with the same weights, B=1 at 512²: the loss forward, the
+    head outputs and `predict` (score_thr 0.0), and 2 train steps
+    (augmentation off). The tolerance is this run's f32 - bf16 gap, the
+    distance from the float32 model on the card to the CPU's bf16 result:
+    for the 8 losses together, the head's class and box outputs and the 2
+    steps' change of all trainable parameters together (root mean
+    squares), the card's bf16 result lies within BF16_GAP_FACTOR of that
+    gap from the CPU's. `predict`'s detections are not compared: bf16
+    logits near the 0.01 prior take few distinct values, so many scores
+    tie, and which boxes the greedy NMS keeps follows the order in which
+    each device breaks those ties (on the H100, 572 valid detections on
+    the card against 773 on the CPU; the float32 model keeps the same
+    ones on both)."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    runs = {"bf16_card": ("cuda", torch.bfloat16), "bf16_cpu": ("cpu", torch.bfloat16),
+            "f32_card": ("cuda", None)}
+    models = {}
+    for name, (dev, dtype) in runs.items():
+        with compute_dtype_scope(dtype):
+            models[name] = build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
+    randomize_constants(models["bf16_cpu"])
+    for name in ("bf16_card", "f32_card"):
+        models[name].load_state_dict(models["bf16_cpu"].state_dict())
+    start = {n: p.detach().clone() for n, p in models["bf16_cpu"].named_parameters()}
+    images, targets = synth_batch(1, 512, seed=untied_batch_seed(models["bf16_cpu"].bbox_head),
+                                  uint8=True)
+    out = {}
+    t0 = time.perf_counter()
+    for name, m in models.items():
+        dev = runs[name][0]
+        step, _, normalize, _ = build_trainer(cfg, m, augment=False)
+        x, t = to_device(images, targets, dev)
+        launches = rik.ASSIGN_LAUNCHES, rik.LAUNCHES
+        m.train()
+        losses = {k: v.item() for k, v in m.loss(normalize(x), t).items()}
+        m.eval()
+        m.bbox_head.test_cfg = dict(m.bbox_head.test_cfg, score_thr=0.0)
+        with torch.no_grad():
+            outs = m.bbox_head(m.extract_feat(normalize(x)))
+            det = m.predict(normalize(x))
+        head = [torch.cat([lvl[i].float().flatten().cpu() for lvl in outs]) for i in (0, 1)]
+        steps = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
+        change = torch.cat([(p.detach().cpu() - start[n]).flatten()
+                            for n, p in m.named_parameters() if p.requires_grad])
+        valid = int(det["valid"].sum())
+        check(valid > 0 and all(torch.isfinite(det[k]).all().item() for k in ("boxes", "scores")),
+              f"{name}: predict gave {valid} valid detections, or non-finite ones")
+        out[name] = (losses, head, steps, change, valid)
+        want_dtype = runs[name][1] or torch.float32
+        check({o.dtype for lvl in outs for o in lvl} == {want_dtype}
+              and all(p.dtype == torch.float32 for p in m.parameters()),
+              f"{name}: head outputs not {want_dtype}, or parameters not float32")
+        if dev == "cuda":
+            check((rik.ASSIGN_LAUNCHES - launches[0], rik.LAUNCHES - launches[1]) == (3, 1),
+                  f"{name}: not one fused assigner launch per loss forward and train step "
+                  "and one K1 matrix launch per predict")
+        log(f"bf16 card vs cpu at 512², B=1: {name} done at {time.perf_counter() - t0:.1f} s")
+
+    def rms(a):
+        return float(torch.sqrt(torch.mean(torch.as_tensor(a, dtype=torch.float64) ** 2)))
+
+    card, cpu, f32 = (out[k] for k in ("bf16_card", "bf16_cpu", "f32_card"))
+
+    def losses(o):
+        return torch.tensor(list(o[0].values()) + [v for lv in o[2] for v in lv.values()],
+                            dtype=torch.float64)
+
+    rows = [("the losses of the loss forward and of 2 train steps",
+             losses(card) - losses(cpu), losses(f32) - losses(cpu)),
+            ("the head's class outputs", card[1][0] - cpu[1][0], f32[1][0] - cpu[1][0]),
+            ("the head's box outputs", card[1][1] - cpu[1][1], f32[1][1] - cpu[1][1]),
+            ("the 2 steps' parameter change", card[3] - cpu[3], f32[3] - cpu[3])]
+    fractions = {what: rms(err) / rms(gap) for what, err, gap in rows}
+    log(f"bf16 card vs cpu: losses card {card[0]} cpu {cpu[0]} f32 {f32[0]}; valid detections "
+        f"card/cpu/f32 {[o[4] for o in (card, cpu, f32)]}; |card - cpu| over the f32 - bf16 "
+        f"gap: " + json.dumps(fractions))
+    for what, frac in fractions.items():
+        check(frac <= BF16_GAP_FACTOR,
+              f"bf16 card vs cpu, {what}: {frac:.3f} of the f32 - bf16 gap apart")
+
+
+def train_at_config_traffic(cfg, model, rik, label):
     """The train step at the config's batch (B=4) at 1024², 512 gt slots
     with 64 real gts per image: 20 steps on one batch, then the step timed
-    whole and in parts. Returns the kernel launches of the 20 steps."""
+    whole and in parts, and its busiest kernels under the profiler: which
+    of them are bf16 tensor-core convolutions, and which are layout
+    transposes. Returns the kernel launches of the 20 steps."""
     step, opt, normalize, augment = build_trainer(cfg, model)
     images, targets = to_device(*synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True),
                                 "cuda")
@@ -787,9 +914,9 @@ def train_at_config_traffic(cfg, model, rik):
     peak = torch.cuda.max_memory_allocated()
     losses = [{k: v.item() for k, v in lv.items()} for lv in log_vars]
     for it, lv in enumerate(losses):
-        log(f"train step {it}: " + " ".join(f"{k}={v:.6f}" for k, v in lv.items())
+        log(f"{label} train step {it}: " + " ".join(f"{k}={v:.6f}" for k, v in lv.items())
             + f" lr={opt.lr_schedule(it):.6g}")
-    log(f"training path: launches {launches} (fused assigner per step {per_step}), "
+    log(f"{label} training path: launches {launches} (fused assigner per step {per_step}), "
         f"peak memory {peak} bytes")
     check(all(np.isfinite(v) for lv in losses for v in lv.values()), "non-finite train loss")
     check(losses[-1]["total_loss"] < losses[0]["total_loss"],
@@ -824,15 +951,23 @@ def train_at_config_traffic(cfg, model, rik):
                 parts[k].append(ev[a].elapsed_time(ev[b]))
     times.update({k: float(np.median(v)) for k, v in parts.items()})
     times["peak_memory_bytes"] = peak
-    # device time and wall time of the same 3 profiled steps
-    kernels, device_ms, wall_ms = device_profile(lambda: step(images, targets, next(counter)),
-                                                 iters=3)
+    # device time and wall time of the same 3 profiled steps, and the
+    # kernel families by full name: bf16 tensor-core kernels (cuDNN's and
+    # CUTLASS's name their bf16 operands), NCHW <-> NHWC layout transposes
+    kernels, device_ms, wall_ms, family_ms = device_profile(
+        lambda: step(images, targets, next(counter)), iters=3,
+        families={"conv_kernels_ms": r"fprop|dgrad|wgrad|conv|implicit",
+                  "bf16_tensor_core_kernels_ms": r"bf16",
+                  "layout_transpose_kernels_ms": r"nchwToNhwc|nhwcToNchw|[Tt]ranspose"})
     times["profiled_step_device_ms"] = device_ms
     times["profiled_step_wall_ms"] = wall_ms
     times["device_busy_share"] = device_ms / wall_ms
-    log(f"train step at 1024², B=4, K=512 (median of 10 after 3): {json.dumps(times)}")
-    log("train step under the profiler, the 8 busiest kernels, device ms per step: "
-        + json.dumps(dict(list(kernels.items())[:8])))
+    times.update(family_ms)
+    log(f"{label} train step at 1024², B=4, K=512 (median of 10 after 3): {json.dumps(times)}")
+    log(f"{label} train step under the profiler, the 12 busiest kernels, device ms per step: "
+        + json.dumps(dict(list(kernels.items())[:12])))
+    check(all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
+              for p in model.parameters()), f"{label}: a parameter or gradient is not float32")
     return launches
 
 
@@ -868,6 +1003,98 @@ def check_card_against_cpu(model, cpu_model):
         f"max score err {score_err:.2e}")
     check(v.sum() > 0 and same_valid >= 0.99, "card and cpu detections differ")
     check(score_err <= 1e-4, f"scores differ by {score_err}")
+
+
+def serving_phase(model, rik, label):
+    """The serving path of `model` at B=2, 1024², once, with the launch
+    counts read around it: the loss forward, `predict` at the config's
+    test_cfg and `predict` with score_thr=0.0; then each phase and its
+    parts timed. Returns the launches."""
+    head = model.bbox_head
+    images, targets = to_device(*synth_batch(2, 1024), "cuda")
+    test_cfg = dict(head.test_cfg)
+
+    def loss_fwd():
+        model.train()
+        out = model.loss(images, targets)
+        model.eval()
+        return out
+
+    def predict(score_thr):
+        head.test_cfg = dict(test_cfg, score_thr=score_thr)
+        return model.predict(images)
+
+    # the serving path, once, with the launch counts read around it
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    losses = loss_fwd()
+    torch.cuda.synchronize()
+    loss_launches = launch_counts(rik)
+    det = predict(test_cfg["score_thr"])
+    det0 = predict(0.0)
+    torch.cuda.synchronize()
+    serving_launches = launch_counts(rik)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label} serving path: launches {serving_launches} (loss forward {loss_launches}), "
+        f"peak memory {peak} bytes")
+    check(loss_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 1,
+                            "rotated_iou_generic": 0},
+          f"not one fused assigner launch in the loss forward: {loss_launches}")
+    check(serving_launches["rotated_iou_rect"] == 2,
+          f"not one K1 matrix launch per predict: {serving_launches}")
+
+    lv = {k: v.item() for k, v in losses.items()}
+    log(f"{label} losses at 1024², B=2: {lv}")
+    check(all(np.isfinite(v) for v in lv.values()), "non-finite loss")
+    check(lv["loss_cls"] > 0, "loss_cls is not positive")
+    for name, d in (("predict", det), ("predict score_thr=0", det0)):
+        shapes = {k: tuple(v.shape) for k, v in d.items()}
+        log(f"{label} {name}: {shapes}, valid per image {d['valid'].sum(1).tolist()}")
+        check(shapes["boxes"] == (2, 2000, 5) and shapes["polys"] == (2, 2000, 8)
+              and shapes["scores"] == (2, 2000), f"{name}: shapes {shapes}")
+        check(all(torch.isfinite(d[k]).all().item() for k in ("boxes", "polys", "scores")),
+              f"{name}: non-finite detections")
+    v = det0["valid"]
+    check(v.sum().item() > 0, "no valid detections at score_thr=0.0")
+    check((det0["boxes"][v][:, 2:4] > 0).all().item(), "degenerate valid boxes")
+    check(((det0["labels"][v] >= 0) & (det0["labels"][v] < 15)).all().item(), "bad labels")
+
+    # each phase, and its parts: the network forward, and the head's loss
+    # (targets + losses) or post-processing (decode + NMS) on its outputs
+    with torch.no_grad():
+        outs = head(model.extract_feat(images))
+
+    def head_predict(score_thr):
+        head.test_cfg = dict(test_cfg, score_thr=score_thr)
+        return head.predict(outs)
+
+    # the NMS's per-class IoU blocks alone, as predict runs them
+    cand = nms_candidates()
+
+    thr = test_cfg["score_thr"]
+    times = {"loss_forward_ms": median_ms(loss_fwd, warmup=2, iters=10)}
+    with torch.no_grad():
+        for name, fn in (
+            ("predict_ms", lambda: predict(thr)),
+            ("predict_score_thr0_ms", lambda: predict(0.0)),
+            ("network_forward_no_grad_ms", lambda: head(model.extract_feat(images))),
+            ("head_loss_ms", lambda: head.loss(outs, targets)),
+            ("head_predict_ms", lambda: head_predict(thr)),
+            ("head_predict_score_thr0_ms", lambda: head_predict(0.0)),
+            ("nms_class_iou_ms", lambda: rik.box_iou_rotated_rect(cand, cand)),
+        ):
+            times[name] = median_ms(fn, warmup=2, iters=10)
+    log(f"{label} phases at 1024², B=2 (median of 10): {json.dumps(times)}")
+    check({o.dtype for lvl in outs for o in lvl} == {model_dtype(model)},
+          f"{label}: head outputs are not {model_dtype(model)}")
+    head.test_cfg = test_cfg
+    return serving_launches
+
+
+def model_dtype(model):
+    """The dtype the model's layers compute in: float32 or the policy's."""
+    return model.bbox_head.retina_cls.dtype or torch.float32
 
 
 def decode_ms_by_filter(image, root, reps=3):
@@ -1026,6 +1253,137 @@ def runner_phase(cfg, rik, root, n_tiles=16):
     return launches
 
 
+def tiling_phase(cfg, rik, root):
+    """The README's quick start on synthetic data: `python -m
+    jdet_torch.tools.preprocess` tiles 2 raw scenes of 2000 x 1500 at the
+    config's subsize 1024 and gap 200; then a Runner on the tiles trains
+    one epoch, validates with score_thr=0.0 (every tile carries all the
+    detections its NMS keeps, up to the config's 2000) and tests, and
+    `merge_results` merges
+    the test's tiles back into scenes. `DOTADataset.evaluate` and the merge
+    are timed on the native polygon library and once more on its numpy
+    plain path, with the same APs and the same merged detections.
+    Last, `Runner.profile` records 3 steps. Returns the launches of the
+    epoch and those of val and test."""
+    import copy
+    import shutil
+
+    from jdet_torch.data import image_io
+    from jdet_torch.data.devkits import polygon, result_merge, voc_eval
+    from jdet_torch.data.synthetic import make_synthetic_raw_dota
+    from jdet_torch.runner import Runner
+    from jdet_torch.tools import merge_results as merge_cli
+    from jdet_torch.tools import preprocess
+
+    shutil.rmtree(root, ignore_errors=True)
+    img_dir, label_dir = make_synthetic_raw_dota(
+        str(root / "raw"), sizes=((2000, 1500),) * 2, corner_only=(False, False), seed=1)
+    out = root / "tiles"
+    cfg_file = root / "preprocess_cfg.py"
+    cfg_file.write_text(
+        f"preprocess = dict(dataset_type='DOTA', subsize=1024, gap=200, rates=[1.0], "
+        f"tasks=[dict(image_dir={img_dir!r}, label_dir={label_dir!r}, out_dir={str(out)!r})])\n")
+    t0 = time.perf_counter()
+    tiles = preprocess.main(["--config-file", str(cfg_file), "--clear"])[0]
+    tiling_s = time.perf_counter() - t0
+    names = sorted(os.listdir(out / "images"))
+    check(len(tiles) == len(names) == 12, f"preprocess wrote {len(names)} tiles, expected 12")
+    check(all((image_io.png_row_filters(str(out / "images" / n)) == 1).all() for n in names),
+          "preprocess: a tile row not written with the Sub filter")
+    with open(out / "labels.pkl", "rb") as f:
+        records = pickle.load(f)
+    check(len(records) == 12 and all(len(r["ann"]["bboxes"]) for r in records),
+          f"labels.pkl: {len(records)} records")
+    times = {"tiling_s": tiling_s, "tiles_per_s": len(names) / tiling_s}
+
+    cfg = copy.deepcopy(cfg)
+    cfg["model"]["backbone"]["pretrained"] = None
+    ds = cfg["dataset"]
+    for split in ("train", "val"):
+        ds[split].update(annotations_file=str(out / "labels.pkl"),
+                         images_dir=str(out / "images"), num_workers=2)
+    ds["test"].update(images_dir=str(out / "images"), num_workers=2)
+    cfg.update(name="tiling_smoke", work_dir=str(root / "work"), max_epoch=1, log_interval=1)
+    runner = Runner(cfg, device="cuda")
+    logged = []
+    real_log = runner.logger.log
+    runner.logger.log = lambda d: (logged.append(d), real_log(d))
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    runner.train_epoch()
+    torch.cuda.synchronize()
+    epoch_launches = launch_counts(rik)
+    losses = [d for d in logged if "total_loss" in d]
+    check(runner.iter == 3 and len(losses) == 3
+          and all(np.isfinite(d["total_loss"]) for d in losses),
+          f"tiling epoch: {runner.iter} iterations, losses {losses}")
+    check(epoch_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 3,
+                             "rotated_iou_generic": 0},
+          f"tiling epoch: not one fused assigner launch per iteration: {epoch_launches}")
+
+    # val and test with every detection kept
+    head = runner.model.bbox_head
+    head.test_cfg = dict(head.test_cfg, score_thr=0.0)
+    reset_launch_counts(rik)
+    t0 = time.perf_counter()
+    val_results = runner._run_inference(runner.val_dataset)
+    times["val_predict_s"] = time.perf_counter() - t0
+    test_pkl = runner.test()
+    torch.cuda.synchronize()
+    eval_launches = launch_counts(rik)
+    check(eval_launches["rotated_iou_rect"] == 6 and eval_launches["max_iou_assign_rect"] == 0,
+          f"val and test: not one K1 matrix launch per predict batch: {eval_launches}")
+    n_det = [int(det["valid"].sum()) for det, _ in val_results]
+    times["val_detections_per_tile"] = float(np.mean(n_det))
+    check(min(n_det) > 0, f"val at score_thr 0: detections per tile {n_det}")
+
+    ds_val, work = runner.val_dataset, runner.work_dir
+    with open(test_pkl, "rb") as f:
+        test_results = pickle.load(f)
+    merged = {}
+    real_iou, real_nms = voc_eval.poly_iou, result_merge.nms_poly_np
+    try:
+        for path, iou_fn, nms_fn in (("native", real_iou, real_nms),
+                                     ("numpy", polygon.poly_iou_plain, polygon.nms_poly_plain)):
+            voc_eval.poly_iou, result_merge.nms_poly_np = iou_fn, nms_fn
+            t0 = time.perf_counter()
+            metrics = ds_val.evaluate(val_results, work, runner.epoch)
+            times[f"evaluate_{path}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            files = merge_cli.main(["--results", test_pkl, "--out-dir", str(root / f"merged_{path}")])
+            times[f"merge_{path}_s"] = time.perf_counter() - t0
+            merged[path] = (metrics, [Path(f).read_text().splitlines() for f in files])
+    finally:
+        voc_eval.poly_iou, result_merge.nms_poly_np = real_iou, real_nms
+    (m_nat, f_nat), (m_np, f_np) = merged["native"], merged["numpy"]
+    check(m_nat.keys() == m_np.keys() and all(abs(m_nat[k] - m_np[k]) <= 1e-12 for k in m_nat),
+          f"evaluate: native {m_nat} numpy {m_np}")
+    # as multisets: equal scores may come out of the NMS in either order
+    lines_nat = Counter(line for f in f_nat for line in f)
+    lines_np = Counter(line for f in f_np for line in f)
+    same = sum((lines_nat & lines_np).values()) / max(lines_nat.total(), lines_np.total(), 1)
+    times["merged_detections"] = lines_nat.total()
+    times["merge_lines_identical_share"] = same
+    check(lines_nat.total() > 0 and same >= 0.99,
+          f"merge: native and numpy keep other detections ({same:.4f} of lines identical)")
+    scenes = {line.split()[0] for line in lines_nat}
+    check(scenes == {"scene_0000", "scene_0001"}, f"merge: scenes {sorted(scenes)[:5]}")
+    times["meanAP"] = m_nat["eval/0_meanAP"]
+    times["test_tiles"] = len(test_results)
+
+    # Runner.profile: 3 steps, a trace that names K1's fused kernels
+    t0 = time.perf_counter()
+    trace = runner.profile(n_steps=3)
+    times["profile_s"] = time.perf_counter() - t0
+    text = Path(trace).read_text()
+    check("assign_pass1_kernel" in text and "assign_pass2_kernel" in text,
+          f"{trace}: the profile names no fused assigner kernel")
+    times["profile_trace_bytes"] = len(text)
+    log(f"tiling, val and test with detections, merge, profile: {json.dumps(times)}")
+    runner.close()
+    return epoch_launches, eval_launches
+
+
 def main():
     import argparse
 
@@ -1046,11 +1404,19 @@ def main():
 
     from jdet_torch.config import load_cfg_file
     from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+    from jdet_torch.ops import polygon_native
     from jdet_torch.ops import rotated_iou_kernel as rik
 
+    # both libraries at once: nvcc for the kernels, g++ for the polygon
+    # library the evaluation and the merge run on
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    lib = rik.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s ({lib._name})")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(b) for b in (rik.build, polygon_native.build)]
+        lib, poly_lib = (b.result() for b in builds)
+    log(f"build: {time.perf_counter() - t0:.2f} s ({lib._name}, {poly_lib._name})")
     log(Path(lib._name).with_suffix(".log").read_text().strip())
 
     full_cfg = load_cfg_file(CONFIG)
@@ -1072,81 +1438,7 @@ def main():
     check_card_against_cpu(model, cpu_model)
     del cpu_model
 
-    images, targets = to_device(*synth_batch(2, 1024), "cuda")
-    test_cfg = dict(head.test_cfg)
-
-    def loss_fwd():
-        model.train()
-        out = model.loss(images, targets)
-        model.eval()
-        return out
-
-    def predict(score_thr):
-        head.test_cfg = dict(test_cfg, score_thr=score_thr)
-        return model.predict(images)
-
-    # the serving path, once, with the launch counts read around it
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts(rik)
-    losses = loss_fwd()
-    torch.cuda.synchronize()
-    loss_launches = launch_counts(rik)
-    det = predict(test_cfg["score_thr"])
-    det0 = predict(0.0)
-    torch.cuda.synchronize()
-    serving_launches = launch_counts(rik)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"serving path: launches {serving_launches} (loss forward {loss_launches}), "
-        f"peak memory {peak} bytes")
-    check(loss_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 1,
-                            "rotated_iou_generic": 0},
-          f"not one fused assigner launch in the loss forward: {loss_launches}")
-    check(serving_launches["rotated_iou_rect"] == 2,
-          f"not one K1 matrix launch per predict: {serving_launches}")
-
-    lv = {k: v.item() for k, v in losses.items()}
-    log(f"losses at 1024², B=2: {lv}")
-    check(all(np.isfinite(v) for v in lv.values()), "non-finite loss")
-    check(lv["loss_cls"] > 0, "loss_cls is not positive")
-    for name, d in (("predict", det), ("predict score_thr=0", det0)):
-        shapes = {k: tuple(v.shape) for k, v in d.items()}
-        log(f"{name}: {shapes}, valid per image {d['valid'].sum(1).tolist()}")
-        check(shapes["boxes"] == (2, 2000, 5) and shapes["polys"] == (2, 2000, 8)
-              and shapes["scores"] == (2, 2000), f"{name}: shapes {shapes}")
-        check(all(torch.isfinite(d[k]).all().item() for k in ("boxes", "polys", "scores")),
-              f"{name}: non-finite detections")
-    v = det0["valid"]
-    check(v.sum().item() > 0, "no valid detections at score_thr=0.0")
-    check((det0["boxes"][v][:, 2:4] > 0).all().item(), "degenerate valid boxes")
-    check(((det0["labels"][v] >= 0) & (det0["labels"][v] < 15)).all().item(), "bad labels")
-
-    # each phase, and its parts: the network forward, and the head's loss
-    # (targets + losses) or post-processing (decode + NMS) on its outputs
-    with torch.no_grad():
-        outs = head(model.extract_feat(images))
-
-    def head_predict(score_thr):
-        head.test_cfg = dict(test_cfg, score_thr=score_thr)
-        return head.predict(outs)
-
-    # the NMS's per-class IoU blocks alone, as predict runs them
-    cand = nms_candidates()
-
-    thr = test_cfg["score_thr"]
-    times = {"loss_forward_ms": median_ms(loss_fwd, warmup=2, iters=10)}
-    with torch.no_grad():
-        for name, fn in (
-            ("predict_ms", lambda: predict(thr)),
-            ("predict_score_thr0_ms", lambda: predict(0.0)),
-            ("network_forward_no_grad_ms", lambda: head(model.extract_feat(images))),
-            ("head_loss_ms", lambda: head.loss(outs, targets)),
-            ("head_predict_ms", lambda: head_predict(thr)),
-            ("head_predict_score_thr0_ms", lambda: head_predict(0.0)),
-            ("nms_class_iou_ms", lambda: rik.box_iou_rotated_rect(cand, cand)),
-        ):
-            times[name] = median_ms(fn, warmup=2, iters=10)
-    log(f"phases at 1024², B=2 (median of 10): {json.dumps(times)}")
+    serving_launches = serving_phase(model, rik, "fp32")
 
     # K2's path: its entry point on the main path's operands, once
     from jdet_torch.ops import box_iou_rotated_generic
@@ -1163,14 +1455,32 @@ def main():
     del iou
 
     check_train_card_against_cpu(full_cfg, rik)
-    train_launches = train_at_config_traffic(full_cfg, model, rik)
+    train_launches = train_at_config_traffic(full_cfg, model, rik, "fp32")
+    del model, head
+
+    # the same paths under the bf16 policy, the precision of the
+    # reference's training and benchmark entry points
+    check_bf16_card_against_cpu(full_cfg, rik)
+    with compute_dtype_scope(torch.bfloat16):
+        bf16_model = build_detector(cfg, device="cuda", seed=0, load_pretrained=False)
+    bf16_serving_launches = serving_phase(bf16_model, rik, "bf16")
+    bf16_train_launches = train_at_config_traffic(full_cfg, bf16_model, rik, "bf16")
+    del bf16_model
+    torch.cuda.empty_cache()
+
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
+    tiling_launches, tiling_eval_launches = tiling_phase(full_cfg, rik,
+                                                         rik.BUILD_DIR / "tiling_dota")
 
     # launches per path: serving (loss forward + 2 predicts), K2's entry
-    # point, training (20 steps), the Runner's run() (8 train iterations,
-    # 2 vals and a test of 4 predict batches each)
+    # point, training (20 steps), each of those in bf16, the Runner's
+    # run() (8 train iterations, 2 vals and a test of 4 predict batches
+    # each), the epoch on the preprocessed tiles (3 iterations) and its
+    # val and test (3 predict batches each)
     paths = {"serving": serving_launches, "generic_iou": generic_launches,
-             "train_20_steps": train_launches, "runner": runner_launches}
+             "train_20_steps": train_launches, "bf16_serving": bf16_serving_launches,
+             "bf16_train_20_steps": bf16_train_launches, "runner": runner_launches,
+             "tiling_epoch": tiling_launches, "tiling_val_test": tiling_eval_launches}
     kernels = [entry, assign_entry, generic_entry]
     for e in kernels:
         e["launches_by_path"] = {p: n[e["name"]] for p, n in paths.items()}

@@ -1,15 +1,19 @@
-"""Host-side polygon geometry (numpy): IoU and NMS over quads.
+"""Host-side polygon geometry: IoU and NMS over quads.
 
-Copy of the numpy paths of `jdet_tpu/data/devkits/polygon.py`
-(`poly_iou` :100, `poly_iou_aligned` :120, `nms_poly_np` :126 and the
-helpers they use), for evaluation and tile merging. Sutherland–Hodgman
-clipping gives the exact convex intersection area. The reference's
-optional native library (`jdet_tpu/csrc/polygon.cpp`) is not ported: the
-numpy path computes the same values.
+Port of `jdet_tpu/data/devkits/polygon.py` (`poly_iou` :100,
+`poly_iou_aligned` :120, `nms_poly_np` :126 and the helpers they use),
+for evaluation and tile merging. As in the reference, `poly_iou` and
+`nms_poly_np` run on the native library (`csrc/polygon.cpp`, built with
+g++ by `ops/polygon_native.py`); `poly_iou_plain` and `nms_poly_plain`
+are the numpy versions of the same functions, which the tests hold the
+library against. Sutherland–Hodgman clipping gives the exact convex
+intersection area.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ...ops import polygon_native
 
 
 def _polygon_area(pts_x, pts_y, counts):
@@ -99,7 +103,12 @@ def poly_intersection_areas(p1, p2):
 
 def poly_iou(p1, p2):
     """Pairwise IoU matrix (n, m) of 8-coord quads (reference `iou_poly`,
-    ops/nms_poly.py:247)."""
+    ops/nms_poly.py:247), on the native library."""
+    return polygon_native.poly_iou_matrix(p1, p2)
+
+
+def poly_iou_plain(p1, p2):
+    """`poly_iou` in numpy."""
     n, m = len(p1), len(p2)
     if n == 0 or m == 0:
         return np.zeros((n, m))
@@ -120,8 +129,13 @@ def poly_iou_aligned(p1, p2):
 
 def nms_poly_np(polys, scores, iou_thr):
     """Greedy poly NMS with hbb prefilter (reference
-    `py_cpu_nms_poly_fast`, devkits/result_merge.py:69-130). Returns kept
-    indices in score order."""
+    `py_cpu_nms_poly_fast`, devkits/result_merge.py:69-130), on the
+    native library. Returns kept indices in score order."""
+    return polygon_native.poly_nms(polys, scores, iou_thr)
+
+
+def nms_poly_plain(polys, scores, iou_thr):
+    """`nms_poly_np` in numpy."""
     if len(polys) == 0:
         return np.zeros((0,), np.int64)
     xs = polys[:, 0::2]

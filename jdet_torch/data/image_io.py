@@ -103,6 +103,16 @@ def _parse(data):
     return width, height, depth, ctype, palette, rows, max(bits // 8, 1)
 
 
+def png_size(path):
+    """(height, width) of a PNG file, read from its IHDR chunk alone."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
 def png_row_filters(path):
     """The filter type (0..4) of each row of a PNG file."""
     with open(path, "rb") as f:

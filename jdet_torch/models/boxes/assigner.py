@@ -104,8 +104,8 @@ def max_iou_assign_rotated(
     `iou_chunk` gt rows at a time (the plain version)."""
     if gt_bboxes.is_cuda:
         return launch_max_iou_assign_rect(
-            gt_bboxes.float().contiguous(), gt_mask, gt_labels,
-            anchors.float().contiguous(), anchor_mask, pos_iou_thr,
+            gt_bboxes.contiguous(), gt_mask, gt_labels,
+            anchors.contiguous(), anchor_mask, pos_iou_thr,
             neg_iou_thr, min_pos_iou,
         )
     overlaps = box_iou_rotated(

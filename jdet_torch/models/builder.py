@@ -3,7 +3,9 @@
 Port of `jdet_tpu/models/builder.py::build_detector` (:22-94) for
 single-stage detectors: {type, backbone{type, ...}, neck{...},
 bbox_head{...}} assembled through the registries, weights drawn from one
-seeded `torch.Generator` on the CPU, then moved to `device`.
+seeded `torch.Generator` on the CPU, then moved to `device`. Its layers
+bind the compute dtype in force while it builds (`models/nn.py`): build
+inside `compute_dtype_scope(torch.bfloat16)` for the bf16 model.
 """
 from __future__ import annotations
 

@@ -10,7 +10,11 @@ per-level top-k -> decode -> multiclass rotated NMS, fixed output size.
 
 Head outputs are NCHW. Anchors run (H, W, A), so `_flatten_outs`
 permutes to NHWC before the reshape: channel a*C + c lands at anchor a,
-class c.
+class c. Under a compute dtype (`models/nn.py`) the towers and the output
+convs compute in it and `forward` returns it; `loss` and `predict` cast
+the outputs to float32 first, where the reference does (:194, :365), so
+the anchors, the assigner, the codecs, the losses and the NMS run in
+float32.
 """
 from __future__ import annotations
 

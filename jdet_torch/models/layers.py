@@ -2,8 +2,18 @@
 
 Port of `jdet_tpu/models/layers.py` (`bias_init_with_prob` :20,
 `normal_init` :26, `ConvModule` :30 with norm None or 'bn', `max_pool`
-:101 with SAME padding, `resize_nearest` :112) plus the `Conv2d` that
-stands in for flax's `nnx.Conv`.
+:101 with SAME padding, `resize_nearest` :112) plus the `Conv2d` and
+`BatchNorm2d` that stand in for flax's `nnx.Conv` and `nnx.BatchNorm`.
+
+Both bind the compute dtype of `models/nn.py` when they are built and
+follow flax's arithmetic under it (flax 0.12, `promote_dtype` of every
+operand to the layer's dtype): the conv casts its input, its float32
+weight and its bias to that dtype, convolves, and adds the bias as an
+operation of its own in that dtype (a bias fused into the conv rounds
+once where flax rounds twice); the BN with running statistics casts the
+input and its four float32 vectors to that dtype and normalizes step by
+step in it. `ConvModule`, `max_pool` and `resize_nearest` keep their
+input's dtype.
 
 Flax's SAME padding is asymmetric under stride 2 (3x3/s2 on an even size
 pads (0, 1), 7x7/s2 on 1024 pads (2, 3)), while torch's `padding=k//2` is
@@ -17,6 +27,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .nn import compute_dtype
 
 
 def bias_init_with_prob(prior_prob):
@@ -49,7 +61,8 @@ def same_pads(size, kernel, stride, dilation=1):
 
 
 class Conv2d(nn.Module):
-    """NCHW conv with flax 'SAME' padding; weight OIHW."""
+    """NCHW conv with flax 'SAME' padding; weight OIHW, float32; computes
+    in the compute dtype bound when it is built."""
 
     def __init__(
         self,
@@ -66,6 +79,7 @@ class Conv2d(nn.Module):
         super().__init__()
         self.kernel_size = kernel_size
         self.stride = stride
+        self.dtype = compute_dtype()
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
         )
@@ -76,18 +90,51 @@ class Conv2d(nn.Module):
                 self.bias.fill_(bias_value)
 
     def forward(self, x):
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            x, weight = x.to(self.dtype), weight.to(self.dtype)
         ph = same_pads(x.shape[-2], self.kernel_size, self.stride)
         pw = same_pads(x.shape[-1], self.kernel_size, self.stride)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            padding=(ph[0], pw[0]))
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+            y = F.conv2d(x, weight, None, self.stride, padding=(ph[0], pw[0]))
+        else:
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            y = F.conv2d(x, weight, None, self.stride)
+        if bias is None:
+            return y
+        return y + bias.to(y.dtype)[:, None, None]
 
 
-def BatchNorm2d(channels):
-    """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1)."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1);
+    float32 parameters and statistics, computing in the compute dtype
+    bound when it is built. Under a compute dtype, training mode takes
+    the batch statistics in float32 and rounds the output, as flax does;
+    the main path's BNs all run on their running statistics."""
+
+    def __init__(self, channels):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.dtype = compute_dtype()
+
+    def forward(self, x):
+        d = self.dtype
+        if d is None:
+            return super().forward(x)
+        if self.training:
+            # flax's `_compute_stats` (float32, E[x^2] - E[x]^2) and its
+            # running averages, which keep the biased variance
+            x = x.float()
+            mean = x.mean((0, 2, 3))
+            var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+            scale = torch.rsqrt(var + self.eps) * self.weight.to(d)
+            y = (x - mean[:, None, None]) * scale[:, None, None]
+            return (y + self.bias.to(d)[:, None, None]).to(d)
+        mean, var, scale, bias = (t.to(d)[:, None, None] for t in (
+            self.running_mean, self.running_var, self.weight, self.bias))
+        return (x.to(d) - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
 
 
 class ConvModule(nn.Module):

@@ -88,7 +88,7 @@ def multiclass_nms_rotated(
     v = torch.isfinite(top_s)
 
     if b.is_cuda:
-        flat = b.reshape(B * num_classes, K, 5).float().contiguous()
+        flat = b.reshape(B * num_classes, K, 5).contiguous()
         iou = box_iou_rotated_rect(flat, flat).reshape(B, num_classes, K, K)
     else:
         iou = box_iou_rotated(b, b, impl="xla")  # (B, C, K, K)

@@ -20,7 +20,9 @@ from ..utils.general import parse_losses
 def make_device_normalizer(mean, std, to_bgr=False):
     """Return normalize(images) -> (x - mean) * (1 / std) in float32, on
     the batch's device; `to_bgr` reverses the channels first. The
-    constants are copied to a device once, at its first batch."""
+    constants are copied to a device once, at its first batch. Under a
+    bf16 policy the first conv casts the normalized batch, as in the
+    reference."""
     mean = torch.tensor(mean, dtype=torch.float32)
     inv_std = 1.0 / torch.tensor(std, dtype=torch.float32)
     on_device = {}

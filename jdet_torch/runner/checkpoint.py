@@ -8,11 +8,16 @@ state_dict (buffers included) as numpy; `optimizer` holds the SGD
 momentum buffers by parameter name and the count of updates made.
 
 `load_checkpoint` also takes a `jdet_tpu` checkpoint (its meta carries
-`jdet_tpu_version`): the nnx parameter paths, joined by "/", go through
-`models/convert.py::params_from_jax`; epoch and iter carry over; its
-optax momentum does not, and the loader says so. EMA payloads raise
-until EMA is ported. Only files this repository wrote may be loaded:
-unpickling can run code.
+`jdet_tpu_version`), as the reference restores it (:115-121): the nnx
+parameter paths, joined by "/", go through
+`models/convert.py::params_from_jax`, and so does the optax momentum,
+`opt_state/.../trace/<param path>`, into the SGD momentum buffers of the
+parameters SGD updates (the frozen ones keep none, as in the port's own
+checkpoints); the update count comes from the schedule's
+`opt_state/.../count` leaf, or from `meta["iter"]` where the payload has
+none. A full load of a payload with an `ema` entry raises until EMA is
+ported; a model-only load ignores it, as the reference does. Only files
+this repository wrote may be loaded: unpickling can run code.
 """
 from __future__ import annotations
 
@@ -60,29 +65,41 @@ def _load_state(model, state):
                           strict=True)
 
 
+def _jax_optimizer_state(opt_state, meta):
+    """A `jdet_tpu` optimizer payload -> the port's {"count": updates made,
+    "momentum": {parameter name: buffer}}."""
+    counts = [v for k, v in opt_state.items() if k.startswith("opt_state/") and k.endswith("/count")]
+    if len(counts) > 1:
+        raise ValueError(f"{len(counts)} optax count leaves; expected at most one")
+    traces = {k.split("/trace/", 1)[1].replace("/", "."): v
+              for k, v in opt_state.items() if "/trace/" in k}
+    return {"count": int(counts[0]) if counts else int(meta.get("iter", 0)),
+            "momentum": params_from_jax(traces)}
+
+
 def load_checkpoint(path, model, optimizer=None, model_only=False):
     """Load `path` into `model` (and `optimizer` unless model_only);
     returns the checkpoint's meta."""
     with open(path, "rb") as f:
         payload = pickle.load(f)
     meta = dict(payload.get("meta", {})) if isinstance(payload, dict) else {}
-    if "ema" in payload:
+    if not model_only and "ema" in payload:
         raise NotImplementedError(f"{path}: EMA checkpoints wait for the port of EMA")
+    opt = payload.get("optimizer") if optimizer is not None and not model_only else None
     if "jdet_tpu_version" in meta:
         flat = {k.replace("/", "."): v for k, v in payload["model"].items()}
         _load_state(model, params_from_jax(flat))
-        if optimizer is not None and not model_only and "optimizer" in payload:
-            print(f"[checkpoint] {path}: a jdet_tpu checkpoint; its optax momentum "
-                  "is not carried over, SGD restarts from zero momentum", flush=True)
-        return meta
-    if "jdet_torch_version" not in meta:
+        if opt is not None:
+            opt = _jax_optimizer_state(opt, meta)
+    elif "jdet_torch_version" in meta:
+        _load_state(model, payload["model"])
+    else:
         raise ValueError(f"{path}: neither a jdet_torch nor a jdet_tpu checkpoint")
-    _load_state(model, payload["model"])
-    if optimizer is not None and not model_only and "optimizer" in payload:
-        opt = payload["optimizer"]
+    if opt is not None:
         optimizer.count = int(opt["count"])
+        updated = {p for g in optimizer.sgd.param_groups for p in g["params"]}
         for name, p in model.named_parameters():
-            if name in opt["momentum"]:
+            if p in updated and name in opt["momentum"]:
                 optimizer.sgd.state[p]["momentum_buffer"] = torch.as_tensor(
-                    opt["momentum"][name], device=p.device).clone()
+                    np.asarray(opt["momentum"][name]), device=p.device).clone()
     return meta

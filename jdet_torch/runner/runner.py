@@ -3,8 +3,9 @@ one device.
 
 Port of `jdet_tpu/runner/runner.py` (constructor :47-199, `run` :283,
 `train_epoch` :296, `_run_inference` :340, `val` :418, `test` :429,
-`test_time` :494, `save`/`load`/`resume` :526-572, `_unflip_dets` :574,
-`_meta_light` :600). The config is a plain dict (`jdet_torch.config`).
+`profile` :465, `test_time` :494, `save`/`load`/`resume` :526-572,
+`_unflip_dets` :574, `_meta_light` :600). The config is a plain dict
+(`jdet_torch.config`).
 
 Host batches come from the dataset's DataLoader, pinned when the device
 is the card, and are copied with `non_blocking=True`. The train step
@@ -14,7 +15,7 @@ them only when it logs.
 
 Keys the port cannot honour raise instead of being ignored:
 `scheduler.groups` (per-group schedules) and `ema`.
-`run_on_images`/`vis_test` and `profile` are not ported.
+`run_on_images`/`vis_test` are not ported.
 """
 from __future__ import annotations
 
@@ -235,6 +236,34 @@ class Runner:
             pickle.dump([(det, _meta_light(meta)) for det, meta in results], f)
         if hasattr(self.test_dataset, "save_submission"):
             self.test_dataset.save_submission(results, os.path.join(self.work_dir, "submission"))
+        return path
+
+    def profile(self, n_steps=10, out_dir=None):
+        """Record `n_steps` train steps on one batch under `torch.profiler`
+        (host and, on the card, CUDA activity), after one step outside
+        the trace, and write a Chrome trace into `out_dir` (default
+        work_dir/profile). The steps train the model, as the reference's
+        do. Returns the trace's path."""
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        out_dir = out_dir or os.path.join(self.work_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        batch, _ = next(iter(self.train_dataset.batches(pin_memory=self.pin_memory)))
+        images, targets = self._to_device(batch)
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._train_step(images, targets, 0)
+        sync()
+        with torch_profile(activities=activities) as prof:
+            for i in range(n_steps):
+                self._train_step(images, targets, i + 1)
+            sync()
+        path = os.path.join(out_dir, "train_steps_trace.json")
+        prof.export_chrome_trace(path)
+        self.logger.print_on_screen({"profile_trace": path})
         return path
 
     def test_time(self, warmup=10, rerun=100):

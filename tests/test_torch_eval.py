@@ -3,8 +3,8 @@
 Polygon IoU and NMS, `voc_eval_dota`, `DOTADataset.evaluate`, the
 submission text of `save_submission`, `merge_results` and its CLI agree
 with the reference: floats within 1e-12, kept indices and text identical.
-The reference may take its native polygon library here, the port always
-takes the numpy path.
+Both packages take their native polygon library here (the port's is held
+against its numpy path in tests/test_torch_polygon_native.py).
 """
 import os
 import pickle

@@ -13,6 +13,7 @@
   tests/test_torch_train_step.py); val, save, resume, test and
   `test_time` work; the CLI trains in a subprocess.
 """
+import json
 import os
 import pickle
 import subprocess
@@ -34,6 +35,7 @@ from jdet_tpu.runner.runner import _unflip_dets as j_unflip_dets
 from jdet_torch.data.dota import DOTADataset
 from jdet_torch.data.synthetic import make_synthetic_dota
 from jdet_torch.models.builder import build_detector
+from jdet_torch.models.convert import params_from_jax
 from jdet_torch.optim import build_lr_schedule, build_optimizer
 from jdet_torch.parallel import build_train_step, make_device_augmenter, make_device_normalizer
 from jdet_torch.runner import Runner, load_checkpoint, save_checkpoint
@@ -41,8 +43,8 @@ from jdet_torch.runner import runner as runner_module
 from jdet_torch.tools import merge_results as merge_cli
 from jdet_torch.tools import run_net
 from jdet_torch.utils.logger import RunLogger
-from test_torch_retinanet import CFG, _randomize_bn
-from test_torch_train_step import _batch
+from test_torch_retinanet import CFG, _numpy_params, _randomize_bn
+from test_torch_train_step import _assert_close_per_tensor, _assignment_margin, _batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEAN = [123.675, 116.28, 103.53]
@@ -73,7 +75,7 @@ def _no_tensorboard(monkeypatch):
 SMALL = dict(CFG, bbox_head=dict(CFG["bbox_head"], test_cfg=dict(nms_pre=64, max_per_img=20)))
 
 
-def test_jax_checkpoint_loads_and_predicts_like_the_jax_model(tmp_path, capsys):
+def test_jax_checkpoint_loads_and_predicts_like_the_jax_model(tmp_path):
     jmodel = j_build_detector(SMALL, seed=0)
     _randomize_bn(jmodel, seed=1)
     jopt = j_build_optimizer(jmodel, lr_schedule=j_build_lr_schedule(0.01), frozen_stages=1)
@@ -87,8 +89,12 @@ def test_jax_checkpoint_loads_and_predicts_like_the_jax_model(tmp_path, capsys):
     topt = build_optimizer(tmodel, lr_schedule=build_lr_schedule(0.01), frozen_stages=1)
     meta = load_checkpoint(path, tmodel, topt)
     assert (meta["epoch"], meta["iter"]) == (3, 30)
-    assert "momentum is not carried over" in capsys.readouterr().out
-    assert topt.count == 0 and not topt.sgd.state
+    # the optimizer state comes over: the schedule's count leaf (0: no
+    # update was made, whatever meta says) and a momentum buffer, here
+    # zero, for every parameter SGD updates
+    updated = {p for g in topt.sgd.param_groups for p in g["params"]}
+    assert topt.count == 0 and set(topt.sgd.state) == updated
+    assert all(not topt.sgd.state[p]["momentum_buffer"].any() for p in updated)
 
     # the JAX side jitted, as the reference's Runner runs it (eager JAX
     # takes minutes here)
@@ -134,6 +140,101 @@ def test_checkpoint_payloads_the_port_cannot_take(tmp_path):
             pickle.dump(payload, f)
         with pytest.raises(error, match=name):
             load_checkpoint(str(tmp_path / name), model)
+
+
+def test_resume_from_a_jax_checkpoint_takes_the_reference_next_step(tmp_path):
+    """The reference trains 3 steps inside its warmup with clip and saves;
+    the port loads that checkpoint with the update count and every
+    momentum buffer, and its 4th step equals the reference's 4th: the
+    parameters, and the step's change of each, within 1e-3 of the
+    tensor's largest value (tests/test_torch_train_step.py's tolerance).
+    A resume that restarted the schedule (lr(0) = lr(3) / 1.4) or the
+    momentum would change every update by far more."""
+    from jdet_tpu.parallel.spmd import build_train_step as j_build_train_step
+    from jdet_tpu.parallel.spmd import make_device_normalizer as j_make_device_normalizer
+    from jdet_tpu.parallel.spmd import make_mesh
+
+    sched = dict(scheduler_type="StepLR", milestones=[8], steps_per_epoch=2,
+                 warmup="linear", warmup_iters=5, warmup_ratio=1.0 / 3)
+    opt_kw = dict(opt_type="SGD", momentum=0.9, weight_decay=1e-4,
+                  grad_clip=dict(max_norm=35.0), frozen_stages=1)
+    u8, targets = _batch()
+    jmodel = j_build_detector(CFG, seed=0)
+    _randomize_bn(jmodel, seed=1)
+    jopt = j_build_optimizer(jmodel, lr_schedule=j_build_lr_schedule(0.01, **sched), **opt_kw)
+    _, state, jstep = j_build_train_step(jmodel, jopt, make_mesh(n_devices=1),
+                                         preprocess=j_make_device_normalizer(MEAN, STD))
+    jt = {k: jnp.asarray(v) for k, v in targets.items()}
+
+    def jax_step(state, it):
+        return jstep(state, jnp.asarray(u8), jt, jax.random.PRNGKey(0), jnp.int32(it))[0]
+
+    for it in range(3):
+        state = jax_step(state, it)
+    nnx.update((jmodel, jopt), state)
+    path = str(tmp_path / "jax_ckpt_3.pkl")
+    j_save_checkpoint(path, jmodel, jopt, meta={"epoch": 1, "iter": 3})
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    nnx.update((jmodel, jopt), jax_step(state, 3))
+
+    def trainable(flat):
+        return {k: v.numpy() for k, v in params_from_jax(
+            {k: v for k, v in flat.items()
+             if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+
+    p3 = trainable({k.replace("/", "."): v for k, v in saved["model"].items()})
+    p4 = trainable(_numpy_params(jmodel))
+
+    tmodel = build_detector(CFG, device="cpu", load_pretrained=False, seed=7)
+    assert _assignment_margin(tmodel, targets) > 1e-5
+    topt = build_optimizer(tmodel, lr_schedule=build_lr_schedule(0.01, **sched), **opt_kw)
+    load_checkpoint(path, tmodel, topt)
+    assert topt.count == 3
+    traces = params_from_jax({k.split("/trace/", 1)[1].replace("/", "."): v
+                              for k, v in saved["optimizer"].items() if "/trace/" in k})
+    n_buf = 0
+    for name, p in tmodel.named_parameters():
+        if p in topt.sgd.state:
+            torch.testing.assert_close(topt.sgd.state[p]["momentum_buffer"], traces[name],
+                                       rtol=0, atol=0, msg=name)
+            assert traces[name].abs().sum() > 0, name
+            n_buf += 1
+        else:
+            assert not p.requires_grad, name
+    assert n_buf == len({p for g in topt.sgd.param_groups for p in g["params"]}) > 50
+
+    step = build_train_step(tmodel, topt, preprocess=make_device_normalizer(MEAN, STD))
+    step(torch.from_numpy(u8), {k: torch.from_numpy(v) for k, v in targets.items()}, 3)
+    assert topt.count == 4
+    got = {n: p.detach().numpy() for n, p in tmodel.named_parameters()}
+    _assert_close_per_tensor(got, {n: p4[n] for n in got}, "param")
+    _assert_close_per_tensor({n: got[n] - p3[n] for n in got},
+                             {n: p4[n] - p3[n] for n in got if p4[n].any()}, "step 4 change")
+
+
+def test_ema_checkpoint_loads_model_only(tmp_path):
+    """An EMA-trained jdet_tpu checkpoint: its weights load with
+    model_only=True (as `pretrained_weights` loads them) and the `ema`
+    entry is ignored, as the reference ignores it there; a full load
+    raises until EMA is ported."""
+    jmodel = j_build_detector(SMALL, seed=0)
+    _randomize_bn(jmodel, seed=1)
+    path = str(tmp_path / "ema_ckpt.pkl")
+    j_save_checkpoint(path, jmodel, meta={"epoch": 1, "iter": 10})
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    payload["ema"] = {"state": {}, "updates": 10, "decay": 0.9999}
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    tmodel = build_detector(SMALL, device="cpu", load_pretrained=False, seed=7)
+    meta = load_checkpoint(path, tmodel, model_only=True)
+    assert meta["iter"] == 10
+    want = params_from_jax({k.replace("/", "."): v for k, v in payload["model"].items()})
+    for name, t in tmodel.state_dict().items():
+        torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
+    with pytest.raises(NotImplementedError, match="ema_ckpt.pkl"):
+        load_checkpoint(path, tmodel)
 
 
 def test_checkpoint_round_trip_gives_the_next_step_bit_for_bit(tmp_path):
@@ -299,6 +400,23 @@ def test_runner_trains_evaluates_saves_resumes_and_tests(mini_tree, monkeypatch,
     # flip test: one more predict pass per flip, unflipped back
     resumed.cfg["flip_test"] = ["H", "HV"]
     assert len(resumed._run_inference(resumed.val_dataset)) == 3 * 6
+
+
+def test_runner_profile_writes_a_trace(mini_tree):
+    """`Runner.profile` on the CPU: one step outside the trace, then the
+    traced one, whose convolutions and SGD step show up as host events in
+    a Chrome trace under work_dir/profile. Both steps train, as the
+    reference's do; the Runner's iteration stays where it was."""
+    root, img_dir, ann = mini_tree
+    runner = Runner(_mini_cfg(root, img_dir, ann, work_dir=os.path.join(root, "profiled")),
+                    device="cpu")
+    path = runner.profile(n_steps=1)
+    assert path == os.path.join(runner.work_dir, "profile", "train_steps_trace.json")
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::conv2d" in names and "Optimizer.step#SGD.step" in names
+    assert runner.optimizer.count == 2 and runner.iter == 0
+    runner.close()
 
 
 def test_unflip_matches_the_reference():
