@@ -44,7 +44,21 @@
    bf16 steps at the config's traffic, timed as in 4 and 6, with the
    share of the step's device time in bf16 tensor-core kernels and in
    layout transposes.
-8. Drives the Runner from the same config at full width on a synthetic
+8. S2ANet R50-FPN from `configs/s2anet_r50_fpn_1x_dota.py` at full width
+   with random weights: the fused assigner on per-image anchors (the
+   ODM's route) on the edge cases fed per image and at the train step's
+   (4, 512, 21824) on the refined anchors of a real FAM forward, identical
+   to K1's matrix on the same anchors plus the PyTorch assigner and to the
+   CPU plain version's gt_inds and labels, timed against the unfused
+   route; AlignConv's deformable conv and the ORConv against the CPU at
+   the P3 shape and timed at the step's shapes; card against CPU at 512²
+   (head outputs, losses, 2 train steps, and in bf16 within the f32 -
+   bf16 gap); the serving path at B=2 and 20 train steps at B=4, 1024²,
+   K=512, in float32 and bf16, with the deformable conv's sampling and
+   scatter-add, the ORConv's ARF expansion and the fused assigner named in
+   the step's profile; and one epoch of 2 iterations, a val and a test
+   through `python -m jdet_torch.tools.run_net` on 8 synthetic tiles.
+9. Drives the Runner from the same config at full width on a synthetic
    DOTA tree (16 PNG tiles of 1024² under `build/`, uint8 batches, device
    normalize and augment, 2 spawned loader workers, the tile cache):
    `run()` trains 2 epochs of 4 iterations with a `val` and a checkpoint
@@ -55,7 +69,7 @@
    and `test_time` images/s, the device busy share of a profiled
    loader-fed epoch, the PNG decode time of a tile per row filter, and
    peak memory.
-9. Runs the README's quick start on synthetic raw scenes:
+10. Runs the README's quick start on synthetic raw scenes:
    `jdet_torch.tools.preprocess` tiles 2 scenes of 2000 x 1500 (tiles/s),
    a Runner trains one epoch on the tiles, validates and tests with
    score_thr=0.0 (every tile carries all that its NMS keeps), and the
@@ -64,15 +78,16 @@
    g++) and on its numpy plain path, with the same APs and merged
    detections. `Runner.profile` records 3 steps into a trace that must
    name the fused assigner's kernels.
-10. Prints a `{"kernels": [...]}` line, the card line again, and as the
+11. Prints a `{"kernels": [...]}` line, the card line again, and as the
    last line `{"ok": true, "device": {...}}`.
 
 Each path (serving, K2's entry point, training, the same in bf16, the
-Runner's `run()`, the epoch on the preprocessed tiles and its val and
-test) runs with the launch counters set to 0 just before it and read
-just after: one fused assigner launch per loss forward and per train
-step, one K1 matrix launch per `predict` (per predict batch in `val` and
-`test`).
+S2ANet paths, `run_net`, the Runner's `run()`, the epoch on the
+preprocessed tiles and its val and test) runs with the launch counters
+set to 0 just before it and read just after: one fused assigner launch
+per loss forward and per train step (RetinaNet), two for S2ANet (FAM on
+shared anchors, ODM on per-image anchors), one K1 matrix launch per
+`predict` (per predict batch in `val` and `test`).
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
@@ -108,10 +123,12 @@ STEPS_PER_EPOCH = 1000
 # CPU, in units of the f32 - bf16 gap (check_bf16_card_against_cpu)
 BF16_GAP_FACTOR = 1.0
 CONFIG = Path(__file__).resolve().parent / "configs/rotated_retinanet_obb_r50_fpn_1x_dota.py"
+S2ANET_CONFIG = Path(__file__).resolve().parent / "configs/s2anet_r50_fpn_1x_dota.py"
 
 
-# each kernel's launch counter in jdet_torch/ops/rotated_iou_kernel.py
+# each kernel route's launch counter in jdet_torch/ops/rotated_iou_kernel.py
 COUNTERS = {"rotated_iou_rect": "LAUNCHES", "max_iou_assign_rect": "ASSIGN_LAUNCHES",
+            "max_iou_assign_rect_per_image": "ASSIGN_PER_IMAGE_LAUNCHES",
             "rotated_iou_generic": "GENERIC_LAUNCHES"}
 
 
@@ -122,6 +139,22 @@ def launch_counts(rik):
 def reset_launch_counts(rik):
     for attr in COUNTERS.values():
         setattr(rik, attr, 0)
+
+
+def is_s2anet(model):
+    return type(model).__name__ == "S2ANet"
+
+
+def fused_per_loss(model):
+    """Fused assigner launches per loss forward, by route: RetinaNet assigns
+    once on shared anchors; S2ANet's FAM on shared init anchors and its
+    ODM on per-image refined anchors."""
+    return {"max_iou_assign_rect": 1,
+            "max_iou_assign_rect_per_image": 1 if is_s2anet(model) else 0}
+
+
+def fused_launches(rik):
+    return rik.ASSIGN_LAUNCHES + rik.ASSIGN_PER_IMAGE_LAUNCHES
 
 
 def check(cond, msg):
@@ -504,6 +537,342 @@ def check_assign_kernel(rik, anchors):
     }
 
 
+def refined_anchors_of(model, images):
+    """The per-image refined anchors (B, N, 5) of `model`'s forward on
+    `images`: FAM deltas decoding the init anchors."""
+    with torch.no_grad():
+        outs = model.bbox_head(model.extract_feat(images))
+    return torch.cat([o[2].reshape(images.shape[0], -1, 5) for o in outs], 1).float()
+
+
+def check_assign_per_image_kernel(rik, model, cfg):
+    """The fused assigner on per-image anchors (S2ANet's ODM route): the
+    edge cases of the CPU tests fed as per-image anchors (image 1's refined
+    like the ODM's, some stretched to the decoder's clip), then the train
+    step's (4, 512, 21824) on the refined anchors of a real FAM forward of
+    `model` at 1024². Each identical to K1's matrix on the same anchors
+    plus the PyTorch assigner (max_overlaps to the bit), and gt_inds and
+    labels identical to the CPU plain version (at the train shape on the
+    64 real gt slots, on the anchors no 1e-5 change of an IoU can flip).
+    Timed against the unfused route in turns. Returns its entry of the
+    kernels line (launches filled in later)."""
+    from jdet_torch.models.boxes.assigner import assign_wrt_overlaps, max_iou_assign_rotated
+    from jdet_torch.ops import box_iou_rotated
+    from jdet_torch.parallel import make_device_normalizer
+    from jdet_torch.utils.edge_cases import ASSIGN_CASES, per_image_assign_edge_case
+
+    thr = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+
+    def assign(gts, mask, labels, an, am):
+        return max_iou_assign_rotated(an, gts, mask, labels, anchor_mask=am, **thr)
+
+    def unfused(gts, mask, labels, an, am):
+        ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), an)
+        return assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **thr)
+
+    def plain(gts, mask, labels, an, am, iou_chunk=512):
+        ov = box_iou_rotated(rik.park_masked_boxes(gts, mask), an, chunk=iou_chunk, impl="xla")
+        return assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **thr)
+
+    def identical(fused, want, what):
+        for k in fused:
+            check(fused[k].dtype == want[k].dtype and torch.equal(fused[k], want[k]),
+                  f"per-image fused assigner, {what}: {k} differs from K1's matrix + "
+                  "the PyTorch assigner")
+
+    err = 0.0
+    for name in ASSIGN_CASES:
+        gts, mask, labels, an, am, about = per_image_assign_edge_case(name)
+        args = [torch.as_tensor(x, device="cuda") for x in (gts, mask, labels, an)]
+        am = None if am is None else torch.as_tensor(am, device="cuda")
+        before = rik.ASSIGN_PER_IMAGE_LAUNCHES
+        fused = assign(*args, am)
+        check(rik.ASSIGN_PER_IMAGE_LAUNCHES == before + 1, f"{name}: no per-image launch")
+        identical(fused, unfused(*args, am), name)
+        cpu = plain(*(x.cpu() for x in args), None if am is None else am.cpu())
+        for k in ("gt_inds", "labels"):
+            check(torch.equal(fused[k].cpu(), cpu[k]), f"{name}: {k} differs from the CPU")
+        mo, mo_cpu = fused["max_overlaps"].cpu(), cpu["max_overlaps"]
+        check(torch.equal(torch.isfinite(mo), torch.isfinite(mo_cpu)), f"{name}: -inf slots")
+        fin = torch.isfinite(mo_cpu)
+        e = (mo[fin] - mo_cpu[fin]).abs().max().item()
+        err = max(err, e)
+        log(f"per-image fused assigner, {name}: identical to the unfused route and to the "
+            f"CPU's gt_inds and labels (max_overlaps err {e:.2e}); image 0 gt_inds at "
+            f"{about}: {fused['gt_inds'][0, about].tolist()}, image 1 positives "
+            f"{int((fused['gt_inds'][1] > 0).sum())}")
+    check(err <= 2e-4, f"edge cases: max_overlaps off the CPU by {err}")
+
+    # the train step's shape on the refined anchors of a real FAM forward
+    images, t = synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True)
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    anchors = refined_anchors_of(model, normalize(torch.as_tensor(images, device="cuda")))
+    gts, mask, labels = (torch.as_tensor(t[k], device="cuda")
+                         for k in ("gt_bboxes", "gt_mask", "gt_labels"))
+    am = torch.ones(anchors.shape[1], dtype=torch.bool, device="cuda")
+    B, K, N = gts.shape[0], gts.shape[1], anchors.shape[1]
+    check(N == 21824, f"expected 21,824 anchors per image at 1024², got {N}")
+    fused = assign(gts, mask, labels, anchors, am)
+    identical(fused, unfused(gts, mask, labels, anchors, am), f"({B}, {K}, {N})")
+    real = int(mask.sum(1).max())
+    check(bool(mask[:, :real].all()) and not mask[:, real:].any(), "real gts not first")
+    sub = [x[:, :real].contiguous() for x in (gts, mask, labels)]
+    t0 = time.perf_counter()
+    cpu = plain(*(x.cpu() for x in sub), anchors.cpu(), am.cpu(), iou_chunk=16)
+    cpu_s = time.perf_counter() - t0
+    fused_sub = assign(*sub, anchors, am)
+    ok = decisive_anchors(rik.box_iou_rotated_rect(sub[0], anchors), sub[1]).cpu()
+    agree = {k: int((fused_sub[k].cpu()[ok] != cpu[k][ok]).sum()) for k in ("gt_inds", "labels")}
+    fin = torch.isfinite(cpu["max_overlaps"])
+    e = (fused_sub["max_overlaps"].cpu()[fin] - cpu["max_overlaps"][fin]).abs().max().item()
+    spread = anchors[..., 2:4].amax().item(), (anchors[..., 2] / anchors[..., 3]).amax().item()
+    log(f"per-image fused assigner ({B}, {K}, {N}) on refined anchors (largest side "
+        f"{spread[0]:.1f}, largest w/h {spread[1]:.3f}), {real} real gts: identical to the "
+        f"unfused route; vs the CPU plain version ({cpu_s:.1f} s): max_overlaps err {e:.2e}, "
+        f"{int(ok.sum())} of {ok.numel()} anchors decisive, disagreements there {agree}, "
+        f"positives {int((fused['gt_inds'] > 0).sum())}")
+    check(e <= 2e-4 and ok.float().mean() > 0.99 and not any(agree.values()),
+          "train shape: the per-image fused assigner is off the CPU plain version")
+    err = max(err, e)
+
+    old_ms, ms, turns = in_turns(lambda: unfused(gts, mask, labels, anchors, am),
+                                 lambda: assign(gts, mask, labels, anchors, am))
+    matrix_ms = median_ms(lambda: rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask),
+                                                           anchors))
+    plain_ms = median_ms(lambda: plain(gts, mask, labels, anchors, am, iou_chunk=64),
+                         warmup=1, iters=3)
+    kernels, device_ms, _ = device_profile(lambda: assign(gts, mask, labels, anchors, am))
+    # CUDA events over 20 calls back to back: the host's part hides behind
+    # the card's queue (the profiler has missed one of the two passes)
+    b2b_ms = back_to_back_ms(lambda: assign(gts, mask, labels, anchors, am))
+    log(f"per-image fused assigner under the profiler, device ms per call: {kernels} "
+        f"(sum {device_ms:.4f}; the rest of the {ms:.4f} ms is the host's); "
+        f"{b2b_ms:.4f} ms per call back to back")
+    # each input read once, each output written once: gts, masks and
+    # labels, the per-image anchors and the anchor mask; gt_inds, labels
+    # (int64) and max_overlaps (float32)
+    nbytes = B * K * (5 * 4 + 1 + 8) + B * N * 5 * 4 + N + B * N * (8 + 4 + 8)
+    touching = touching_pairs(gts, anchors, mask)
+    bound_ms, bound_by = bound(nbytes, IOU_FLOPS_PER_TOUCHING_PAIR * touching)
+    log(f"per-image fused assigner ({B}, {K}, {N}), in turns old/new/new/old {turns}: "
+        f"unfused route {old_ms:.4f} ms (K1 matrix alone {matrix_ms:.4f} ms), fused "
+        f"{ms:.4f} ms, plain version {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
+        f"(bytes {nbytes}, {touching} touching pairs x {IOU_FLOPS_PER_TOUCHING_PAIR} flops)")
+    return {
+        "name": "max_iou_assign_rect_per_image",
+        "route": "cuda",
+        "source": "jdet_torch/csrc/rotated_iou.cu",
+        "replaces": "jdet_tpu/ops/pallas_iou.py:148",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [B, K, N],
+        "device_ms": device_ms,
+        "device_ms_by_kernel": kernels,
+        "back_to_back_ms": b2b_ms,
+        "old_route_ms": old_ms,
+        "old_route_matrix_ms": matrix_ms,
+    }, (images, t, anchors)
+
+
+def check_align_and_orconv(model, images, anchors):
+    """S2ANet's AlignConv (offsets from the refined anchors, the deformable
+    conv) and ORConv2d on the card against the CPU at the P3 shape (B=2,
+    256 channels, 128²), outputs and gradients, float32: within 1e-4 of
+    each tensor's largest value (sums run in other orders; TF32 is off).
+    Then both timed at the train step's shapes (B=4, every level), forward
+    and forward + backward, in float32 and with bf16 features."""
+    from jdet_torch.ops.deform_conv import deform_conv2d
+
+    head = model.bbox_head
+    with torch.no_grad():
+        feats = model.extract_feat(images)
+    p3 = feats[0][:2].float().clone()
+    B, C, H, W = p3.shape
+    offsets = head.align_conv.get_offset(anchors[:2, :H * W].reshape(2, H, W, 5),
+                                         head.anchor_strides[0])
+    rng = np.random.RandomState(8)
+    cot = torch.as_tensor(rng.randn(B, C, H, W).astype(np.float32))
+    cot_or = torch.as_tensor(rng.randn(B, 256, H, W).astype(np.float32))
+    weights = {"deform": head.align_conv.deform_conv.weight.detach(),
+               "orconv": head.or_conv.weight.detach(), "orconv_bias": head.or_conv.bias.detach()}
+    from jdet_torch.ops.orn import ORConv2d
+
+    def run(dev):
+        x = p3.detach().to(dev).requires_grad_()
+        w = weights["deform"].to(dev).clone().requires_grad_()
+        out = deform_conv2d(x, offsets.to(dev), w)
+        (out * cot.to(dev)).sum().backward()
+        orc = ORConv2d(256, 32, 3, (1, 8)).to(dev)
+        with torch.no_grad():
+            orc.weight.copy_(weights["orconv"])
+            orc.bias.copy_(weights["orconv_bias"])
+        y = out.detach().relu().requires_grad_()
+        o2 = orc(y)
+        (o2 * cot_or.to(dev)).sum().backward()
+        return {k: v.detach().cpu() for k, v in (("deform out", out), ("deform d input", x.grad),
+                                                  ("deform d weight", w.grad), ("orconv out", o2),
+                                                  ("orconv d input", y.grad),
+                                                  ("orconv d weight", orc.weight.grad))}
+
+    card, cpu = run("cuda"), run("cpu")
+    errs = {}
+    for k, want in cpu.items():
+        errs[k] = ((card[k] - want).abs().max() / want.abs().max()).item()
+    log(f"AlignConv and ORConv at P3 ({B}, {C}, {H}, {W}), card vs CPU, max error over the "
+        f"tensor's largest value: {json.dumps(errs)}")
+    check(all(e <= 1e-4 for e in errs.values()), f"AlignConv / ORConv card vs CPU: {errs}")
+
+    # timed at the train step's shapes, every level of B=4
+    times = {}
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        xs = [f.to(dtype).detach().requires_grad_() for f in feats]
+        offs = [head.align_conv.get_offset(
+            anchors[:, lo:lo + f.shape[2] * f.shape[3]].reshape(
+                f.shape[0], f.shape[2], f.shape[3], 5), s)
+            for f, lo, s in zip(feats, np.cumsum([0] + [f.shape[2] * f.shape[3] for f in feats]),
+                                head.anchor_strides)]
+        w = head.align_conv.deform_conv.weight
+
+        def align_fwd():
+            with torch.no_grad():
+                return [deform_conv2d(x, o, w) for x, o in zip(xs, offs)]
+
+        def align_fwd_bwd():
+            outs = [deform_conv2d(x, o, w) for x, o in zip(xs, offs)]
+            torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+        ys = [a.detach().relu().requires_grad_() for a in align_fwd()]
+
+        def or_fwd():
+            with torch.no_grad():
+                return [head.or_conv(y) for y in ys]
+
+        def or_fwd_bwd():
+            outs = [head.or_conv(y) for y in ys]
+            torch.autograd.backward(outs, [torch.ones_like(o) for o in outs])
+
+        for name, fn in (("align_conv_forward_ms", align_fwd),
+                         ("align_conv_forward_backward_ms", align_fwd_bwd),
+                         ("orconv_forward_ms", or_fwd),
+                         ("orconv_forward_backward_ms", or_fwd_bwd)):
+            times[f"{label}_{name}"] = median_ms(fn, warmup=2, iters=10)
+        head.zero_grad(set_to_none=True)
+    log(f"AlignConv's deformable conv (grid-sample + float32 product) and the ORConv at the "
+        f"train step's shapes, B=4, all 5 levels: {json.dumps(times)}")
+    return errs, times
+
+
+def check_s2anet_card_against_cpu(cfg, rik):
+    """The full-width S2ANet with the same random weights on the card and on
+    the CPU, B=1 at 512², a batch without near ties in either assignment:
+    the head's outputs (FAM and ODM class and box outputs, the refined
+    anchors) and the four losses. The NMS's choice is not compared: it
+    follows each device's order among tied scores. Then 2 train steps
+    (`check_train_card_against_cpu`)."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.parallel import make_device_normalizer
+
+    models = {dev: build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
+              for dev in ("cuda", "cpu")}
+    randomize_constants(models["cpu"])
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    seed = untied_batch_seed(models["cpu"], cfg)
+    images, targets = synth_batch(1, 512, seed=seed, uint8=True)
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    out = {}
+    for dev, m in models.items():
+        x, t = to_device(images, targets, dev)
+        x = normalize(x)
+        m.eval()
+        with torch.no_grad():
+            outs = m.bbox_head(m.extract_feat(x))
+        m.train()
+        out[dev] = ([[o.cpu() for o in lvl] for lvl in outs],
+                    {k: v.item() for k, v in m.loss(x, t).items()})
+    names = ("fam_cls", "fam_reg", "refined anchors", "odm_cls", "odm_reg")
+    errs = {}
+    for i, name in enumerate(names):
+        got = torch.cat([lvl[i].flatten() for lvl in out["cuda"][0]])
+        want = torch.cat([lvl[i].flatten() for lvl in out["cpu"][0]])
+        errs[name] = (got - want).abs().max().item()
+    log(f"S2ANet card vs cpu at 512², B=1, batch seed {seed}: head outputs max abs error "
+        f"{json.dumps(errs)}; losses {out['cuda'][1]} vs {out['cpu'][1]}")
+    for name, e in errs.items():
+        # image coordinates for the anchors, logits and deltas otherwise
+        check(e <= (1e-3 if name == "refined anchors" else 1e-4), f"{name}: card vs cpu {e}")
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        check(abs(got - want) <= 1e-4 * abs(want), f"{k}: card {got} cpu {want}")
+    del models
+    check_train_card_against_cpu(cfg, rik)
+
+
+def run_net_phase(rik, root, n_tiles=8):
+    """`python -m jdet_torch.tools.run_net --config-file <cfg>` on the card,
+    in this process, with a config whose `_base_` is the S2ANet config and
+    which points the datasets at a synthetic DOTA tree of `n_tiles` 1024²
+    tiles (random weights: no backbone checkpoint): one epoch of
+    n_tiles / 4 iterations, a val, a checkpoint and a test. Returns the
+    launches and the logged records."""
+    import shutil
+
+    from jdet_torch.data.synthetic import make_synthetic_dota
+    from jdet_torch.tools import run_net
+    from jdet_torch.utils import logger as logger_module
+
+    shutil.rmtree(root, ignore_errors=True)
+    img_dir, ann = make_synthetic_dota(str(root / "dota"), n_images=n_tiles, size=1024, seed=2)
+    cfg_file = root / "s2anet_smoke_cfg.py"
+    data = dict(annotations_file=ann, images_dir=img_dir, num_workers=2)
+    cfg_file.write_text("\n".join([
+        f"_base_ = [{str(S2ANET_CONFIG)!r}]",
+        "model = dict(backbone=dict(pretrained=None))",
+        f"dataset = dict(train={data!r}, val={data!r}, "
+        f"test=dict(images_dir={img_dir!r}, num_workers=2))",
+        f"work_dir = {str(root / 'work')!r}",
+        "max_epoch = 1",
+        "eval_interval = 1",
+        "checkpoint_interval = 1",
+        "log_interval = 1",
+    ]) + "\n")
+    logged = []
+    real_log = logger_module.RunLogger.log
+    logger_module.RunLogger.log = lambda self, d: (logged.append(d), real_log(self, d))[1]
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    t0 = time.perf_counter()
+    try:
+        run_net.main(["--config-file", str(cfg_file), "--task", "train"])
+    finally:
+        logger_module.RunLogger.log = real_log
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts(rik)
+    iters = n_tiles // 4
+    losses = [d for d in logged if "total_loss" in d]
+    evals = [d for d in logged if "eval/0_meanAP" in d]
+    log(f"run_net S2ANet: {run_s:.2f} s for {len(losses)} iterations, a val and a test; "
+        f"launches {launches}; losses "
+        f"{[{k: round(v, 5) for k, v in d.items() if 'loss' in k} for d in losses]}; "
+        f"meanAP {[m['eval/0_meanAP'] for m in evals]}")
+    check(len(losses) == iters and all(np.isfinite(d["total_loss"]) for d in losses),
+          f"run_net: {len(losses)} logged iterations, or a non-finite loss")
+    check(len(evals) == 1, f"run_net: {len(evals)} val results")
+    check((root / "work" / "checkpoints" / "ckpt_1.pkl").exists()
+          and (root / "work" / "test" / "test_1.pkl").exists(),
+          "run_net: no checkpoint or test pkl")
+    check(launches == {"rotated_iou_rect": 2 * (n_tiles // 4), "max_iou_assign_rect": iters,
+                       "max_iou_assign_rect_per_image": iters, "rotated_iou_generic": 0},
+          f"run_net: not 2 fused launches (shared, per image) per iteration and one K1 "
+          f"matrix launch per predict batch: {launches}")
+    return launches, {"run_s": run_s, "iterations": len(losses)}
+
+
 def build_old_generic(rik, src):
     """The `rotated_iou_generic` C entry point of another copy of
     `rotated_iou.cu` (e.g. the parent commit's), built with the same flags
@@ -687,23 +1056,39 @@ def check_generic_kernel(rik, anchors, old_srcs=()):
     return entry, gts
 
 
-def assignment_margin(head, targets, size):
+def assignment_margin(model, targets, size, images=None):
     """Smallest distance between a gt's best IoU and its second best, and
     between an anchor's best IoU and the 0.4 / 0.5 thresholds, from the
-    plain IoU on the CPU. The assigner's low-quality match takes every
-    anchor whose IoU equals the gt's best exactly, so K1's rounding and the
-    plain version's can break such a tie differently and train on other
-    targets; a batch with a margin has no such tie."""
+    plain IoU on the CPU, over every assignment of the loss: RetinaNet's on
+    its anchors; S2ANet's FAM on its init anchors and its ODM on the
+    refined anchors that a CPU forward of `images` gives. The assigner's
+    low-quality match takes every anchor whose IoU equals the gt's best
+    exactly, so K1's rounding and the plain version's can break such a tie
+    differently and train on other targets; a batch with a margin has no
+    such tie."""
     from jdet_torch.ops import box_iou_rotated
 
-    anchors = head._flat_anchors([(size // s, size // s) for s in head.anchor_strides], "cpu")
+    head = model.bbox_head
+    sizes = [(size // s, size // s) for s in head.anchor_strides]
+    B = len(targets["gt_bboxes"])
+    if is_s2anet(model):
+        was_training = model.training
+        model.eval()
+        with torch.no_grad():
+            outs = head(model.extract_feat(images))
+        model.train(was_training)
+        refined = torch.cat([o[2].reshape(B, -1, 5) for o in outs], 1).float()
+        anchor_sets = [[head._flat_init_anchors(sizes, "cpu")] * B, list(refined)]
+    else:
+        anchor_sets = [[head._flat_anchors(sizes, "cpu")] * B]
     margin = np.inf
-    for gt, m in zip(targets["gt_bboxes"], targets["gt_mask"]):
-        iou = box_iou_rotated(torch.as_tensor(gt[m]), anchors).double()
-        top2 = iou.topk(2, dim=1).values
-        best = iou.max(0).values
-        margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item(),
-                     (best - 0.5).abs().min().item(), (best - 0.4).abs().min().item())
+    for per_image in anchor_sets:
+        for gt, m, anchors in zip(targets["gt_bboxes"], targets["gt_mask"], per_image):
+            iou = box_iou_rotated(torch.as_tensor(gt[m]), anchors).double()
+            top2 = iou.topk(2, dim=1).values
+            best = iou.max(0).values
+            margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item(),
+                         (best - 0.5).abs().min().item(), (best - 0.4).abs().min().item())
     return margin
 
 
@@ -752,11 +1137,19 @@ def randomize_constants(model, seed=4):
                 mod.bias.copy_(torch.as_tensor(rng.normal(0.0, 0.01, mod.bias.shape)))
 
 
-def untied_batch_seed(head, size=512):
-    """The first batch seed from 5 whose B=1 assignment at `size` has no
-    near tie."""
-    return next(s for s in range(5, 100)
-                if assignment_margin(head, synth_batch(1, size, seed=s)[1], size) > 1e-5)
+def untied_batch_seed(model, cfg, size=512):
+    """The first batch seed from 5 whose B=1 uint8 batch at `size`
+    (normalized as the config's train step normalizes it) has no near tie
+    in any assignment of `model`, a CPU model."""
+    from jdet_torch.parallel import make_device_normalizer
+
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+
+    def margin(seed):
+        images, targets = synth_batch(1, size, seed=seed, uint8=True)
+        return assignment_margin(model, targets, size, normalize(torch.as_tensor(images)))
+
+    return next(s for s in range(5, 100) if margin(s) > 1e-5)
 
 
 def check_train_card_against_cpu(cfg, rik):
@@ -771,18 +1164,21 @@ def check_train_card_against_cpu(cfg, rik):
     randomize_constants(models["cpu"])
     models["cuda"].load_state_dict(models["cpu"].state_dict())
     start = {n: p.detach().clone() for n, p in models["cpu"].named_parameters()}
-    seed = untied_batch_seed(models["cpu"].bbox_head)
+    seed = untied_batch_seed(models["cpu"], cfg)
     images, targets = synth_batch(1, 512, seed=seed, uint8=True)
     losses = {}
     for dev, m in models.items():
         step = build_trainer(cfg, m, augment=False)[0]
         x, t = to_device(images, targets, dev)
-        launches = rik.ASSIGN_LAUNCHES
+        launches = launch_counts(rik)
         losses[dev] = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
         if dev == "cuda":
-            check(rik.ASSIGN_LAUNCHES - launches == 2,
-                  "the card's train steps did not launch the fused assigner")
-    log(f"train card vs cpu at 512², B=1, batch seed {seed}: losses "
+            got = {k: v - launches[k] for k, v in launch_counts(rik).items()}
+            want = {k: 2 * n for k, n in fused_per_loss(m).items()}
+            check(all(got[k] == n for k, n in want.items()),
+                  f"the card's train steps did not launch the fused assigner as "
+                  f"{want}: {got}")
+    log(f"{cfg['model']['type']} train card vs cpu at 512², B=1, batch seed {seed}: losses "
         f"{losses['cuda']} vs {losses['cpu']}")
     for it in range(2):
         for k, want in losses["cpu"][it].items():
@@ -833,7 +1229,7 @@ def check_bf16_card_against_cpu(cfg, rik):
     for name in ("bf16_card", "f32_card"):
         models[name].load_state_dict(models["bf16_cpu"].state_dict())
     start = {n: p.detach().clone() for n, p in models["bf16_cpu"].named_parameters()}
-    images, targets = synth_batch(1, 512, seed=untied_batch_seed(models["bf16_cpu"].bbox_head),
+    images, targets = synth_batch(1, 512, seed=untied_batch_seed(models["bf16_cpu"], cfg),
                                   uint8=True)
     out = {}
     t0 = time.perf_counter()
@@ -841,7 +1237,7 @@ def check_bf16_card_against_cpu(cfg, rik):
         dev = runs[name][0]
         step, _, normalize, _ = build_trainer(cfg, m, augment=False)
         x, t = to_device(images, targets, dev)
-        launches = rik.ASSIGN_LAUNCHES, rik.LAUNCHES
+        launches = fused_launches(rik), rik.LAUNCHES
         m.train()
         losses = {k: v.item() for k, v in m.loss(normalize(x), t).items()}
         m.eval()
@@ -849,7 +1245,10 @@ def check_bf16_card_against_cpu(cfg, rik):
         with torch.no_grad():
             outs = m.bbox_head(m.extract_feat(normalize(x)))
             det = m.predict(normalize(x))
-        head = [torch.cat([lvl[i].float().flatten().cpu() for lvl in outs]) for i in (0, 1)]
+        # the class and the box outputs: RetinaNet's; S2ANet's FAM and ODM
+        idx = ((0, 3), (1, 4)) if is_s2anet(m) else ((0,), (1,))
+        head = [torch.cat([lvl[i].float().flatten().cpu() for lvl in outs for i in ii])
+                for ii in idx]
         steps = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
         change = torch.cat([(p.detach().cpu() - start[n]).flatten()
                             for n, p in m.named_parameters() if p.requires_grad])
@@ -858,14 +1257,17 @@ def check_bf16_card_against_cpu(cfg, rik):
               f"{name}: predict gave {valid} valid detections, or non-finite ones")
         out[name] = (losses, head, steps, change, valid)
         want_dtype = runs[name][1] or torch.float32
-        check({o.dtype for lvl in outs for o in lvl} == {want_dtype}
-              and all(p.dtype == torch.float32 for p in m.parameters()),
+        check({o.dtype for lvl in outs for ii in idx for i in ii for o in (lvl[i],)}
+              == {want_dtype} and all(p.dtype == torch.float32 for p in m.parameters()),
               f"{name}: head outputs not {want_dtype}, or parameters not float32")
         if dev == "cuda":
-            check((rik.ASSIGN_LAUNCHES - launches[0], rik.LAUNCHES - launches[1]) == (3, 1),
-                  f"{name}: not one fused assigner launch per loss forward and train step "
-                  "and one K1 matrix launch per predict")
-        log(f"bf16 card vs cpu at 512², B=1: {name} done at {time.perf_counter() - t0:.1f} s")
+            n_fused = 3 * sum(fused_per_loss(m).values())
+            check((fused_launches(rik) - launches[0], rik.LAUNCHES - launches[1])
+                  == (n_fused, 1),
+                  f"{name}: not {n_fused // 3} fused assigner launches per loss forward "
+                  "and train step and one K1 matrix launch per predict")
+        log(f"{cfg['model']['type']} bf16 card vs cpu at 512², B=1: {name} done at "
+            f"{time.perf_counter() - t0:.1f} s")
 
     def rms(a):
         return float(torch.sqrt(torch.mean(torch.as_tensor(a, dtype=torch.float64) ** 2)))
@@ -882,7 +1284,8 @@ def check_bf16_card_against_cpu(cfg, rik):
             ("the head's box outputs", card[1][1] - cpu[1][1], f32[1][1] - cpu[1][1]),
             ("the 2 steps' parameter change", card[3] - cpu[3], f32[3] - cpu[3])]
     fractions = {what: rms(err) / rms(gap) for what, err, gap in rows}
-    log(f"bf16 card vs cpu: losses card {card[0]} cpu {cpu[0]} f32 {f32[0]}; valid detections "
+    log(f"{cfg['model']['type']} bf16 card vs cpu: losses card {card[0]} cpu {cpu[0]} "
+        f"f32 {f32[0]}; valid detections "
         f"card/cpu/f32 {[o[4] for o in (card, cpu, f32)]}; |card - cpu| over the f32 - bf16 "
         f"gap: " + json.dumps(fractions))
     for what, frac in fractions.items():
@@ -890,12 +1293,14 @@ def check_bf16_card_against_cpu(cfg, rik):
               f"bf16 card vs cpu, {what}: {frac:.3f} of the f32 - bf16 gap apart")
 
 
-def train_at_config_traffic(cfg, model, rik, label):
+def train_at_config_traffic(cfg, model, rik, label, n_steps=20):
     """The train step at the config's batch (B=4) at 1024², 512 gt slots
-    with 64 real gts per image: 20 steps on one batch, then the step timed
-    whole and in parts, and its busiest kernels under the profiler: which
-    of them are bf16 tensor-core convolutions, and which are layout
-    transposes. Returns the kernel launches of the 20 steps."""
+    with 64 real gts per image: `n_steps` steps on one batch, then the step
+    timed whole and in parts, and its busiest kernels under the profiler:
+    which of them are bf16 tensor-core convolutions, which are layout
+    transposes, and for S2ANet the deformable conv's sampling (forward)
+    and its scatter-add (backward) and the ORConv's ARF expansion. Returns
+    the kernel launches of the steps."""
     step, opt, normalize, augment = build_trainer(cfg, model)
     images, targets = to_device(*synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True),
                                 "cuda")
@@ -905,26 +1310,29 @@ def train_at_config_traffic(cfg, model, rik, label):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts(rik)
     log_vars, per_step = [], []
-    for it in range(20):
-        before = rik.ASSIGN_LAUNCHES
+    for it in range(n_steps):
+        before = launch_counts(rik)
         log_vars.append(step(images, targets, it))
-        per_step.append(rik.ASSIGN_LAUNCHES - before)
+        per_step.append({k: v - before[k] for k, v in launch_counts(rik).items()
+                         if k in fused_per_loss(model)})
     torch.cuda.synchronize()
     launches = launch_counts(rik)
     peak = torch.cuda.max_memory_allocated()
     losses = [{k: v.item() for k, v in lv.items()} for lv in log_vars]
     for it, lv in enumerate(losses):
-        log(f"{label} train step {it}: " + " ".join(f"{k}={v:.6f}" for k, v in lv.items())
+        log(f"{label} {cfg['model']['type']} train step {it}: " + " ".join(f"{k}={v:.6f}" for k, v in lv.items())
             + f" lr={opt.lr_schedule(it):.6g}")
-    log(f"{label} training path: launches {launches} (fused assigner per step {per_step}), "
+    log(f"{label} {cfg['model']['type']} training path: launches {launches} "
+        f"(fused assigner per step {per_step[0]}), "
         f"peak memory {peak} bytes")
     check(all(np.isfinite(v) for lv in losses for v in lv.values()), "non-finite train loss")
     check(losses[-1]["total_loss"] < losses[0]["total_loss"],
           f"the loss did not fall: {losses[0]['total_loss']} -> {losses[-1]['total_loss']}")
-    check(per_step == [1] * 20 and launches["rotated_iou_rect"] == 0,
-          f"not one fused assigner launch per train step: {per_step}, {launches}")
+    check(per_step == [fused_per_loss(model)] * n_steps and launches["rotated_iou_rect"] == 0,
+          f"not {fused_per_loss(model)} fused assigner launches per train step: "
+          f"{per_step}, {launches}")
 
-    counter = iter(range(20, 10**6))
+    counter = iter(range(n_steps, 10**6))
     times = {"train_step_ms": median_ms(lambda: step(images, targets, next(counter)))}
 
     # the step's parts, timed apart on the same objects as the step
@@ -958,13 +1366,19 @@ def train_at_config_traffic(cfg, model, rik, label):
         lambda: step(images, targets, next(counter)), iters=3,
         families={"conv_kernels_ms": r"fprop|dgrad|wgrad|conv|implicit",
                   "bf16_tensor_core_kernels_ms": r"bf16",
-                  "layout_transpose_kernels_ms": r"nchwToNhwc|nhwcToNchw|[Tt]ranspose"})
+                  "layout_transpose_kernels_ms": r"nchwToNhwc|nhwcToNchw|[Tt]ranspose",
+                  "deform_grid_sample_forward_ms": r"grid_sampler_2d_kernel",
+                  "deform_grid_sample_backward_scatter_add_ms": r"grid_sampler_2d_backward",
+                  "orconv_arf_index_select_and_backward_ms": r"index_?[Ss]elect|indexFunc|index_add",
+                  "fused_assigner_ms": r"assign_pass\d_kernel"})
     times["profiled_step_device_ms"] = device_ms
     times["profiled_step_wall_ms"] = wall_ms
     times["device_busy_share"] = device_ms / wall_ms
     times.update(family_ms)
-    log(f"{label} train step at 1024², B=4, K=512 (median of 10 after 3): {json.dumps(times)}")
-    log(f"{label} train step under the profiler, the 12 busiest kernels, device ms per step: "
+    log(f"{label} {cfg['model']['type']} train step at 1024², B=4, K=512 (median of 10 after 3): "
+        f"{json.dumps(times)}")
+    log(f"{label} {cfg['model']['type']} train step under the profiler, the 12 busiest "
+        "kernels, device ms per step: "
         + json.dumps(dict(list(kernels.items())[:12])))
     check(all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
               for p in model.parameters()), f"{label}: a parameter or gradient is not float32")
@@ -1036,18 +1450,20 @@ def serving_phase(model, rik, label):
     torch.cuda.synchronize()
     serving_launches = launch_counts(rik)
     peak = torch.cuda.max_memory_allocated()
+    label = f"{label} {type(model).__name__}"
     log(f"{label} serving path: launches {serving_launches} (loss forward {loss_launches}), "
         f"peak memory {peak} bytes")
-    check(loss_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 1,
-                            "rotated_iou_generic": 0},
-          f"not one fused assigner launch in the loss forward: {loss_launches}")
+    check(loss_launches == {"rotated_iou_rect": 0, "rotated_iou_generic": 0,
+                            **fused_per_loss(model)},
+          f"not {fused_per_loss(model)} fused assigner launches in the loss forward: "
+          f"{loss_launches}")
     check(serving_launches["rotated_iou_rect"] == 2,
           f"not one K1 matrix launch per predict: {serving_launches}")
 
     lv = {k: v.item() for k, v in losses.items()}
     log(f"{label} losses at 1024², B=2: {lv}")
     check(all(np.isfinite(v) for v in lv.values()), "non-finite loss")
-    check(lv["loss_cls"] > 0, "loss_cls is not positive")
+    check(all(v > 0 for k, v in lv.items() if "cls" in k), "a class loss is not positive")
     for name, d in (("predict", det), ("predict score_thr=0", det0)):
         shapes = {k: tuple(v.shape) for k, v in d.items()}
         log(f"{label} {name}: {shapes}, valid per image {d['valid'].sum(1).tolist()}")
@@ -1086,7 +1502,7 @@ def serving_phase(model, rik, label):
         ):
             times[name] = median_ms(fn, warmup=2, iters=10)
     log(f"{label} phases at 1024², B=2 (median of 10): {json.dumps(times)}")
-    check({o.dtype for lvl in outs for o in lvl} == {model_dtype(model)},
+    check({lvl[0].dtype for lvl in outs} == {model_dtype(model)},
           f"{label}: head outputs are not {model_dtype(model)}")
     head.test_cfg = test_cfg
     return serving_launches
@@ -1094,7 +1510,10 @@ def serving_phase(model, rik, label):
 
 def model_dtype(model):
     """The dtype the model's layers compute in: float32 or the policy's."""
-    return model.bbox_head.retina_cls.dtype or torch.float32
+    from jdet_torch.models.layers import Conv2d
+
+    conv = next(m for m in model.bbox_head.modules() if isinstance(m, Conv2d))
+    return conv.dtype or torch.float32
 
 
 def decode_ms_by_filter(image, root, reps=3):
@@ -1178,7 +1597,7 @@ def runner_phase(cfg, rik, root, n_tiles=16):
               f"runner val: {len(aps)} class APs, meanAP {m['eval/0_meanAP']}")
     n_val = n_tiles // B  # predict batches of one val or one test
     check(launches == {"rotated_iou_rect": 3 * n_val, "max_iou_assign_rect": iters,
-                       "rotated_iou_generic": 0},
+                       "max_iou_assign_rect_per_image": 0, "rotated_iou_generic": 0},
           f"runner: not one fused assigner launch per train iteration and one K1 matrix "
           f"launch per predict batch: {launches}")
     work = root / "work"
@@ -1318,7 +1737,7 @@ def tiling_phase(cfg, rik, root):
           and all(np.isfinite(d["total_loss"]) for d in losses),
           f"tiling epoch: {runner.iter} iterations, losses {losses}")
     check(epoch_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 3,
-                             "rotated_iou_generic": 0},
+                             "max_iou_assign_rect_per_image": 0, "rotated_iou_generic": 0},
           f"tiling epoch: not one fused assigner launch per iteration: {epoch_launches}")
 
     # val and test with every detection kept
@@ -1468,6 +1887,38 @@ def main():
     del bf16_model
     torch.cuda.empty_cache()
 
+    # S2ANet R50-FPN at full width: its kernel route (the fused assigner on
+    # per-image refined anchors), its AlignConv and ORConv, then its paths
+    # in float32 and bf16
+    s2a_cfg = load_cfg_file(S2ANET_CONFIG)
+    s2a = build_detector(s2a_cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    head = s2a.bbox_head
+    check(type(s2a).__name__ == "S2ANet" and s2a.backbone.depth == 50
+          and s2a.neck.out_channels == 256 and len(head.fam_cls_convs) == 2
+          and len(head.odm_reg_convs) == 2 and head.cls_out_channels == 15
+          and tuple(head.or_conv.weight.shape) == (32, 256, 1, 3, 3)
+          and tuple(head.align_conv.deform_conv.weight.shape) == (256, 256, 3, 3),
+          "S2ANet is not R50-FPN at full width")
+    log(f"S2ANet model: {sum(p.numel() for p in s2a.parameters())} parameters")
+    per_image_entry, (images, _, anchors) = check_assign_per_image_kernel(rik, s2a, s2a_cfg)
+    from jdet_torch.parallel import make_device_normalizer
+
+    check_align_and_orconv(s2a, make_device_normalizer(**s2a_cfg["device_normalize"])(
+        torch.as_tensor(images, device="cuda")), anchors)
+    del images, anchors
+    check_s2anet_card_against_cpu(s2a_cfg, rik)
+    s2a_serving_launches = serving_phase(s2a, rik, "fp32")
+    s2a_train_launches = train_at_config_traffic(s2a_cfg, s2a, rik, "fp32")
+    del s2a, head
+    check_bf16_card_against_cpu(s2a_cfg, rik)
+    with compute_dtype_scope(torch.bfloat16):
+        s2a_bf16 = build_detector(s2a_cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    s2a_bf16_serving_launches = serving_phase(s2a_bf16, rik, "bf16")
+    s2a_bf16_train_launches = train_at_config_traffic(s2a_cfg, s2a_bf16, rik, "bf16")
+    del s2a_bf16
+    torch.cuda.empty_cache()
+    run_net_launches, _ = run_net_phase(rik, rik.BUILD_DIR / "s2anet_run_net")
+
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
     tiling_launches, tiling_eval_launches = tiling_phase(full_cfg, rik,
                                                          rik.BUILD_DIR / "tiling_dota")
@@ -1479,9 +1930,14 @@ def main():
     # val and test (3 predict batches each)
     paths = {"serving": serving_launches, "generic_iou": generic_launches,
              "train_20_steps": train_launches, "bf16_serving": bf16_serving_launches,
-             "bf16_train_20_steps": bf16_train_launches, "runner": runner_launches,
+             "bf16_train_20_steps": bf16_train_launches,
+             "s2anet_serving": s2a_serving_launches,
+             "s2anet_train_20_steps": s2a_train_launches,
+             "s2anet_bf16_serving": s2a_bf16_serving_launches,
+             "s2anet_bf16_train_20_steps": s2a_bf16_train_launches,
+             "s2anet_run_net": run_net_launches, "runner": runner_launches,
              "tiling_epoch": tiling_launches, "tiling_val_test": tiling_eval_launches}
-    kernels = [entry, assign_entry, generic_entry]
+    kernels = [entry, assign_entry, per_image_entry, generic_entry]
     for e in kernels:
         e["launches_by_path"] = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -16,8 +16,9 @@
 // Operands: boxes as (cx, cy, w, h, theta), float32, contiguous.
 //   gt      (B, K, 5): a block's gts are expanded once into shared memory.
 //   anchors (N, 5) shared by the B images, or (B, N, 5) one set per image
-//           (the batch stride is 0 or N*5); neighbouring threads read
-//           neighbouring anchors.
+//           (the batch stride is 0 or N*5), in both the matrix kernel and
+//           the fused assigner; neighbouring threads read neighbouring
+//           anchors. S2ANet's ODM assigns on per-image refined anchors.
 // Each box is expanded to the first 15 values of the plain version's rows
 // (jdet_torch/ops/rotated_iou_kernel.py::_rect_rows): relx0-3, rely0-3,
 // cx, cy, w/2, h/2, cos, sin, area. Every kernel here runs one copy of the
@@ -36,7 +37,9 @@
 //
 // max_iou_assign_rect: the assigner of jdet_tpu/models/boxes/assigner.py
 // (assign_wrt_overlaps :45 on the IoU of max_iou_assign_rotated :135), with
-// the (B, K, N) matrix never written. Outputs per (image, anchor): gt_inds
+// the (B, K, N) matrix never written; with (B, N, 5) anchors it is the
+// reference's per-image branch, the assigner vmapped over images and
+// anchors (anchor_target.py:163-176). Outputs per (image, anchor): gt_inds
 // int64 (-1 ignore, 0 negative, k+1 positive), max_overlaps float32 (-inf
 // for a masked anchor, 0 in an image with no real gt) and labels int64.
 // What bounds it: the bytes are the boxes in and 20 bytes out per (image,
@@ -331,7 +334,8 @@ __global__ void __launch_bounds__(kAssignThreads)
                         int* __restrict__ any_anchor,
                         long long* __restrict__ gt_inds,
                         float* __restrict__ max_overlaps, int K, int N,
-                        float pos_thr, float neg_thr) {
+                        long long an_batch_stride, float pos_thr,
+                        float neg_thr) {
   __shared__ float sg[kAssignThreads][kRows];
   __shared__ int slist[kAssignThreads];
   __shared__ unsigned smax[kAssignThreads];
@@ -342,7 +346,7 @@ __global__ void __launch_bounds__(kAssignThreads)
   const int b = blockIdx.y;
   const int t = threadIdx.x;
   const int n = blockIdx.x * kAssignThreads + t;
-  const Anchor a = load_anchor(an, an_mask, n, N);
+  const Anchor a = load_anchor(an + b * an_batch_stride, an_mask, n, N);
   if (t == 0) sfirst = K;
   const bool any_active = block_anchor_bounds(a, sbox, sred);
   if (t == 0 && any_active) *any_anchor = 1;
@@ -403,7 +407,7 @@ __global__ void __launch_bounds__(kAssignThreads)
                         const int* __restrict__ any_anchor,
                         long long* __restrict__ gt_inds,
                         long long* __restrict__ labels, int K, int N,
-                        float min_pos) {
+                        long long an_batch_stride, float min_pos) {
   __shared__ float sg[kAssignThreads][kRows];
   __shared__ int slist[kAssignThreads];
   __shared__ float sgm[kAssignThreads];
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(kAssignThreads)
   const int b = blockIdx.y;
   const int t = threadIdx.x;
   const int n = blockIdx.x * kAssignThreads + t;
-  const Anchor a = load_anchor(an, an_mask, n, N);
+  const Anchor a = load_anchor(an + b * an_batch_stride, an_mask, n, N);
   if (t == 0) sk0 = -1;
   const bool any_active = block_anchor_bounds(a, sbox, sred);
   // with every anchor masked, each gt_max is -inf: no gt is eligible
@@ -708,27 +712,29 @@ extern "C" int rotated_iou_rect(const float* gt, const float* anchors,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both passes of the fused assigner. gt_mask (B, K) and anchor_mask (N,)
-// are bools as bytes (anchor_mask may be null: every anchor unmasked);
+// Both passes of the fused assigner. anchors (N, 5) or (B, N, 5), by
+// an_batch_stride as above. gt_mask (B, K) and anchor_mask (N,), one mask
+// for every image, are bools as bytes (anchor_mask may be null: every
+// anchor unmasked);
 // gt_labels (B, K) int64; scratch (B * K + 1) int32, zeroed by the caller:
 // the gts' max IoU bits, then a flag "some anchor is unmasked".
 extern "C" int max_iou_assign_rect(
     const float* gt, const unsigned char* gt_mask, const long long* gt_labels,
     const float* anchors, const unsigned char* anchor_mask, int* scratch,
     long long* gt_inds, float* max_overlaps, long long* labels, int B, int K,
-    int N, float pos_iou_thr, float neg_iou_thr, float min_pos_iou,
-    cudaStream_t s) {
+    int N, long long an_batch_stride, float pos_iou_thr, float neg_iou_thr,
+    float min_pos_iou, cudaStream_t s) {
   const dim3 grid((N + kAssignThreads - 1) / kAssignThreads, B);
   unsigned* gt_max_bits = reinterpret_cast<unsigned*>(scratch);
   int* any_anchor = scratch + static_cast<size_t>(B) * K;
   assign_pass1_kernel<<<grid, kAssignThreads, 0, s>>>(
       gt, gt_mask, anchors, anchor_mask, gt_max_bits, any_anchor, gt_inds,
-      max_overlaps, K, N, pos_iou_thr, neg_iou_thr);
+      max_overlaps, K, N, an_batch_stride, pos_iou_thr, neg_iou_thr);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   assign_pass2_kernel<<<grid, kAssignThreads, 0, s>>>(
       gt, gt_mask, gt_labels, anchors, anchor_mask, gt_max_bits, any_anchor,
-      gt_inds, labels, K, N, min_pos_iou);
+      gt_inds, labels, K, N, an_batch_stride, min_pos_iou);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -113,6 +113,10 @@ class ResNet(nn.Module):
         self.out_channels = [64 * 2**i * block.expansion for i in range(4)]
         for m in self._frozen_modules():
             m.requires_grad_(False)
+        # from the start, as in the reference (whose BNs read `train` at
+        # each call): a built backbone's BNs under norm_eval or in a frozen
+        # stage never update their statistics, whichever mode it is left in
+        self.train()
 
     def _frozen_modules(self):
         if self.frozen_stages < 0:

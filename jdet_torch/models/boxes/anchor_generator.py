@@ -83,3 +83,22 @@ class AnchorGeneratorRotated:
         if base is None:
             base = self._base_on[device] = torch.as_tensor(self.base_anchors, device=device)
         return (shifts.reshape(-1, 1, 5) + base[None]).reshape(-1, 5)
+
+
+class AnchorGeneratorRotatedS2ANet(AnchorGeneratorRotated):
+    """One square, zero-angle anchor per location for S2ANet's FAM: side
+    base_size * scale (4 * stride in the configs), centred at
+    0.5 * (base_size - 1). Port of `AnchorGeneratorRotatedS2ANet`
+    (`anchor_generator.py:206`)."""
+
+    def _gen_base_anchors(self):
+        w = h = float(self.base_size)
+        h_ratios = np.sqrt(self.ratios)
+        w_ratios = 1.0 / h_ratios
+        ws = (w * self.scales[:, None] * w_ratios[None, :]).reshape(-1)
+        hs = (h * self.scales[:, None] * h_ratios[None, :]).reshape(-1)
+        return np.stack(
+            [np.full_like(ws, 0.5 * (w - 1)), np.full_like(ws, 0.5 * (h - 1)), ws, hs,
+             np.zeros_like(ws)],
+            axis=-1,
+        ).astype(np.float32)

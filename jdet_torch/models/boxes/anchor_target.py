@@ -3,9 +3,11 @@
 Port of the rotated, pseudo-sampler branch of
 `jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single` :37,
 `anchor_target_batch` :148). The reference vmaps the single-image
-function over the batch; here `anchor_target_single` takes any leading
-batch dimensions, so `anchor_target_batch` calls it once and the
-assigner's kernel runs once for all images.
+function over the batch, over the anchors too where they are per image
+(:163-176, S2ANet's refined anchors); here `anchor_target_single` takes
+any leading batch dimensions, on shared (n, 5) or per-image (B, n, 5)
+anchors, so `anchor_target_batch` calls it once and the assigner's kernel
+runs once for all images.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ def anchor_target_single(
     iou_chunk=512,
 ):
     """Targets for gt_bboxes (..., k, 5) padded, gt_mask (..., k) bool and
-    gt_labels (..., k) 1-based, against shared anchors (n, 5) with
-    valid_flags (n,) bool. Invalid anchors are excluded before assignment:
+    gt_labels (..., k) 1-based, against shared anchors (n, 5) or per-image
+    anchors (B, n, 5) with (B, k, 5) gts, and valid_flags (n,) bool, one
+    for every image. Invalid anchors are excluded before assignment:
     they can neither be argmax targets nor receive low-quality gt claims.
 
     Returns a dict of (..., n) labels / label_weights / pos_mask /
@@ -78,9 +81,10 @@ def anchor_target_single(
 
 
 def anchor_target_batch(anchors, valid_flags, gt_bboxes, gt_mask, gt_labels, **kw):
-    """Targets for a batch: gt_* are (B, k, ...) per image, anchors and
-    valid_flags shared. Also returns num_total_pos / num_total_neg, each
-    the sum over images of max(per-image count, 1)."""
+    """Targets for a batch: gt_* are (B, k, ...) per image, anchors shared
+    (n, 5) or per image (B, n, 5), valid_flags (n,) shared. Also returns
+    num_total_pos / num_total_neg, each the sum over images of
+    max(per-image count, 1)."""
     out = anchor_target_single(
         anchors, valid_flags, gt_bboxes, gt_mask, gt_labels, **kw
     )

@@ -44,7 +44,8 @@ def assign_wrt_overlaps(
          that max >= min_pos_iou (later gts override earlier ones).
 
     gt_mask (..., k) bool marks real gt rows, gt_labels (..., k) their
-    1-based classes; anchor_mask (n,) bool marks anchors eligible at all.
+    1-based classes; anchor_mask (n,) bool marks anchors eligible at all
+    (in every image).
     """
     k = overlaps.shape[-2]
     ov = torch.where(gt_mask[..., :, None], overlaps, float("-inf"))
@@ -94,14 +95,17 @@ def max_iou_assign_rotated(
     anchor_mask=None,
     iou_chunk=512,
 ):
-    """Rotated MaxIoU assignment. anchors (n, 5); gt_bboxes (k, 5) or
-    (B, k, 5) padded; gt_mask and gt_labels of gt_bboxes' leading shape,
-    bool and integer; anchor_mask (n,) bool or None. Returns
+    """Rotated MaxIoU assignment. anchors (n, 5) shared, or (B, n, 5) per
+    image with (B, k, 5) gts (the reference's vmap over images and anchors,
+    `anchor_target.py:163-176`); gt_bboxes (k, 5) or (B, k, 5) padded;
+    gt_mask and gt_labels of gt_bboxes' leading shape, bool and integer;
+    anchor_mask (n,) bool or None, one for every image. Returns
     `assign_wrt_overlaps`' dict.
 
     A CUDA tensor launches the fused kernel (one launch for the batch) or
-    raises; a CPU tensor is assigned on `box_iou_rotated`'s matrix,
-    `iou_chunk` gt rows at a time (the plain version)."""
+    raises; a CPU tensor is assigned on `box_iou_rotated`'s matrix, which
+    broadcasts over per-image anchors, `iou_chunk` gt rows at a time (the
+    plain version)."""
     if gt_bboxes.is_cuda:
         return launch_max_iou_assign_rect(
             gt_bboxes.contiguous(), gt_mask, gt_labels,

@@ -9,6 +9,12 @@ mirror those paths, so the mapping is mechanical:
   <p>.bias                  -> <p>.bias
   <p>.scale / .mean / .var  -> <p>.weight / .running_mean / .running_var
                                (+ <p>.num_batches_tracked = 0)
+  <p>.weight (H, W, I, O)   -> <p>.weight (O, I, H, W)   (DeformConv)
+  <p>.weight (O, I, nOr, k, k) -> <p>.weight as it is      (ORConv2d)
+  <p>.wexp, <p>._src        -> skipped: ORConv2d's expanded-weight cache,
+                               a non-parameter of shape (0,), and its static
+                               ARF gather table, which the port builds
+                               itself (`ops/orn.py::arf_gather_indices`)
 """
 from __future__ import annotations
 
@@ -39,6 +45,11 @@ def params_from_jax(flat):
                 sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
         elif leaf == "bias":
             sd[path] = torch.from_numpy(arr.copy())
+        elif leaf == "weight" and arr.ndim in (4, 5):
+            sd[path] = torch.from_numpy(np.array(
+                arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr))
+        elif leaf in ("wexp", "_src"):
+            continue
         else:
             raise KeyError(f"{path}: no torch counterpart for '{leaf}'")
     return sd

@@ -1,2 +1,2 @@
 """Detectors."""
-from .single_stage import RotatedRetinaNet, SingleStageDetector
+from .single_stage import RotatedRetinaNet, S2ANet, SingleStageDetector

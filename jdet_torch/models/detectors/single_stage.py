@@ -1,8 +1,8 @@
 """Single-stage detector: backbone -> neck -> head.
 
 Port of `jdet_tpu/models/detectors/single_stage.py`
-(`SingleStageDetector` :16, `RotatedRetinaNet` :51). Images come in as
-(B, H, W, 3) NHWC float32, the reference's batch contract, and are
+(`SingleStageDetector` :16, `RotatedRetinaNet` :51, `S2ANet` :56). Images
+come in as (B, H, W, 3) NHWC float32, the reference's batch contract, and are
 permuted to NCHW once here.
 """
 from __future__ import annotations
@@ -42,3 +42,8 @@ class SingleStageDetector(nn.Module):
 @MODELS.register_module()
 class RotatedRetinaNet(SingleStageDetector):
     """Thin wrapper; all logic lives in the head."""
+
+
+@MODELS.register_module()
+class S2ANet(SingleStageDetector):
+    """Thin wrapper; all logic lives in `S2ANetHead`."""

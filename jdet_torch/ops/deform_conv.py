@@ -1,0 +1,76 @@
+"""Deformable convolution (v1), NCHW, in plain PyTorch.
+
+Port of `jdet_tpu/ops/deform_conv.py` (`deform_conv2d` :131,
+`DeformConv` :202) as AlignConv uses them: stride 1, dilation 1, "same"
+padding, no bias. Offsets are a (dy, dx) pair per output pixel and
+kernel tap. Each tap samples the input bilinearly at its moved position,
+zero outside (-1, H) x (-1, W) with every out-of-image corner zero; the
+samples are contracted with the weight in one product per image,
+(Cout, C * k * k) x (C * k * k, H * W), summed in float32.
+
+The reference's corner-packed row table, its 8-aligned row pitch
+(`_pitch8`) and `ops/gather.py` are TPU layout workarounds and are not
+ported. The sampling is `F.grid_sample(mode="bilinear",
+padding_mode="zeros", align_corners=False)` on the pixel coordinates
+mapped to [-1, 1], which has exactly these border semantics; its
+backward is the scatter-add of the reference's gather. The samples come
+out as (B, C, k * k, H * W), so that the product needs no transpose,
+and the (B, S, 4, C) corner intermediate is never formed.
+
+Under the bf16 policy the reference samples bf16 features, casts the
+weight to their dtype and accumulates and returns float32 (:180-187).
+Here the sampling runs in float32 on the bf16 values and its result is
+rounded to bf16, and the product of the bf16 samples and the bf16 weight
+runs in float32 (the products of two bf16 values are exact in float32),
+so the output is float32 in both policies.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def deform_conv2d(x, offsets, weight):
+    """Stride 1, dilation 1, padding (k - 1) / 2, no bias (AlignConv's).
+    x (B, C, H, W); offsets (B, H, W, k * k, 2) as (dy, dx), taps in
+    row-major (ky, kx) order; weight (Cout, C, k, k). Returns (B, Cout, H,
+    W) float32."""
+    B, C, H, W = x.shape
+    cout, _, k, _ = weight.shape
+    kk = k * k
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # the sampling position of tap t = ky * k + kx at output (h, w)
+    tap = torch.arange(k, **f32) - (k - 1) // 2
+    tap_y, tap_x = tap.repeat_interleave(k), tap.repeat(k)
+    oy = torch.arange(H, **f32)
+    ox = torch.arange(W, **f32)
+    off = offsets.float().permute(0, 3, 4, 1, 2)  # (B, kk, 2, H, W)
+    sy = (oy[:, None] + tap_y[:, None, None]) + off[:, :, 0]
+    sx = (ox[None, :] + tap_x[:, None, None]) + off[:, :, 1]
+    # pixel coordinates -> grid_sample's [-1, 1] (align_corners=False)
+    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
+    cols = F.grid_sample(x.float(), grid.reshape(B, kk, H * W, 2), mode="bilinear",
+                         padding_mode="zeros", align_corners=False)
+    w2 = weight.to(x.dtype)
+    if x.dtype != torch.float32:
+        # the reference's samples and weight in the features' dtype
+        cols = cols.to(x.dtype).float()
+        w2 = w2.float()
+    out = torch.matmul(w2.reshape(cout, C * kk), cols.reshape(B, C * kk, H * W))
+    return out.reshape(B, cout, H, W)
+
+
+class DeformConv(nn.Module):
+    """DCN v1 with offsets from the caller (S2ANet's AlignConv): weight
+    (Cout, C, k, k) drawn from N(0, 0.01^2), no bias."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, *, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        with torch.no_grad():
+            nn.init.normal_(self.weight, 0.0, 0.01, generator=generator)
+
+    def forward(self, x, offsets):
+        return deform_conv2d(x, offsets, self.weight)

@@ -7,7 +7,9 @@ versions.
   the anchor assigner. Anchors are shared (N, 5) or per image (B, N, 5):
   the NMS's per-class self-IoU takes the second form.
 - `launch_max_iou_assign_rect` runs the max-IoU assigner fused onto the
-  same IoU, so that the (B, K, N) matrix is never written. Its wrapper,
+  same IoU, so that the (B, K, N) matrix is never written, on shared
+  (N, 5) or per-image (B, N, 5) anchors (S2ANet's ODM assigns on its
+  per-image refined anchors), one launch for the batch. Its wrapper,
   with the plain version for CPU tensors, is
   `jdet_torch/models/boxes/assigner.py::max_iou_assign_rotated`: the plain
   version is the assigner composed on the IoU matrix, which lives there.
@@ -50,10 +52,11 @@ _PAR_EPS = 1e-12
 FAR_CENTER = -1e6
 
 # kernel launches made by `box_iou_rotated_rect`, by
-# `launch_max_iou_assign_rect` and by `box_iou_rotated_generic`; callers
-# may reset them
+# `launch_max_iou_assign_rect` on shared anchors and on per-image anchors,
+# and by `box_iou_rotated_generic`; callers may reset them
 LAUNCHES = 0
 ASSIGN_LAUNCHES = 0
+ASSIGN_PER_IMAGE_LAUNCHES = 0
 GENERIC_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rotated_iou.cu"
@@ -327,7 +330,7 @@ def build():
     signatures = {
         "rotated_iou_rect": [ptr] * 3 + [i32] * 3 + [i64, ptr],
         "rotated_iou_generic": [ptr] * 3 + [i32] * 3 + [ptr],
-        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [f32] * 3 + [ptr],
+        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [i64] + [f32] * 3 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -415,20 +418,23 @@ def box_iou_rotated_rect(gts, anchors):
 def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=None):
     """Raise on what the fused assigner does not take: gt_bboxes (K, 5)
     or (B, K, 5) float32 contiguous with K >= 1, gt_mask bool and
-    gt_labels integer of gt_bboxes' leading shape, anchors (N, 5) float32
-    contiguous, anchor_mask (N,) bool or None. True for CPU tensors, False
-    for CUDA tensors."""
+    gt_labels integer of gt_bboxes' leading shape, anchors (N, 5) or, with
+    (B, K, 5) gts, per-image (B, N, 5), float32 contiguous, anchor_mask
+    (N,) bool or None. True for CPU tensors, False for CUDA tensors."""
     lead = tuple(gt_bboxes.shape[:-1])
     if gt_bboxes.dim() not in (2, 3) or gt_bboxes.shape[-1] != 5 or lead[-1] == 0:
         raise ValueError(f"gt_bboxes must be (K, 5) or (B, K, 5) with K >= 1, "
                          f"got {tuple(gt_bboxes.shape)}")
-    if anchors.dim() != 2 or anchors.shape[-1] != 5:
-        raise ValueError(f"anchors must be (N, 5), got {tuple(anchors.shape)}")
+    per_image = (anchors.dim() == 3 and gt_bboxes.dim() == 3
+                 and anchors.shape[0] == gt_bboxes.shape[0])
+    if anchors.shape[-1] != 5 or not (anchors.dim() == 2 or per_image):
+        raise ValueError(f"anchors must be (N, 5) or (B, N, 5) with (B, K, 5) gts, "
+                         f"got {tuple(anchors.shape)} against gts {tuple(gt_bboxes.shape)}")
     if tuple(gt_mask.shape) != lead or tuple(gt_labels.shape) != lead:
         raise ValueError(f"gt_mask {tuple(gt_mask.shape)} and gt_labels "
                          f"{tuple(gt_labels.shape)} must be {lead}")
-    if anchor_mask is not None and tuple(anchor_mask.shape) != (anchors.shape[0],):
-        raise ValueError(f"anchor_mask must be ({anchors.shape[0]},), got "
+    if anchor_mask is not None and tuple(anchor_mask.shape) != (anchors.shape[-2],):
+        raise ValueError(f"anchor_mask must be ({anchors.shape[-2]},), got "
                          f"{tuple(anchor_mask.shape)}")
     if gt_bboxes.dtype != torch.float32 or anchors.dtype != torch.float32:
         raise TypeError(f"float32 boxes only, got {gt_bboxes.dtype} / {anchors.dtype}")
@@ -449,7 +455,7 @@ def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
     squeeze = gt_bboxes.dim() == 2
     g = gt_bboxes[None] if squeeze else gt_bboxes
     B, K, _ = g.shape
-    N = anchors.shape[0]
+    N = anchors.shape[-2]
     if B > 65535 or N >= 1 << 31:
         raise ValueError(f"shape out of the kernel's grid: B={B} N={N}")
     dev = gt_bboxes.device
@@ -471,6 +477,7 @@ def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
              anchors.data_ptr(), am, scratch.data_ptr(),
              out["gt_inds"].data_ptr(), out["max_overlaps"].data_ptr(),
              out["labels"].data_ptr(), B, K, N,
+             N * 5 if anchors.dim() == 3 else 0,  # anchor batch stride
              pos_iou_thr, neg_iou_thr, min_pos_iou)
     return {k: v[0] for k, v in out.items()} if squeeze else out
 
@@ -479,20 +486,25 @@ def launch_max_iou_assign_rect(gt_bboxes, gt_mask, gt_labels, anchors,
                                anchor_mask=None, pos_iou_thr=0.5,
                                neg_iou_thr=0.4, min_pos_iou=0.0):
     """The max-IoU assigner fused onto the rect IoU, CUDA tensors only:
-    one call of the fused kernel for the batch. Returns the dict of
-    `assign_wrt_overlaps` (gt_inds, max_overlaps, labels), each (N,) or
-    (B, N). Operands as `check_assign_operands` takes them.
+    one call of the fused kernel for the batch, counted in
+    ASSIGN_LAUNCHES for shared (N, 5) anchors and in
+    ASSIGN_PER_IMAGE_LAUNCHES for per-image (B, N, 5) ones. Returns the
+    dict of `assign_wrt_overlaps` (gt_inds, max_overlaps, labels), each
+    (N,) or (B, N). Operands as `check_assign_operands` takes them.
 
     Callers take `jdet_torch.models.boxes.assigner.max_iou_assign_rotated`,
     which sends CPU tensors to the plain version."""
-    global ASSIGN_LAUNCHES
+    global ASSIGN_LAUNCHES, ASSIGN_PER_IMAGE_LAUNCHES
     if check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask):
         raise ValueError("CUDA tensors only: the plain version is "
                          "jdet_torch.models.boxes.assigner.max_iou_assign_rotated")
     out = _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
                          pos_iou_thr, neg_iou_thr, min_pos_iou)
     if out["gt_inds"].numel():
-        ASSIGN_LAUNCHES += 1
+        if anchors.dim() == 3:
+            ASSIGN_PER_IMAGE_LAUNCHES += 1
+        else:
+            ASSIGN_LAUNCHES += 1
     return out
 
 

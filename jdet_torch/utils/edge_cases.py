@@ -156,3 +156,37 @@ def assign_edge_case(name, K=8, N=600, seed=11):
     else:
         raise ValueError(name)
     return gts, mask, labels, anchors, anchor_mask, about
+
+
+def refined_anchors(anchors, seed=13, extreme=4):
+    """Anchors (N, 5) decoded as S2ANet's FAM decodes its init anchors
+    into refined ones (`delta2rbox` with wh_ratio_clip=1e-6), in numpy:
+    centres moved by up to half a side, w and h stretched apart by
+    e^[-1, 2.5] (up to 33:1), angles turned by up to pi/2 and wrapped into
+    [-pi/4, 3pi/4). The first `extreme` anchors are stretched by e^8 and
+    e^13.8 (the clip), far beyond any init anchor. Returns (N, 5) float32."""
+    rng = np.random.RandomState(seed)
+    a = anchors.astype(np.float64)
+    n = len(a)
+    dx, dy = rng.uniform(-0.5, 0.5, (2, n))
+    dw, dh = rng.uniform(-1.0, 2.5, (2, n))
+    dw[:extreme] = np.where(np.arange(extreme) % 2, 13.8, 8.0)
+    dh[:extreme] = -1.0
+    da = rng.uniform(-0.5, 0.5, n)
+    cos, sin = np.cos(a[:, 4]), np.sin(a[:, 4])
+    out = np.stack([
+        dx * a[:, 2] * cos - dy * a[:, 3] * sin + a[:, 0],
+        dx * a[:, 2] * sin + dy * a[:, 3] * cos + a[:, 1],
+        a[:, 2] * np.exp(dw), a[:, 3] * np.exp(dh),
+        (np.pi * da + a[:, 4] + np.pi / 4) % np.pi - np.pi / 4,
+    ], 1)
+    return out.astype(np.float32)
+
+
+def per_image_assign_edge_case(name, K=8, N=600, seed=11):
+    """`assign_edge_case(name)` with per-image anchors (2, N, 5), as the
+    ODM of S2ANet assigns: image 0 keeps the case's anchors (the indices
+    it returns are about image 0), image 1 takes `refined_anchors` of
+    them. anchor_mask stays (N,), one for both images."""
+    gts, mask, labels, anchors, anchor_mask, about = assign_edge_case(name, K, N, seed)
+    return gts, mask, labels, np.stack([anchors, refined_anchors(anchors)]), anchor_mask, about

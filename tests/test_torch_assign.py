@@ -22,9 +22,21 @@ import torch
 from jdet_torch.models.boxes.assigner import assign_wrt_overlaps, max_iou_assign_rotated
 from jdet_torch.ops import box_iou_rotated, multiclass_nms_rotated
 from jdet_torch.ops import rotated_iou_kernel as rik
-from jdet_torch.utils.edge_cases import ASSIGN_CASES, assign_edge_case, edge_case_boxes
+from jdet_torch.utils.edge_cases import (ASSIGN_CASES, assign_edge_case, edge_case_boxes,
+                                         per_image_assign_edge_case, refined_anchors)
 
 THR = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers at once, and
+    torch's thread pool on a busy machine made the plain IoU several times
+    slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _torch_case(name):
@@ -40,11 +52,14 @@ def _assign(gts, mask, labels, anchors, am):
 
 
 def _reference_assign(gts, mask, labels, anchors, am):
-    """jdet_tpu's assigner, image by image (it takes one image)."""
+    """jdet_tpu's assigner, image by image (it takes one image), on shared
+    (N, 5) or per-image (B, N, 5) anchors: the reference's vmap of
+    `anchor_target.py:163-176`."""
     import jax.numpy as jnp
     from jdet_tpu.models.boxes.assigner import max_iou_assign_rotated as j_assign
 
-    out = [j_assign(jnp.asarray(anchors), jnp.asarray(gts[b]), jnp.asarray(mask[b]),
+    out = [j_assign(jnp.asarray(anchors if anchors.ndim == 2 else anchors[b]),
+                    jnp.asarray(gts[b]), jnp.asarray(mask[b]),
                     gt_labels=jnp.asarray(labels[b]),
                     anchor_mask=None if am is None else jnp.asarray(am), **THR)
            for b in range(len(gts))]
@@ -83,6 +98,95 @@ def test_assigner_matches_reference_on_edge_cases(case):
         assert inds[about].tolist() == [4]
     else:  # argmax_tie_above_pos_thr: gts 1 and 3 are one box
         assert inds[about].tolist() == [4, 2]
+
+
+@pytest.mark.parametrize("case", ASSIGN_CASES)
+def test_assigner_per_image_anchors_matches_reference_on_edge_cases(case):
+    """The plain version on per-image anchors (image 1's refined like the
+    ODM's, some stretched to the decoder's clip) against the reference's
+    per-image vmap: gt_inds and labels equal, max_overlaps within 2e-4."""
+    gts, mask, labels, anchors, am, about = per_image_assign_edge_case(case)
+    t = [torch.from_numpy(x) for x in (gts, mask, labels, anchors)]
+    before = rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES
+    got = _assign(*t, None if am is None else torch.from_numpy(am))
+    assert (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES) == before
+    want = _reference_assign(gts, mask, labels, anchors, am)
+    np.testing.assert_array_equal(got["gt_inds"].numpy(), want["gt_inds"])
+    np.testing.assert_array_equal(got["labels"].numpy(), want["labels"])
+    mo, want_mo = got["max_overlaps"].numpy(), want["max_overlaps"]
+    np.testing.assert_array_equal(np.isfinite(mo), np.isfinite(want_mo))
+    fin = np.isfinite(want_mo)
+    np.testing.assert_allclose(mo[fin], want_mo[fin], atol=2e-4, rtol=0)
+    # image 0 keeps the case's anchors, so it assigns as the shared route
+    shared = _assign(*t[:3], t[3][0], None if am is None else torch.from_numpy(am))
+    for k in got:
+        assert torch.equal(got[k][0], shared[k][0]), k
+    assert (got["gt_inds"][1] > 0).any() or case == "all_gts_padding"
+
+
+def _untied(gts, mask, anchors):
+    """Smallest gap between a gt's best IoU and its second best, and
+    between an anchor's best IoU and 0.4 / 0.5, over per-image anchors."""
+    margin = np.inf
+    for b in range(len(gts)):
+        iou = box_iou_rotated(torch.from_numpy(gts[b][mask[b]]),
+                              torch.from_numpy(anchors[b])).double()
+        top2 = iou.topk(2, dim=1).values
+        best = iou.max(0).values
+        margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item(),
+                     (best - 0.5).abs().min().item(), (best - 0.4).abs().min().item())
+    return margin
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_per_image_route_matches_reference_vmapped(seed):
+    """S2ANet-like refined anchors, per image, over a 512² grid of square
+    init anchors (5,456 per image), against 12 gts per image (4 padding
+    slots), some sitting on a refined anchor; the batch is the first from
+    `seed` upwards with no near tie (1e-5)."""
+    sizes = [(512 // s, 512 // s) for s in (8, 16, 32, 64, 128)]
+    init = np.concatenate([
+        np.stack(np.meshgrid(np.arange(w) * s + (4 * s - 1) / 2,
+                             np.arange(h) * s + (4 * s - 1) / 2), -1).reshape(-1, 2)
+        for s, (h, w) in zip((8, 16, 32, 64, 128), sizes)])
+    side = np.concatenate([np.full(h * w, 4.0 * s) for s, (h, w) in zip((8, 16, 32, 64, 128), sizes)])
+    init = np.c_[init, side, side, np.zeros_like(side)].astype(np.float32)
+    for s in range(seed * 100, seed * 100 + 50):
+        rng = np.random.RandomState(s)
+        anchors = np.stack([refined_anchors(init, seed=s + b, extreme=2) for b in range(2)])
+        gts = np.stack([np.stack([rng.uniform(20, 490, 16), rng.uniform(20, 490, 16),
+                                  rng.uniform(12, 160, 16), rng.uniform(8, 80, 16),
+                                  rng.uniform(-np.pi / 4, 3 * np.pi / 4, 16)], 1)
+                        for _ in range(2)]).astype(np.float32)
+        on = rng.choice(len(init), (2, 6), replace=False)
+        for b in range(2):
+            gts[b, :6] = anchors[b, on[b]] * [1, 1, 1.05, 1.05, 1] + [1.5, -1.0, 0, 0, 0.02]
+        mask = np.ones((2, 16), bool)
+        mask[:, -4:] = False
+        labels = rng.randint(1, 16, (2, 16)).astype(np.int64)
+        if _untied(gts, mask, anchors) > 1e-5:
+            break
+    else:
+        raise AssertionError("no tie-free batch")
+    got = _assign(*(torch.from_numpy(x) for x in (gts, mask, labels, anchors)), None)
+    want = _reference_assign(gts, mask, labels, anchors, None)
+    np.testing.assert_array_equal(got["gt_inds"].numpy(), want["gt_inds"])
+    np.testing.assert_array_equal(got["labels"].numpy(), want["labels"])
+    np.testing.assert_allclose(got["max_overlaps"].numpy(), want["max_overlaps"],
+                               atol=2e-4, rtol=0)
+    assert ((got["gt_inds"] > 0).sum(1) >= 6).all()
+
+
+def test_fused_wrapper_takes_per_image_anchors():
+    gts, mask, labels, anchors, am, _ = per_image_assign_edge_case("anchor_mask_partly_false")
+    g, m, lab, a = (torch.from_numpy(x) for x in (gts, mask, labels, anchors))
+    am = torch.from_numpy(am)
+    assert rik.check_assign_operands(g, m, lab, a, am)
+    for bad in (dict(a=a[:1]), dict(g=g[0], m=m[0], lab=lab[0]),
+                dict(am=am.expand(2, -1)), dict(a=a[..., :4])):
+        args = {**dict(g=g, m=m, lab=lab, a=a, am=am), **bad}
+        with pytest.raises(ValueError):
+            rik.check_assign_operands(args["g"], args["m"], args["lab"], args["a"], args["am"])
 
 
 def test_rect_reference_per_image_anchors_matches_pallas_vmapped():
@@ -206,6 +310,34 @@ def test_fused_kernel_identical_to_unfused_route_on_card(case):
     got = _assign(gts, mask, labels, anchors, am)
     torch.cuda.synchronize()
     assert rik.ASSIGN_LAUNCHES == before + 1
+    ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), anchors)
+    unfused = assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **THR)
+    for k in got:
+        assert got[k].dtype == unfused[k].dtype
+        assert torch.equal(got[k], unfused[k]), k
+    plain = _assign(*(None if t is None else t.cpu()
+                      for t in (gts, mask, labels, anchors, am)))
+    for k in ("gt_inds", "labels"):
+        torch.testing.assert_close(got[k].cpu(), plain[k], rtol=0, atol=0)
+    torch.testing.assert_close(got["max_overlaps"].cpu(), plain["max_overlaps"],
+                               rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ASSIGN_CASES)
+def test_fused_kernel_per_image_identical_to_unfused_route_on_card(case):
+    """The fused assigner on per-image anchors against K1's matrix on the
+    same anchors plus the PyTorch assigner (identical, max_overlaps to the
+    bit), and against the CPU plain version (gt_inds and labels equal)."""
+    dev = _card()
+    gts, mask, labels, anchors, am, _ = per_image_assign_edge_case(case)
+    gts, mask, labels, anchors = (torch.from_numpy(x).to(dev)
+                                  for x in (gts, mask, labels, anchors))
+    am = None if am is None else torch.from_numpy(am).to(dev)
+    before = rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES
+    got = _assign(gts, mask, labels, anchors, am)
+    torch.cuda.synchronize()
+    assert (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES) == (before[0], before[1] + 1)
     ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), anchors)
     unfused = assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **THR)
     for k in got:

@@ -40,7 +40,9 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
     walked = set(names.split())
     for name in ("jdet_torch.data.image_io", "jdet_torch.data.devkits.voc_eval",
                  "jdet_torch.runner.runner", "jdet_torch.runner.checkpoint",
-                 "jdet_torch.tools.run_net", "jdet_torch.tools.merge_results"):
+                 "jdet_torch.tools.run_net", "jdet_torch.tools.merge_results",
+                 "jdet_torch.ops.deform_conv", "jdet_torch.ops.orn",
+                 "jdet_torch.models.heads.s2anet_head"):
         assert name in walked, name
 
 

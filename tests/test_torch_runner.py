@@ -30,6 +30,7 @@ from flax import nnx
 from jdet_tpu.models.builder import build_detector as j_build_detector
 from jdet_tpu.optim.lr_scheduler import build_lr_schedule as j_build_lr_schedule
 from jdet_tpu.optim.optimizer import build_optimizer as j_build_optimizer
+from jdet_tpu.models.pretrained import flat_paths
 from jdet_tpu.runner.checkpoint import save_checkpoint as j_save_checkpoint
 from jdet_tpu.runner.runner import _unflip_dets as j_unflip_dets
 from jdet_torch.data.dota import DOTADataset
@@ -235,6 +236,55 @@ def test_ema_checkpoint_loads_model_only(tmp_path):
         torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
     with pytest.raises(NotImplementedError, match="ema_ckpt.pkl"):
         load_checkpoint(path, tmodel)
+
+
+def test_s2anet_jax_checkpoint_resumes_with_the_deform_and_orconv_momentum(tmp_path):
+    """A jdet_tpu S2ANet checkpoint (ResNet-18, FPN 64) with momentum in
+    every trace: the port loads it strictly (the ORConv's expanded-weight
+    cache `wexp` and its ARF table `_src`, which the payload carries, are
+    skipped) and takes each trace as the SGD momentum of the parameter it
+    updates, the deformable conv's HWIO trace transposed as its weight is."""
+    from test_torch_s2anet import CFG as S2ANET
+
+    jmodel = j_build_detector(S2ANET, seed=0)
+    jopt = j_build_optimizer(jmodel, lr_schedule=j_build_lr_schedule(0.01, steps_per_epoch=2),
+                             opt_type="SGD", momentum=0.9, weight_decay=1e-4,
+                             grad_clip=dict(max_norm=35.0), frozen_stages=1)
+    rng = np.random.RandomState(3)
+    for path, var in flat_paths(jopt)[1].items():
+        if "/trace/" in path.replace(".", "/") and hasattr(var, "set_value"):
+            shape = var.get_value().shape
+            var.set_value(jnp.asarray(rng.normal(0.0, 1e-3, shape), jnp.float32))
+    path = str(tmp_path / "s2anet_ckpt.pkl")
+    j_save_checkpoint(path, jmodel, jopt, meta={"epoch": 1, "iter": 6})
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    assert {"bbox_head/or_conv/wexp", "bbox_head/or_conv/_src"} <= set(saved["model"])
+
+    tmodel = build_detector(S2ANET, device="cpu", load_pretrained=False, seed=7)
+    topt = build_optimizer(tmodel, lr_schedule=build_lr_schedule(0.01, steps_per_epoch=2),
+                           opt_type="SGD", momentum=0.9, weight_decay=1e-4,
+                           grad_clip=dict(max_norm=35.0), frozen_stages=1)
+    load_checkpoint(path, tmodel, topt)
+    traces = {k.split("/trace/", 1)[1]: v for k, v in saved["optimizer"].items()
+              if "/trace/" in k}
+    params = dict(tmodel.named_parameters())
+    buf = {n: topt.sgd.state[p]["momentum_buffer"].numpy() for n, p in params.items()
+           if p in topt.sgd.state}
+    np.testing.assert_array_equal(
+        buf["bbox_head.align_conv.deform_conv.weight"],
+        traces["bbox_head/align_conv/deform_conv/weight"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(buf["bbox_head.or_conv.weight"],
+                                  traces["bbox_head/or_conv/weight"])
+    # the frozen stem keeps no momentum in the port, as in its own checkpoints
+    assert len(buf) == sum(p.requires_grad for p in params.values()) > 50
+    mapped = params_from_jax({k.replace("/", "."): v for k, v in traces.items()})
+    for name, b in buf.items():
+        np.testing.assert_array_equal(b, mapped[name].numpy(), err_msg=name)
+        assert np.abs(b).sum() > 0, name
+    want = params_from_jax({k.replace("/", "."): v for k, v in saved["model"].items()})
+    for name, t in tmodel.state_dict().items():
+        torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
 
 
 def test_checkpoint_round_trip_gives_the_next_step_bit_for_bit(tmp_path):

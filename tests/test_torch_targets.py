@@ -11,12 +11,15 @@ import pytest
 import torch
 
 from jdet_tpu.models.boxes.anchor_generator import AnchorGeneratorRotated as JGen
+from jdet_tpu.models.boxes.anchor_generator import AnchorGeneratorRotatedS2ANet as JS2AGen
 from jdet_tpu.models.boxes.anchor_target import anchor_target_batch as j_targets
 from jdet_tpu.models.losses import sigmoid_focal_loss as j_focal
 from jdet_tpu.models.losses import smooth_l1_loss as j_smooth_l1
 from jdet_tpu.ops.box_iou_rotated import box_iou_rotated as j_iou
 from jdet_tpu.ops.pallas_iou import park_masked_boxes as j_park
-from jdet_torch.models.boxes import AnchorGeneratorRotated, anchor_target_batch
+from jdet_torch.models.boxes import (AnchorGeneratorRotated, AnchorGeneratorRotatedS2ANet,
+                                     anchor_target_batch)
+from jdet_torch.utils.edge_cases import refined_anchors
 from jdet_torch.models.losses import sigmoid_focal_loss, smooth_l1_loss
 from test_retinanet_e2e import synthetic_batch
 
@@ -37,6 +40,16 @@ def test_anchors_equal_reference(sizes):
         got = AnchorGeneratorRotated(s, **GEN_KW).grid_anchors(fs, s, device="cpu")
         want = np.asarray(JGen(s, **GEN_KW).grid_anchors(fs, s))
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("sizes", [((16, 16), (8, 8), (4, 4), (2, 2), (1, 1)),
+                                   ((5, 7), (3, 4), (2, 2), (1, 1), (1, 1))])
+def test_s2anet_anchors_equal_reference(sizes):
+    for s, fs in zip(STRIDES, sizes):
+        got = AnchorGeneratorRotatedS2ANet(s, scales=(4,)).grid_anchors(fs, s, device="cpu")
+        want = np.asarray(JS2AGen(s, (4,), (1.0,)).grid_anchors(fs, s))
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert got.shape == (fs[0] * fs[1], 5) and (got[:, 2] == 4 * s).all()
 
 
 def _anchors_128():
@@ -125,3 +138,36 @@ def test_losses_match(targets):
                            avg_factor=avg)
     np.testing.assert_allclose(float(got_reg), float(want_reg), rtol=1e-5)
     assert float(got_cls) > 0 and float(got_reg) > 0
+
+
+def test_anchor_target_per_image_anchors_matches():
+    """The per-image branch (S2ANet's ODM on its refined anchors,
+    `anchor_target.py:163-176`): one set of refined anchors per image over
+    the 128² S2ANet init anchors, against the reference's vmap over images
+    and anchors, at the tolerances above."""
+    _, t = synthetic_batch()
+    t = {k: np.array(v) for k, v in t.items()}
+    init = np.concatenate([
+        np.asarray(JS2AGen(s, (4,), (1.0,)).grid_anchors((128 // s, 128 // s), s))
+        for s in STRIDES])
+    anchors = np.stack([refined_anchors(init, seed=b, extreme=2) for b in range(2)])
+    valid = np.ones(anchors.shape[1], bool)
+    want, want_pos, want_neg = j_targets(
+        jnp.asarray(anchors), jnp.asarray(valid), jnp.asarray(t["gt_bboxes"]),
+        jnp.asarray(t["gt_mask"]), jnp.asarray(t["gt_labels"]), rotated=True, **TARGET_KW)
+    got, got_pos, got_neg = anchor_target_batch(
+        torch.from_numpy(anchors), torch.from_numpy(valid),
+        torch.from_numpy(t["gt_bboxes"]), torch.from_numpy(t["gt_mask"]),
+        torch.from_numpy(t["gt_labels"]), **TARGET_KW)
+    got = {k: v.numpy() for k, v in got.items()}
+    ok = np.concatenate([_decisive({k: v[b:b + 1] for k, v in t.items()}, anchors[b])
+                         for b in range(2)])
+    assert ok.mean() > 0.99
+    for k in ("labels", "gt_inds", "pos_mask", "neg_mask", "label_weights",
+              "bbox_weights"):
+        np.testing.assert_array_equal(got[k][ok], np.asarray(want[k])[ok], err_msg=k)
+    np.testing.assert_allclose(got["bbox_targets"][ok], np.asarray(want["bbox_targets"])[ok],
+                               atol=1e-5)
+    assert got["pos_mask"].sum() > 0
+    if ok.all():
+        assert (int(got_pos), int(got_neg)) == (int(want_pos), int(want_neg))
