@@ -58,6 +58,20 @@
    scatter-add, the ORConv's ARF expansion and the fused assigner named in
    the step's profile; and one epoch of 2 iterations, a val and a test
    through `python -m jdet_torch.tools.run_net` on 8 synthetic tiles.
+8b. Oriented R-CNN R50-FPN from `configs/oriented_rcnn_r50_fpn_1x_dota.py`
+   at full width with random weights: the fused assigner on the RoI
+   head's route (each image's gts prepended to its proposals, per-image
+   masks, no low-quality match) on the RoI edge cases and at the train
+   step's (4, 512, 2512) on the proposals of a real RPN forward,
+   identical to K1's matrix plus the PyTorch assigner and to the CPU
+   plain version's gt_inds and labels, timed against the unfused route;
+   card against CPU at 512² (network outputs, proposals and detections as
+   sets, the four losses and 2 train steps on the same sampler draws, and
+   in bf16 within the f32 - bf16 gap); the serving path at B=2, 20 train
+   steps at B=4 and 5 at B=16 (the reference's bench batch), in float32
+   and bf16, with the step's parts (the RPN's hbb assignment and its peak
+   memory, its targets, the proposals, the RoI sampling, the RoI align
+   forward and backward, the FCs); and `run_net` on 8 synthetic tiles.
 9. Drives the Runner from the same config at full width on a synthetic
    DOTA tree (16 PNG tiles of 1024² under `build/`, uint8 batches, device
    normalize and augment, 2 spawned loader workers, the tile cache):
@@ -82,12 +96,14 @@
    last line `{"ok": true, "device": {...}}`.
 
 Each path (serving, K2's entry point, training, the same in bf16, the
-S2ANet paths, `run_net`, the Runner's `run()`, the epoch on the
-preprocessed tiles and its val and test) runs with the launch counters
-set to 0 just before it and read just after: one fused assigner launch
-per loss forward and per train step (RetinaNet), two for S2ANet (FAM on
-shared anchors, ODM on per-image anchors), one K1 matrix launch per
-`predict` (per predict batch in `val` and `test`).
+S2ANet and Oriented R-CNN paths and their `run_net`, the Runner's
+`run()`, the epoch on the preprocessed tiles and its val and test) runs
+with the launch counters set to 0 just before it and read just after:
+one fused assigner launch per loss forward and per train step
+(RetinaNet), two for S2ANet (FAM on shared anchors, ODM on per-image
+anchors), one per-image launch for Oriented R-CNN (its RoI head), one K1
+matrix launch per `predict` (per predict batch in `val` and `test`), no
+K2 launch.
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
@@ -124,11 +140,23 @@ STEPS_PER_EPOCH = 1000
 BF16_GAP_FACTOR = 1.0
 CONFIG = Path(__file__).resolve().parent / "configs/rotated_retinanet_obb_r50_fpn_1x_dota.py"
 S2ANET_CONFIG = Path(__file__).resolve().parent / "configs/s2anet_r50_fpn_1x_dota.py"
+ORCNN_CONFIG = Path(__file__).resolve().parent / "configs/oriented_rcnn_r50_fpn_1x_dota.py"
+# the Oriented R-CNN RoI head's assigner (jdet_tpu/models/heads/oriented_head.py:35-39)
+ROI_THR = dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5, match_low_quality=False)
 
 
+# the fused assigner's two kernels, as `device_profile` names them
+ASSIGN_KERNELS = ("assign_pass1_kernel", "assign_pass2_kernel")
+# spin kernels that open each profiler window and absorb the records it
+# drops (see device_profile); how many it dropped, window by window
+PROFILER_MARKERS = 256
+MARKERS_DROPPED = []
 # each kernel route's launch counter in jdet_torch/ops/rotated_iou_kernel.py
+# (ASSIGN_PER_IMAGE_LAUNCHES counts the per-image launches with per-image
+# masks too; `route_launches` takes them out)
 COUNTERS = {"rotated_iou_rect": "LAUNCHES", "max_iou_assign_rect": "ASSIGN_LAUNCHES",
             "max_iou_assign_rect_per_image": "ASSIGN_PER_IMAGE_LAUNCHES",
+            "max_iou_assign_rect_per_image_masked": "ASSIGN_PER_IMAGE_MASK_LAUNCHES",
             "rotated_iou_generic": "GENERIC_LAUNCHES"}
 
 
@@ -141,20 +169,45 @@ def reset_launch_counts(rik):
         setattr(rik, attr, 0)
 
 
+def route_launches(counts):
+    """Launches by kernel route from `launch_counts`: the per-image route
+    on a shared (or no) anchor mask without those on per-image masks."""
+    return {**counts, "max_iou_assign_rect_per_image":
+            counts["max_iou_assign_rect_per_image"]
+            - counts["max_iou_assign_rect_per_image_masked"]}
+
+
 def is_s2anet(model):
     return type(model).__name__ == "S2ANet"
+
+
+def is_orcnn(model):
+    return type(model).__name__ == "OrientedRCNN"
 
 
 def fused_per_loss(model):
     """Fused assigner launches per loss forward, by route: RetinaNet assigns
     once on shared anchors; S2ANet's FAM on shared init anchors and its
-    ODM on per-image refined anchors."""
+    ODM on per-image refined anchors; Oriented R-CNN's RoI head once on
+    its per-image proposals (its RPN assigns horizontal boxes in plain
+    PyTorch)."""
+    if is_orcnn(model):
+        return {"max_iou_assign_rect": 0, "max_iou_assign_rect_per_image": 1,
+                "max_iou_assign_rect_per_image_masked": 1}
     return {"max_iou_assign_rect": 1,
-            "max_iou_assign_rect_per_image": 1 if is_s2anet(model) else 0}
+            "max_iou_assign_rect_per_image": 1 if is_s2anet(model) else 0,
+            "max_iou_assign_rect_per_image_masked": 0}
 
 
 def fused_launches(rik):
     return rik.ASSIGN_LAUNCHES + rik.ASSIGN_PER_IMAGE_LAUNCHES
+
+
+_T0 = time.perf_counter()
+
+
+def elapsed(phase):
+    log(f"elapsed after {phase}: {time.perf_counter() - _T0:.1f} s")
 
 
 def check(cond, msg):
@@ -251,37 +304,63 @@ def peak_bytes(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
-def device_profile(fn, iters=5, warmup=True, families=None):
+def device_profile(fn, iters=50, warmup=True, families=None, expect=()):
     """fn() under torch.profiler: device ms per call of each kernel it
     launches (by short name, busiest first; empty if the profiler saw no
     device time), their sum, and the wall ms per call of the same window,
     from the synchronize before the first call to the one after the last
     (the profiler's own overhead included). One unprofiled call first,
     unless warmup is False. With `families` ({key: regex}), a fourth value:
-    the device ms per call of the kernels whose full name matches each."""
+    the device ms per call of the kernels whose full name matches each.
+
+    On the H100 the profiler drops the first kernel records of a window,
+    a few to a dozen, more the longer the process has run; in a window of
+    a few short calls that can be all of them. So each window opens with
+    PROFILER_MARKERS spin kernels, which are not counted. `expect` names
+    kernels that fn launches the same number of times on every call: a
+    window that recorded one of them not a whole, non-zero number of times
+    per call is profiled again with 4 times the markers, up to 3 windows
+    in all, and then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    markers = PROFILER_MARKERS
+    for attempt in range(3):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = {}
-    family_ms = dict.fromkeys(families or (), 0.0)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            ms = e.self_device_time_total / 1e3 / iters
-            ours = re.search(r"(assign_pass\d_kernel|rotated_iou_(?:rect|generic)_kernel)", e.key)
-            name = ours.group(1) if ours else re.sub(r"^void |<.*", "", e.key)[:48]
-            kernels[name] = kernels.get(name, 0.0) + ms
-            for key, pattern in (families or {}).items():
-                family_ms[key] += ms if re.search(pattern, e.key) else 0.0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(markers):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        kernels, counts = {}, Counter()
+        family_ms = dict.fromkeys(families or (), 0.0)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "spin_kernel" in e.key:
+                counts["spin_kernel"] += e.count
+            elif e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                ms = e.self_device_time_total / 1e3 / iters
+                ours = re.search(r"(assign_pass\d_kernel|rotated_iou_(?:rect|generic)_kernel)",
+                                 e.key)
+                name = ours.group(1) if ours else re.sub(r"^void |<.*", "", e.key)[:48]
+                kernels[name] = kernels.get(name, 0.0) + ms
+                counts[name] += e.count
+                for key, pattern in (families or {}).items():
+                    family_ms[key] += ms if re.search(pattern, e.key) else 0.0
+        short = {k: counts[k] for k in expect if counts[k] == 0 or counts[k] % iters}
+        if not short:
+            break
+        log(f"profiler window {attempt + 1}, {markers} markers, {iters} calls: recorded "
+            f"{short} launches of the expected kernels (kernels seen: {dict(counts)})")
+        markers *= 4
+    check(not short, f"the profiler recorded {short} launches of {list(expect)} in {iters} "
+                     f"calls after {markers // 4} markers, not a whole number per call")
+    MARKERS_DROPPED.append(markers - counts["spin_kernel"])
     kernels = dict(sorted(kernels.items(), key=lambda kv: -kv[1]))
     if families is not None:
         return kernels, sum(kernels.values()), wall_ms, family_ms
@@ -366,7 +445,8 @@ def check_iou_kernel(rik, head):
     old_ms, ms, turns = in_turns(lambda: box_iou_rotated(cand4, cand4, impl="xla"),
                                  lambda: rik.box_iou_rotated_rect(cand, cand))
     plain_ms = median_ms(lambda: rik.box_iou_rotated_rect_reference(cand, cand))
-    kernels, device_ms, _ = device_profile(lambda: rik.box_iou_rotated_rect(cand, cand))
+    kernels, device_ms, _ = device_profile(lambda: rik.box_iou_rotated_rect(cand, cand),
+                                           expect=("rotated_iou_rect_kernel",))
     log(f"NMS self-IoU on K1 under the profiler, device ms per call: {kernels}")
     nbytes = (2 * B * K * 5 + B * K * K) * 4
     touching = touching_pairs(cand, cand)
@@ -502,7 +582,7 @@ def check_assign_kernel(rik, anchors):
     plain_ms = median_ms(lambda: plain(gts, mask, labels, anchors, am, iou_chunk=32),
                          warmup=1, iters=3)
     kernels, device_ms, _ = device_profile(
-        lambda: assign(gts, mask, labels, anchors, am))
+        lambda: assign(gts, mask, labels, anchors, am), expect=ASSIGN_KERNELS)
     log(f"fused assigner under the profiler, device ms per call: {kernels} "
         f"(sum {device_ms:.4f}; the rest of the {ms:.4f} ms is the host's)")
     mem = {name: peak_bytes(fn) for name, fn in (
@@ -585,9 +665,10 @@ def check_assign_per_image_kernel(rik, model, cfg):
         gts, mask, labels, an, am, about = per_image_assign_edge_case(name)
         args = [torch.as_tensor(x, device="cuda") for x in (gts, mask, labels, an)]
         am = None if am is None else torch.as_tensor(am, device="cuda")
-        before = rik.ASSIGN_PER_IMAGE_LAUNCHES
+        before = rik.ASSIGN_PER_IMAGE_LAUNCHES, rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES
         fused = assign(*args, am)
-        check(rik.ASSIGN_PER_IMAGE_LAUNCHES == before + 1, f"{name}: no per-image launch")
+        check((rik.ASSIGN_PER_IMAGE_LAUNCHES, rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES)
+              == (before[0] + 1, before[1]), f"{name}: not one per-image launch on shared masks")
         identical(fused, unfused(*args, am), name)
         cpu = plain(*(x.cpu() for x in args), None if am is None else am.cpu())
         for k in ("gt_inds", "labels"):
@@ -641,9 +722,10 @@ def check_assign_per_image_kernel(rik, model, cfg):
                                                            anchors))
     plain_ms = median_ms(lambda: plain(gts, mask, labels, anchors, am, iou_chunk=64),
                          warmup=1, iters=3)
-    kernels, device_ms, _ = device_profile(lambda: assign(gts, mask, labels, anchors, am))
+    kernels, device_ms, _ = device_profile(lambda: assign(gts, mask, labels, anchors, am),
+                                           expect=ASSIGN_KERNELS)
     # CUDA events over 20 calls back to back: the host's part hides behind
-    # the card's queue (the profiler has missed one of the two passes)
+    # the card's queue
     b2b_ms = back_to_back_ms(lambda: assign(gts, mask, labels, anchors, am))
     log(f"per-image fused assigner under the profiler, device ms per call: {kernels} "
         f"(sum {device_ms:.4f}; the rest of the {ms:.4f} ms is the host's); "
@@ -812,13 +894,14 @@ def check_s2anet_card_against_cpu(cfg, rik):
     check_train_card_against_cpu(cfg, rik)
 
 
-def run_net_phase(rik, root, n_tiles=8):
+def run_net_phase(rik, root, config=S2ANET_CONFIG, per_iter=None, n_tiles=8):
     """`python -m jdet_torch.tools.run_net --config-file <cfg>` on the card,
-    in this process, with a config whose `_base_` is the S2ANet config and
-    which points the datasets at a synthetic DOTA tree of `n_tiles` 1024²
-    tiles (random weights: no backbone checkpoint): one epoch of
-    n_tiles / 4 iterations, a val, a checkpoint and a test. Returns the
-    launches and the logged records."""
+    in this process, with a config whose `_base_` is `config` (S2ANet's
+    by default) and which points the datasets at a synthetic DOTA tree of
+    `n_tiles` 1024² tiles (random weights: no backbone checkpoint): one
+    epoch of n_tiles / 4 iterations, a val, a checkpoint and a test.
+    `per_iter` is the fused assigner's launches per train iteration, by
+    route. Returns the launches and the logged records."""
     import shutil
 
     from jdet_torch.data.synthetic import make_synthetic_dota
@@ -827,10 +910,10 @@ def run_net_phase(rik, root, n_tiles=8):
 
     shutil.rmtree(root, ignore_errors=True)
     img_dir, ann = make_synthetic_dota(str(root / "dota"), n_images=n_tiles, size=1024, seed=2)
-    cfg_file = root / "s2anet_smoke_cfg.py"
+    cfg_file = root / "smoke_cfg.py"
     data = dict(annotations_file=ann, images_dir=img_dir, num_workers=2)
     cfg_file.write_text("\n".join([
-        f"_base_ = [{str(S2ANET_CONFIG)!r}]",
+        f"_base_ = [{str(config)!r}]",
         "model = dict(backbone=dict(pretrained=None))",
         f"dataset = dict(train={data!r}, val={data!r}, "
         f"test=dict(images_dir={img_dir!r}, num_workers=2))",
@@ -856,7 +939,7 @@ def run_net_phase(rik, root, n_tiles=8):
     iters = n_tiles // 4
     losses = [d for d in logged if "total_loss" in d]
     evals = [d for d in logged if "eval/0_meanAP" in d]
-    log(f"run_net S2ANet: {run_s:.2f} s for {len(losses)} iterations, a val and a test; "
+    log(f"run_net {config.name}: {run_s:.2f} s for {len(losses)} iterations, a val and a test; "
         f"launches {launches}; losses "
         f"{[{k: round(v, 5) for k, v in d.items() if 'loss' in k} for d in losses]}; "
         f"meanAP {[m['eval/0_meanAP'] for m in evals]}")
@@ -866,9 +949,11 @@ def run_net_phase(rik, root, n_tiles=8):
     check((root / "work" / "checkpoints" / "ckpt_1.pkl").exists()
           and (root / "work" / "test" / "test_1.pkl").exists(),
           "run_net: no checkpoint or test pkl")
-    check(launches == {"rotated_iou_rect": 2 * (n_tiles // 4), "max_iou_assign_rect": iters,
-                       "max_iou_assign_rect_per_image": iters, "rotated_iou_generic": 0},
-          f"run_net: not 2 fused launches (shared, per image) per iteration and one K1 "
+    per_iter = per_iter or {"max_iou_assign_rect": 1, "max_iou_assign_rect_per_image": 1,
+                            "max_iou_assign_rect_per_image_masked": 0}
+    check(launches == {"rotated_iou_rect": 2 * (n_tiles // 4), "rotated_iou_generic": 0,
+                       **{k: n * iters for k, n in per_iter.items()}},
+          f"run_net: not {per_iter} fused launches per iteration and one K1 "
           f"matrix launch per predict batch: {launches}")
     return launches, {"run_s": run_s, "iterations": len(losses)}
 
@@ -1261,7 +1346,9 @@ def check_bf16_card_against_cpu(cfg, rik):
               == {want_dtype} and all(p.dtype == torch.float32 for p in m.parameters()),
               f"{name}: head outputs not {want_dtype}, or parameters not float32")
         if dev == "cuda":
-            n_fused = 3 * sum(fused_per_loss(m).values())
+            per_loss = fused_per_loss(m)
+            n_fused = 3 * (per_loss["max_iou_assign_rect"]
+                           + per_loss["max_iou_assign_rect_per_image"])
             check((fused_launches(rik) - launches[0], rik.LAUNCHES - launches[1])
                   == (n_fused, 1),
                   f"{name}: not {n_fused // 3} fused assigner launches per loss forward "
@@ -1363,14 +1450,17 @@ def train_at_config_traffic(cfg, model, rik, label, n_steps=20):
     # kernel families by full name: bf16 tensor-core kernels (cuDNN's and
     # CUTLASS's name their bf16 operands), NCHW <-> NHWC layout transposes
     kernels, device_ms, wall_ms, family_ms = device_profile(
-        lambda: step(images, targets, next(counter)), iters=3,
+        lambda: step(images, targets, next(counter)), iters=3, expect=ASSIGN_KERNELS,
         families={"conv_kernels_ms": r"fprop|dgrad|wgrad|conv|implicit",
                   "bf16_tensor_core_kernels_ms": r"bf16",
                   "layout_transpose_kernels_ms": r"nchwToNhwc|nhwcToNchw|[Tt]ranspose",
                   "deform_grid_sample_forward_ms": r"grid_sampler_2d_kernel",
                   "deform_grid_sample_backward_scatter_add_ms": r"grid_sampler_2d_backward",
                   "orconv_arf_index_select_and_backward_ms": r"index_?[Ss]elect|indexFunc|index_add",
-                  "fused_assigner_ms": r"assign_pass\d_kernel"})
+                  "fused_assigner_ms": r"assign_pass\d_kernel",
+                  "roi_align_gather_forward_ms": r"EmbeddingBag|embedding_bag",
+                  "roi_align_scatter_backward_ms":
+                      r"embedding_backward|compute_grad_weight|sum_and_scatter|partials_per_segment"})
     times["profiled_step_device_ms"] = device_ms
     times["profiled_step_wall_ms"] = wall_ms
     times["device_busy_share"] = device_ms / wall_ms
@@ -1597,7 +1687,8 @@ def runner_phase(cfg, rik, root, n_tiles=16):
               f"runner val: {len(aps)} class APs, meanAP {m['eval/0_meanAP']}")
     n_val = n_tiles // B  # predict batches of one val or one test
     check(launches == {"rotated_iou_rect": 3 * n_val, "max_iou_assign_rect": iters,
-                       "max_iou_assign_rect_per_image": 0, "rotated_iou_generic": 0},
+                       "max_iou_assign_rect_per_image": 0,
+                       "max_iou_assign_rect_per_image_masked": 0, "rotated_iou_generic": 0},
           f"runner: not one fused assigner launch per train iteration and one K1 matrix "
           f"launch per predict batch: {launches}")
     work = root / "work"
@@ -1737,7 +1828,9 @@ def tiling_phase(cfg, rik, root):
           and all(np.isfinite(d["total_loss"]) for d in losses),
           f"tiling epoch: {runner.iter} iterations, losses {losses}")
     check(epoch_launches == {"rotated_iou_rect": 0, "max_iou_assign_rect": 3,
-                             "max_iou_assign_rect_per_image": 0, "rotated_iou_generic": 0},
+                             "max_iou_assign_rect_per_image": 0,
+                             "max_iou_assign_rect_per_image_masked": 0,
+                             "rotated_iou_generic": 0},
           f"tiling epoch: not one fused assigner launch per iteration: {epoch_launches}")
 
     # val and test with every detection kept
@@ -1803,6 +1896,564 @@ def tiling_phase(cfg, rik, root):
     return epoch_launches, eval_launches
 
 
+
+# Oriented R-CNN ------------------------------------------------------------
+
+class Draws:
+    """The samplers' uniforms, drawn on the host from a numpy seed and
+    copied to `device`, so that the card and the CPU sample alike (their
+    generators give different streams). `rand(shape)` of the two-stage
+    loss."""
+
+    def __init__(self, seed, device):
+        self.rng = np.random.RandomState(seed)
+        self.device = device
+
+    def __call__(self, shape):
+        return torch.as_tensor(self.rng.random_sample(shape).astype(np.float32),
+                               device=self.device)
+
+
+def replay_draws(model, seed, device):
+    """Make `model.loss` (as the train step calls it) draw from
+    `Draws(seed + k, device)` at its k-th call."""
+    loss = type(model).loss
+    calls = iter(range(10**6))
+    model.loss = lambda images, targets, generator=None: loss(
+        model, images, targets, rand=Draws(seed + next(calls), device))
+
+
+def proposals_of(model, images):
+    """The RPN's proposals of `model` (eval mode, no gradient)."""
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        out = model.rpn_head.get_proposals(model.rpn_head(model.extract_feat(images)))
+    model.train(was_training)
+    return out
+
+
+def orcnn_margin(model, targets, images):
+    """Smallest distance, on the CPU, of any IoU from the thresholds of
+    Oriented R-CNN's two assignments, and between a gt's best hbb IoU and
+    its best IoU below that: the RPN's hbb IoUs from 0.7 / 0.3, the RoI
+    head's rotated IoUs of its gts and proposals from 0.5. On the anchor
+    grid a gt's best IoU is often reached exactly by many anchors, which
+    tie alike on both devices; a near tie does not."""
+    from jdet_torch.models.boxes.assigner import hbb_overlaps
+    from jdet_torch.ops import box_iou_rotated, rbox_to_hbox
+
+    rpn = model.rpn_head
+    size = images.shape[1]
+    anchors = torch.cat([rpn.anchor_generator.grid_anchors((size // s, size // s), lvl, "cpu")
+                         for lvl, s in enumerate(rpn.anchor_strides)])
+    props = proposals_of(model, images)
+    margin = np.inf
+    for b in range(images.shape[0]):
+        gts = torch.as_tensor(targets["gt_bboxes"][b][targets["gt_mask"][b]])
+        iou = hbb_overlaps(rbox_to_hbox(gts), anchors).double()
+        best = iou.amax(1, keepdim=True)
+        below = torch.where(iou < best, iou, -1.0).amax(1, keepdim=True)
+        margin = min(margin, (best - below).min().item(), (iou - 0.7).abs().min().item(),
+                     (iou - 0.3).abs().min().item())
+        cand = torch.cat([gts, props["boxes"][b][props["valid"][b]]])
+        margin = min(margin, (box_iou_rotated(gts, cand).double() - 0.5).abs().min().item())
+    return margin
+
+
+def decisive_rois(ov, gt_mask):
+    """(B, N) mask of the candidates whose RoI assignment no change below
+    1e-5 of an IoU can flip: the max IoU off 0.5, and no second gt within
+    1e-5 of a positive's best."""
+    ov = ov.masked_fill(~gt_mask[..., None], float("-inf"))
+    top2 = ov.topk(2, dim=1).values
+    mo = top2[:, 0]
+    return ((mo - 0.5).abs() >= 1e-5) & ~((mo >= 0.5 - 1e-5) & (top2[:, 0] - top2[:, 1] < 1e-5))
+
+
+def check_assign_roi_kernel(rik, model, cfg):
+    """The fused assigner on Oriented R-CNN's route, per-image proposals
+    with per-image masks and no low-quality match: the edge cases of the
+    CPU tests in the RoI head's form (with and without the low-quality
+    match), then the train step's (4, 512, 2512): each image's 512 gt
+    slots (64 real) prepended to the 2000 proposals of a real RPN forward
+    of `model` at 1024², with their masks. Each identical to K1's matrix on the same candidates plus
+    the PyTorch assigner (max_overlaps to the bit), and gt_inds and labels
+    equal to the CPU plain version's (on the decisive candidates at the
+    train shape). Timed against the unfused route in turns. Returns its
+    entry of the kernels line (launches filled in later)."""
+    from jdet_torch.models.boxes.assigner import assign_wrt_overlaps, max_iou_assign_rotated
+    from jdet_torch.ops import box_iou_rotated
+    from jdet_torch.parallel import make_device_normalizer
+    from jdet_torch.utils.edge_cases import ASSIGN_CASES, ROI_ASSIGN_CASES, roi_assign_edge_case
+
+    def assign(gts, mask, labels, cand, cm, thr=ROI_THR):
+        return max_iou_assign_rotated(cand, gts, mask, labels, anchor_mask=cm, **thr)
+
+    def unfused(gts, mask, labels, cand, cm, thr=ROI_THR):
+        ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), cand)
+        return assign_wrt_overlaps(ov, mask, labels, anchor_mask=cm, **thr)
+
+    def plain(gts, mask, labels, cand, cm, thr=ROI_THR, iou_chunk=512):
+        ov = box_iou_rotated(rik.park_masked_boxes(gts, mask), cand, chunk=iou_chunk, impl="xla")
+        return assign_wrt_overlaps(ov, mask, labels, anchor_mask=cm, **thr)
+
+    def identical(fused, want, what):
+        for k in fused:
+            check(fused[k].dtype == want[k].dtype and torch.equal(fused[k], want[k]),
+                  f"RoI fused assigner, {what}: {k} differs from K1's matrix + "
+                  "the PyTorch assigner")
+
+    err = 0.0
+    for name in ASSIGN_CASES + ROI_ASSIGN_CASES:
+        for lq in (False, True):
+            thr = dict(ROI_THR, match_low_quality=lq)
+            args = [torch.as_tensor(x, device="cuda") for x in roi_assign_edge_case(name)]
+            before = rik.ASSIGN_PER_IMAGE_LAUNCHES, rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES
+            fused = assign(*args, thr=thr)
+            check((rik.ASSIGN_PER_IMAGE_LAUNCHES, rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES)
+                  == (before[0] + 1, before[1] + 1),
+                  f"{name}: not one per-image launch on per-image masks")
+            identical(fused, unfused(*args, thr=thr), f"{name}, low quality {lq}")
+            cpu = plain(*(x.cpu() for x in args), thr=thr)
+            for k in ("gt_inds", "labels"):
+                check(torch.equal(fused[k].cpu(), cpu[k]), f"{name}: {k} differs from the CPU")
+            mo, mo_cpu = fused["max_overlaps"].cpu(), cpu["max_overlaps"]
+            check(torch.equal(torch.isfinite(mo), torch.isfinite(mo_cpu)), f"{name}: -inf slots")
+            fin = torch.isfinite(mo_cpu)
+            e = (mo[fin] - mo_cpu[fin]).abs().max().item()
+            err = max(err, e)
+            log(f"RoI fused assigner, {name}, match_low_quality={lq}: identical to the "
+                f"unfused route and to the CPU's gt_inds and labels (max_overlaps err "
+                f"{e:.2e}); positives per image {(fused['gt_inds'] > 0).sum(1).tolist()}, "
+                f"ignored {(fused['gt_inds'] < 0).sum(1).tolist()}")
+    check(err <= 2e-4, f"RoI edge cases: max_overlaps off the CPU by {err}")
+
+    # the train step's shape on the proposals of a real RPN forward
+    images, t = synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True)
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    props = proposals_of(model, normalize(torch.as_tensor(images, device="cuda")))
+    gts, mask, labels = (torch.as_tensor(t[k], device="cuda")
+                         for k in ("gt_bboxes", "gt_mask", "gt_labels"))
+    cand = torch.cat([gts, props["boxes"]], 1).contiguous()
+    cm = torch.cat([mask, props["valid"]], 1)
+    B, K, N = gts.shape[0], gts.shape[1], cand.shape[1]
+    check(N == 2512, f"expected 512 + 2000 candidates per image, got {N}")
+    fused = assign(gts, mask, labels, cand, cm)
+    identical(fused, unfused(gts, mask, labels, cand, cm), f"({B}, {K}, {N})")
+    real = int(mask.sum(1).max())
+    sub = [x[:, :real].contiguous() for x in (gts, mask, labels)]
+    t0 = time.perf_counter()
+    cpu = plain(*(x.cpu() for x in sub), cand.cpu(), cm.cpu())
+    cpu_s = time.perf_counter() - t0
+    fused_sub = assign(*sub, cand, cm)
+    ok = decisive_rois(rik.box_iou_rotated_rect(sub[0], cand), sub[1]).cpu()
+    agree = {k: int((fused_sub[k].cpu()[ok] != cpu[k][ok]).sum()) for k in ("gt_inds", "labels")}
+    fin = torch.isfinite(cpu["max_overlaps"])
+    e = (fused_sub["max_overlaps"].cpu()[fin] - cpu["max_overlaps"][fin]).abs().max().item()
+    log(f"RoI fused assigner ({B}, {K}, {N}) on per-image proposals, {real} real gts, "
+        f"{int(cm.sum())} unmasked candidates: identical to the unfused route; vs the CPU "
+        f"plain version ({cpu_s:.1f} s): max_overlaps err {e:.2e}, {int(ok.sum())} of "
+        f"{ok.numel()} candidates decisive, disagreements there {agree}, positives "
+        f"{(fused['gt_inds'] > 0).sum(1).tolist()}")
+    check(e <= 2e-4 and ok.float().mean() > 0.99 and not any(agree.values()),
+          "train shape: the RoI fused assigner is off the CPU plain version")
+    err = max(err, e)
+
+    old_ms, ms, turns = in_turns(lambda: unfused(gts, mask, labels, cand, cm),
+                                 lambda: assign(gts, mask, labels, cand, cm))
+    plain_ms = median_ms(lambda: plain(gts, mask, labels, cand, cm, iou_chunk=128),
+                         warmup=1, iters=5)
+    kernels, device_ms, _ = device_profile(lambda: assign(gts, mask, labels, cand, cm),
+                                           expect=ASSIGN_KERNELS)
+    b2b_ms = back_to_back_ms(lambda: assign(gts, mask, labels, cand, cm))
+    log(f"RoI fused assigner under the profiler, device ms per call: {kernels} "
+        f"(sum {device_ms:.4f}); {b2b_ms:.4f} ms per call back to back")
+    # gts, their masks and labels; the per-image candidates and their
+    # per-image mask; gt_inds, labels (int64) and max_overlaps (float32)
+    nbytes = B * K * (5 * 4 + 1 + 8) + B * N * (5 * 4 + 1) + B * N * (8 + 4 + 8)
+    touching = touching_pairs(gts, cand, mask)
+    bound_ms, bound_by = bound(nbytes, IOU_FLOPS_PER_TOUCHING_PAIR * touching)
+    log(f"RoI fused assigner ({B}, {K}, {N}), in turns old/new/new/old {turns}: unfused "
+        f"route {old_ms:.4f} ms, fused {ms:.4f} ms, plain version {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.5f} ms by {bound_by} (bytes {nbytes}, {touching} touching pairs x "
+        f"{IOU_FLOPS_PER_TOUCHING_PAIR} flops)")
+    return {
+        "name": "max_iou_assign_rect_per_image_masked",
+        "route": "cuda",
+        "source": "jdet_torch/csrc/rotated_iou.cu",
+        "replaces": "jdet_tpu/ops/pallas_iou.py:148",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [B, K, N],
+        "device_ms": device_ms,
+        "device_ms_by_kernel": kernels,
+        "back_to_back_ms": b2b_ms,
+        "old_route_ms": old_ms,
+    }
+
+
+def check_orcnn_card_against_cpu(cfg, rik):
+    """The full-width Oriented R-CNN with the same random weights on the
+    card and on the CPU, B=1 at 512², on a batch without near ties in
+    either assignment, the samplers fed the same draws (`Draws`): the
+    network outputs, the proposals, the four losses and `predict`, then 2
+    train steps; and the model under the bf16 policy within this run's
+    f32 - bf16 gap. The RPN's class conv is drawn with std 0.05 (0.01 at
+    init), and the proposals are compared as sets: each card box within
+    1e-2 px of one of the CPU's, the sorted scores within 1e-4. Scores a
+    few ulps apart still trade places between the devices, and a
+    proposal's place decides which sampler draw it takes, so past the
+    RPN the card takes the CPU's proposals (recorded call by call): the
+    losses, `predict` and the train steps then compare one to one.
+    `predict`'s detections are compared as sets too: its NMS at IoU 0.1
+    over 2000 overlapping RoIs chains each suppression to the next."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+    from jdet_torch.parallel import make_device_normalizer
+
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    # each CPU model before the card model it feeds its proposals to
+    runs = {"f32_cpu": ("cpu", None), "f32_card": ("cuda", None),
+            "bf16_cpu": ("cpu", torch.bfloat16), "bf16_card": ("cuda", torch.bfloat16)}
+    models = {}
+    for name, (dev, dtype) in runs.items():
+        with compute_dtype_scope(dtype):
+            models[name] = build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
+    randomize_constants(models["f32_cpu"])
+    w = models["f32_cpu"].rpn_head.rpn_cls.weight
+    with torch.no_grad():
+        w.copy_(torch.as_tensor(np.random.RandomState(6).normal(0.0, 0.05, tuple(w.shape))))
+    for name in runs:
+        models[name].load_state_dict(models["f32_cpu"].state_dict())
+    start = {n: p.detach().clone() for n, p in models["f32_cpu"].named_parameters()}
+
+    def margin(seed):
+        images, targets = synth_batch(1, 512, seed=seed, uint8=True)
+        return orcnn_margin(models["f32_cpu"], targets, normalize(torch.as_tensor(images)))
+
+    seed = next(s for s in range(5, 100) if margin(s) > 1e-5)
+    images, targets = synth_batch(1, 512, seed=seed, uint8=True)
+    out = {}
+    t0 = time.perf_counter()
+    rois = None
+    recorded = {None: [], torch.bfloat16: []}
+    for name, m in models.items():
+        dev, dtype = runs[name]
+        x, t = to_device(images, targets, dev)
+        x = normalize(x)
+        launches = launch_counts(rik)
+        props = proposals_of(m, x)
+        own = m.rpn_head.get_proposals
+        if dev == "cpu":
+            m.rpn_head.get_proposals = lambda outs, own=own, log=recorded[dtype]: (
+                log.append(own(outs)) or log[-1])
+        else:
+            m.rpn_head.get_proposals = lambda outs, log=iter(recorded[dtype]): {
+                k: v.cuda() for k, v in next(log).items()}
+        if rois is None:
+            rois = (props["boxes"].cpu(), props["valid"].cpu())
+        with torch.no_grad():
+            feats = m.extract_feat(x)
+            rpn = torch.cat([o.float().flatten().cpu() for lvl in m.rpn_head(feats) for o in lvl])
+            head = torch.cat([o.flatten().cpu() for o in m.bbox_head._forward_rois(
+                feats, rois[0].to(dev), rois[1].to(dev))])
+        m.train()
+        losses = {k: v.item() for k, v in type(m).loss(m, x, t, rand=Draws(7, dev)).items()}
+        m.eval()
+        det = {k: v.cpu() for k, v in m.predict(x).items()}
+        step = build_trainer(cfg, m, augment=False)[0]
+        replay_draws(m, 100, dev)
+        steps = [{k: v.item() for k, v in step(*to_device(images, targets, dev), it).items()}
+                 for it in range(2)]
+        params = {n: p.detach().cpu() for n, p in m.named_parameters() if p.requires_grad}
+        out[name] = dict(props={k: v.cpu() for k, v in props.items()}, rpn=rpn, head=head,
+                         losses=losses, det=det, steps=steps, params=params)
+        if dev == "cuda":
+            got = {k: v - launches[k] for k, v in launch_counts(rik).items()}
+            check(got == {"rotated_iou_rect": 1, "max_iou_assign_rect": 0,
+                          "max_iou_assign_rect_per_image": 3,
+                          "max_iou_assign_rect_per_image_masked": 3, "rotated_iou_generic": 0},
+                  f"{name}: not 1 per-image fused launch per loss forward and train step "
+                  f"and 1 K1 matrix launch per predict: {got}")
+        log(f"Oriented R-CNN card vs cpu at 512², B=1: {name} done at "
+            f"{time.perf_counter() - t0:.1f} s: losses {losses}, steps {steps}, valid "
+            f"proposals {int(props['valid'].sum())}, detections {int(det['valid'].sum())}")
+
+    def as_sets(got, want):
+        """The share of `got`'s valid boxes within 1e-2 px of one of
+        `want`'s, the valid counts, and the largest difference of the
+        sorted valid scores over the shorter list."""
+        gb, wb = got["boxes"][got["valid"]], want["boxes"][want["valid"]]
+        near = torch.cdist(gb[:, :4].double(), wb[:, :4].double(), p=float("inf")).amin(1)
+        gs = got["scores"][got["valid"]].sort(descending=True).values
+        ws = want["scores"][want["valid"]].sort(descending=True).values
+        n = min(len(gs), len(ws))
+        return ((near <= 1e-2).double().mean().item(), (len(gb), len(wb)),
+                (gs[:n] - ws[:n]).abs().max().item())
+
+    card, cpu = out["f32_card"], out["f32_cpu"]
+    same_slots = (torch.equal(card["props"]["valid"], cpu["props"]["valid"])
+                  and (card["props"]["boxes"] - cpu["props"]["boxes"]).abs().max().item() <= 1e-2)
+    props_match, det_match = as_sets(card["props"], cpu["props"]), as_sets(card["det"], cpu["det"])
+    # max abs error over the largest magnitude
+    errs = {k: ((card[k] - cpu[k]).abs().max() / cpu[k].abs().max()).item()
+            for k in ("rpn", "head")}
+    log(f"Oriented R-CNN card vs cpu at 512², B=1, batch seed {seed}: RPN and RoI head "
+        f"outputs' max error over their largest value {json.dumps(errs)}; proposals slot for "
+        f"slot {same_slots}, as sets (share matched, counts, sorted score err) {props_match}; "
+        f"detections as sets {det_match}")
+    check(max(errs.values()) <= 1e-5, f"network outputs differ: {errs}")
+    for what, (share, (n_got, n_want), score_err) in (("proposals", props_match),
+                                                      ("detections", det_match)):
+        check(n_want > 0 and share >= 0.999 and n_got == n_want and score_err <= 1e-4,
+              f"{what} differ: {share}, {n_got} vs {n_want}, {score_err}")
+    for k, want in cpu["losses"].items():
+        got = card["losses"][k]
+        check(abs(got - want) <= 1e-4 * abs(want), f"{k}: card {got} cpu {want}")
+    for it in range(2):
+        for k, want in cpu["steps"][it].items():
+            got = card["steps"][it][k]
+            check(abs(got - want) <= 1e-3 * abs(want), f"step {it} {k}: card {got} cpu {want}")
+    # each trainable tensor after the 2 steps, and its change in them (far
+    # below its values): the largest error over the CPU's largest value,
+    # within 1e-3 for the values and 5e-2 for the changes (a change of 0
+    # exactly), and the changes' RMS error over the CPU change's RMS within
+    # 2e-2. The card's float32 convolutions (cuDNN's, FFT algorithms among
+    # them) put a backbone tensor's change up to ~1.5% of its largest
+    # value and ~0.8% of its RMS off the CPU's.
+    worst = {"value": {}, "change": {}, "change_rms": {}}
+    for n, want in cpu["params"].items():
+        got, was = card["params"][n], start[n]
+        for what, g, w, norm in (("value", got, want, torch.amax),
+                                 ("change", got - was, want - was, torch.amax),
+                                 ("change_rms", got - was, want - was, torch.linalg.vector_norm)):
+            scale = norm(w.abs()).item()
+            worst[what][n] = norm((g - w).abs()).item() / scale if scale else (
+                0.0 if torch.equal(g, w) else float("inf"))
+    top = {what: max(errs.items(), key=lambda kv: kv[1]) for what, errs in worst.items()}
+    log(f"Oriented R-CNN train card vs cpu: {len(cpu['params'])} trainable parameters after 2 "
+        f"steps; worst error over the CPU's, of the values, of the changes and of the "
+        f"changes' RMS: {top}")
+    for what, tol in (("value", 1e-3), ("change", 5e-2), ("change_rms", 2e-2)):
+        bad = {n: e for n, e in worst[what].items() if not e <= tol}
+        check(not bad, f"parameter {what} after 2 steps off the CPU's by more than {tol}: {bad}")
+
+    def rms(a):
+        return float(torch.sqrt(torch.mean(torch.as_tensor(a, dtype=torch.float64) ** 2)))
+
+    def losses(o):
+        return torch.tensor(list(o["losses"].values())
+                            + [v for lv in o["steps"] for v in lv.values()], dtype=torch.float64)
+
+    def change(o):
+        return torch.cat([(p - start[n]).flatten() for n, p in o["params"].items()])
+
+    bc, bp, f = out["bf16_card"], out["bf16_cpu"], out["f32_card"]
+    rows = [("the losses of the loss forward and of 2 train steps",
+             losses(bc) - losses(bp), losses(f) - losses(bp)),
+            ("the RPN's outputs", bc["rpn"] - bp["rpn"], f["rpn"] - bp["rpn"]),
+            ("the RoI head's outputs", bc["head"] - bp["head"], f["head"] - bp["head"]),
+            ("the 2 steps' parameter change", change(bc) - change(bp), change(f) - change(bp))]
+    fractions = {what: rms(e) / rms(gap) for what, e, gap in rows}
+    log(f"Oriented R-CNN bf16 card vs cpu: |card - cpu| over the f32 - bf16 gap: "
+        + json.dumps(fractions))
+    for what, frac in fractions.items():
+        check(frac <= BF16_GAP_FACTOR,
+              f"bf16 card vs cpu, {what}: {frac:.3f} of the f32 - bf16 gap apart")
+
+
+def orcnn_serving_phase(model, rik, label):
+    """Oriented R-CNN's serving path at B=2, 1024², once, with the launch
+    counts read around it: the loss forward, `predict` at the config's
+    test_cfg and with score_thr=0.0; then each phase and its parts timed.
+    Returns the launches."""
+    head = model.bbox_head
+    images, targets = to_device(*synth_batch(2, 1024), "cuda")
+    test_cfg = dict(head.test_cfg)
+
+    def loss_fwd():
+        model.train()
+        out = model.loss(images, targets)
+        model.eval()
+        return out
+
+    def predict(score_thr):
+        head.test_cfg = dict(test_cfg, score_thr=score_thr)
+        return model.predict(images)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    losses = loss_fwd()
+    torch.cuda.synchronize()
+    loss_launches = launch_counts(rik)
+    det = predict(test_cfg["score_thr"])
+    det0 = predict(0.0)
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+    peak = torch.cuda.max_memory_allocated()
+    label = f"{label} {type(model).__name__}"
+    log(f"{label} serving path: launches {launches} (loss forward {loss_launches}), "
+        f"peak memory {peak} bytes")
+    check(loss_launches == {"rotated_iou_rect": 0, "rotated_iou_generic": 0,
+                            **fused_per_loss(model)},
+          f"not {fused_per_loss(model)} fused assigner launches in the loss forward: "
+          f"{loss_launches}")
+    check(launches["rotated_iou_rect"] == 2 and launches["rotated_iou_generic"] == 0,
+          f"not one K1 matrix launch per predict: {launches}")
+    lv = {k: v.item() for k, v in losses.items()}
+    log(f"{label} losses at 1024², B=2: {lv}")
+    check(all(np.isfinite(v) for v in lv.values()) and all(v > 0 for v in lv.values()),
+          f"non-finite or non-positive loss: {lv}")
+    for name, d in (("predict", det), ("predict score_thr=0", det0)):
+        shapes = {k: tuple(v.shape) for k, v in d.items()}
+        log(f"{label} {name}: {shapes}, valid per image {d['valid'].sum(1).tolist()}")
+        check(shapes["boxes"] == (2, 2000, 5) and shapes["polys"] == (2, 2000, 8),
+              f"{name}: shapes {shapes}")
+        check(all(torch.isfinite(d[k]).all().item() for k in ("boxes", "polys", "scores")),
+              f"{name}: non-finite detections")
+    v = det0["valid"]
+    check(v.sum().item() > 0 and (det0["boxes"][v][:, 2:4] > 0).all().item()
+          and ((det0["labels"][v] >= 0) & (det0["labels"][v] < 15)).all().item(),
+          "no valid detections at score_thr=0.0, or bad ones")
+
+    with torch.no_grad():
+        feats = model.extract_feat(images)
+        outs = model.rpn_head(feats)
+        props = model.rpn_head.get_proposals(outs)
+    check(props["valid"].sum(1).min().item() > 1000, "fewer than 1000 proposals per image")
+    cand = nms_candidates()
+    thr = test_cfg["score_thr"]
+    times = {"loss_forward_ms": median_ms(loss_fwd, warmup=2, iters=10)}
+    with torch.no_grad():
+        for name, fn in (
+            ("predict_ms", lambda: predict(thr)),
+            ("predict_score_thr0_ms", lambda: predict(0.0)),
+            ("network_forward_no_grad_ms", lambda: model.rpn_head(model.extract_feat(images))),
+            ("proposals_ms", lambda: model.rpn_head.get_proposals(outs)),
+            ("roi_head_predict_ms", lambda: head.predict(feats, props)),
+            ("nms_class_iou_ms", lambda: rik.box_iou_rotated_rect(cand, cand)),
+        ):
+            times[name] = median_ms(fn, warmup=2, iters=10)
+    log(f"{label} phases at 1024², B=2 (median of 10): {json.dumps(times)}")
+    head.test_cfg = test_cfg
+    return launches
+
+
+def orcnn_step_parts(cfg, model, label):
+    """The parts of Oriented R-CNN's train step at its traffic (B=4, 1024²,
+    512 gt slots, 64 real), each timed alone on the step's tensors: the
+    RPN's hbb assignment (and its peak memory), its targets with the
+    sampler and its losses, the proposals (decode, per-level NMS), the
+    RoI sampling (the fused assigner and the sampler), the RoI align
+    forward and forward + backward, and the FCs forward + backward."""
+    from jdet_torch.models.boxes.anchor_target import anchor_target_batch
+    from jdet_torch.models.boxes.assigner import max_iou_assign_hbb
+    from jdet_torch.ops import rbox_to_hbox
+    from jdet_torch.parallel import make_device_normalizer
+
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    images, t = to_device(*synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True), "cuda")
+    x = normalize(images)
+    rpn, head = model.rpn_head, model.bbox_head
+    model.train()
+    with torch.no_grad():
+        feats = model.extract_feat(x)
+        outs = rpn(feats)
+        props = rpn.get_proposals(outs)
+    t = dict(t, gt_hboxes=rbox_to_hbox(t["gt_bboxes"]))
+    anchors = torch.cat(rpn._level_anchors(outs))
+    valid = torch.ones(anchors.shape[0], dtype=torch.bool, device="cuda")
+    acfg = rpn.train_cfg["assigner"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        rois, rvalid, *_ = head._sample_rois(props["boxes"], props["valid"], t["gt_bboxes"],
+                                             t["gt_mask"], t["gt_labels"], generator=gen)
+    leaf = [f.detach().requires_grad_() for f in feats[:4]]
+    cot = torch.randn(4, rois.shape[1], 7, 7, feats[0].shape[1], device="cuda",
+                      dtype=feats[0].dtype)
+
+    def align_fwd_bwd():
+        out = head.roi_extractor(leaf, rois, rvalid)
+        torch.autograd.grad(out, leaf, cot)
+
+    with torch.no_grad():
+        aligned = head.roi_extractor(feats, rois, rvalid).reshape(4, rois.shape[1], -1)
+    aligned.requires_grad_()
+
+    def fcs_fwd_bwd():
+        y = aligned
+        for fc in head.shared_fcs:
+            y = torch.relu(fc(y))
+        (head.fc_cls(y).float().sum() + head.fc_reg(y).float().sum()).backward()
+
+    def hbb_assign():
+        return max_iou_assign_hbb(anchors, t["gt_hboxes"], t["gt_mask"], t["gt_mask"].long(),
+                                  anchor_mask=valid, **acfg)
+
+    with torch.no_grad():
+        times = {
+            "rpn_hbb_assign_ms": median_ms(hbb_assign, warmup=2, iters=10),
+            "rpn_hbb_assign_peak_bytes": peak_bytes(hbb_assign),
+            "rpn_targets_ms": median_ms(lambda: anchor_target_batch(
+                anchors, valid, t["gt_hboxes"], t["gt_mask"], t["gt_mask"].long(),
+                assigner_cfg=acfg, sampler_cfg=rpn.train_cfg["sampler"], rotated=False,
+                reg_decoded_bbox=True, generator=gen), warmup=2, iters=10),
+            "rpn_targets_and_losses_ms": median_ms(lambda: rpn.loss(outs, t, generator=gen),
+                                                   warmup=2, iters=10),
+            "proposals_ms": median_ms(lambda: rpn.get_proposals(outs), warmup=2, iters=10),
+            "roi_sampling_ms": median_ms(lambda: head._sample_rois(
+                props["boxes"], props["valid"], t["gt_bboxes"], t["gt_mask"],
+                t["gt_labels"], generator=gen), warmup=2, iters=10),
+            "roi_align_forward_ms": median_ms(lambda: head.roi_extractor(feats, rois, rvalid),
+                                              warmup=2, iters=10),
+        }
+    times["roi_align_forward_backward_ms"] = median_ms(align_fwd_bwd, warmup=2, iters=10)
+    times["fcs_forward_backward_ms"] = median_ms(fcs_fwd_bwd, warmup=2, iters=10)
+    model.zero_grad(set_to_none=True)
+    log(f"{label} Oriented R-CNN step parts at 1024², B=4, K=512 (64 real), "
+        f"{int(rvalid.sum())} sampled RoIs: {json.dumps(times)}")
+    return times
+
+
+def train_large_batch(cfg, model, rik, label, B=16, n_steps=5):
+    """`n_steps` train steps at B=16 (the reference's bench batch,
+    `bench.py:276`), 1024², 512 gt slots with 64 real: each step's time by
+    CUDA events, the median of the last n_steps - 1, and the peak memory;
+    the fused assigner's launches checked per step."""
+    step, _, _, _ = build_trainer(cfg, model)
+    images, targets = to_device(*synth_batch(B, 1024, K=512, real=64, seed=4, uint8=True),
+                                "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    ms, losses = [], []
+    for it in range(n_steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        lv = step(images, targets, it)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(lv["total_loss"].item())
+    launches = launch_counts(rik)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label} {type(model).__name__} train at B={B}, 1024²: step ms {ms} (median of the "
+        f"last {n_steps - 1}: {float(np.median(ms[1:])):.2f}), peak memory {peak} bytes, "
+        f"total losses {losses}, launches {launches}")
+    check(all(np.isfinite(losses)), "non-finite loss at B=16")
+    check(launches == {"rotated_iou_rect": 0, "rotated_iou_generic": 0,
+                       **{k: n * n_steps for k, n in fused_per_loss(model).items()}},
+          f"B={B}: not {fused_per_loss(model)} fused launches per step: {launches}")
+    return launches
+
+
 def main():
     import argparse
 
@@ -1851,13 +2502,17 @@ def main():
     anchors = head._flat_anchors([(1024 // st, 1024 // st) for st in head.anchor_strides],
                                  "cuda")
     assign_entry = check_assign_kernel(rik, anchors)
+    elapsed('check_assign_kernel')
     generic_entry, generic_gts = check_generic_kernel(rik, anchors, args.old_generic)
+    elapsed('check_generic_kernel')
 
     cpu_model = build_detector(cfg, device="cpu", seed=0, load_pretrained=False)
     check_card_against_cpu(model, cpu_model)
+    elapsed('check_card_against_cpu')
     del cpu_model
 
     serving_launches = serving_phase(model, rik, "fp32")
+    elapsed('serving_phase')
 
     # K2's path: its entry point on the main path's operands, once
     from jdet_torch.ops import box_iou_rotated_generic
@@ -1874,16 +2529,20 @@ def main():
     del iou
 
     check_train_card_against_cpu(full_cfg, rik)
+    elapsed('check_train_card_against_cpu')
     train_launches = train_at_config_traffic(full_cfg, model, rik, "fp32")
+    elapsed('train_at_config_traffic')
     del model, head
 
     # the same paths under the bf16 policy, the precision of the
     # reference's training and benchmark entry points
     check_bf16_card_against_cpu(full_cfg, rik)
+    elapsed('check_bf16_card_against_cpu')
     with compute_dtype_scope(torch.bfloat16):
         bf16_model = build_detector(cfg, device="cuda", seed=0, load_pretrained=False)
     bf16_serving_launches = serving_phase(bf16_model, rik, "bf16")
     bf16_train_launches = train_at_config_traffic(full_cfg, bf16_model, rik, "bf16")
+    elapsed('train_at_config_traffic')
     del bf16_model
     torch.cuda.empty_cache()
 
@@ -1901,27 +2560,74 @@ def main():
           "S2ANet is not R50-FPN at full width")
     log(f"S2ANet model: {sum(p.numel() for p in s2a.parameters())} parameters")
     per_image_entry, (images, _, anchors) = check_assign_per_image_kernel(rik, s2a, s2a_cfg)
+    elapsed('check_assign_per_image_kernel')
     from jdet_torch.parallel import make_device_normalizer
 
     check_align_and_orconv(s2a, make_device_normalizer(**s2a_cfg["device_normalize"])(
         torch.as_tensor(images, device="cuda")), anchors)
     del images, anchors
     check_s2anet_card_against_cpu(s2a_cfg, rik)
+    elapsed('check_s2anet_card_against_cpu')
     s2a_serving_launches = serving_phase(s2a, rik, "fp32")
     s2a_train_launches = train_at_config_traffic(s2a_cfg, s2a, rik, "fp32")
+    elapsed('train_at_config_traffic')
     del s2a, head
     check_bf16_card_against_cpu(s2a_cfg, rik)
     with compute_dtype_scope(torch.bfloat16):
         s2a_bf16 = build_detector(s2a_cfg["model"], device="cuda", seed=0, load_pretrained=False)
     s2a_bf16_serving_launches = serving_phase(s2a_bf16, rik, "bf16")
     s2a_bf16_train_launches = train_at_config_traffic(s2a_cfg, s2a_bf16, rik, "bf16")
+    elapsed('train_at_config_traffic')
     del s2a_bf16
     torch.cuda.empty_cache()
     run_net_launches, _ = run_net_phase(rik, rik.BUILD_DIR / "s2anet_run_net")
+    elapsed('run_net_phase')
+
+    # Oriented R-CNN R50-FPN at full width: its kernel route (the fused
+    # assigner on per-image proposals with per-image masks), card against
+    # CPU, then its paths in float32 and bf16, at B=4 and at B=16
+    orcnn_cfg = load_cfg_file(ORCNN_CONFIG)
+    orcnn = build_detector(orcnn_cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    rpn, head = orcnn.rpn_head, orcnn.bbox_head
+    check(is_orcnn(orcnn) and orcnn.backbone.depth == 50 and orcnn.neck.out_channels == 256
+          and len(orcnn.neck.extra_convs) == 0 and (rpn.nms_pre, rpn.nms_post) == (2000, 2000)
+          and rpn.num_anchors == 3 and tuple(head.shared_fcs[0].weight.shape) == (1024, 12544)
+          and tuple(head.fc_cls.weight.shape) == (16, 1024)
+          and head.train_cfg["sampler"]["num"] == 512,
+          "Oriented R-CNN is not R50-FPN at full width")
+    log(f"Oriented R-CNN model: {sum(p.numel() for p in orcnn.parameters())} parameters")
+    roi_entry = check_assign_roi_kernel(rik, orcnn, orcnn_cfg)
+    elapsed('check_assign_roi_kernel')
+    check_orcnn_card_against_cpu(orcnn_cfg, rik)
+    elapsed('check_orcnn_card_against_cpu')
+    orcnn_serving_launches = orcnn_serving_phase(orcnn, rik, "fp32")
+    orcnn_train_launches = train_at_config_traffic(orcnn_cfg, orcnn, rik, "fp32")
+    orcnn_step_parts(orcnn_cfg, orcnn, "fp32")
+    orcnn_b16_launches = train_large_batch(orcnn_cfg, orcnn, rik, "fp32")
+    elapsed('train_large_batch')
+    del orcnn, rpn, head
+    torch.cuda.empty_cache()
+    with compute_dtype_scope(torch.bfloat16):
+        orcnn_bf16 = build_detector(orcnn_cfg["model"], device="cuda", seed=0,
+                                    load_pretrained=False)
+    orcnn_bf16_serving_launches = orcnn_serving_phase(orcnn_bf16, rik, "bf16")
+    orcnn_bf16_train_launches = train_at_config_traffic(orcnn_cfg, orcnn_bf16, rik, "bf16")
+    orcnn_step_parts(orcnn_cfg, orcnn_bf16, "bf16")
+    orcnn_bf16_b16_launches = train_large_batch(orcnn_cfg, orcnn_bf16, rik, "bf16")
+    elapsed('train_large_batch')
+    del orcnn_bf16
+    torch.cuda.empty_cache()
+    orcnn_run_net_launches, _ = run_net_phase(
+        rik, rik.BUILD_DIR / "orcnn_run_net", ORCNN_CONFIG,
+        {"max_iou_assign_rect": 0, "max_iou_assign_rect_per_image": 1,
+         "max_iou_assign_rect_per_image_masked": 1})
+    elapsed("the Oriented R-CNN run_net phase")
 
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
+    elapsed('runner_phase')
     tiling_launches, tiling_eval_launches = tiling_phase(full_cfg, rik,
                                                          rik.BUILD_DIR / "tiling_dota")
+    elapsed("tiling_phase")
 
     # launches per path: serving (loss forward + 2 predicts), K2's entry
     # point, training (20 steps), each of those in bf16, the Runner's
@@ -1936,11 +2642,27 @@ def main():
              "s2anet_bf16_serving": s2a_bf16_serving_launches,
              "s2anet_bf16_train_20_steps": s2a_bf16_train_launches,
              "s2anet_run_net": run_net_launches, "runner": runner_launches,
-             "tiling_epoch": tiling_launches, "tiling_val_test": tiling_eval_launches}
-    kernels = [entry, assign_entry, per_image_entry, generic_entry]
+             "tiling_epoch": tiling_launches, "tiling_val_test": tiling_eval_launches,
+             "orcnn_serving": orcnn_serving_launches,
+             "orcnn_train_20_steps": orcnn_train_launches,
+             "orcnn_train_b16_5_steps": orcnn_b16_launches,
+             "orcnn_bf16_serving": orcnn_bf16_serving_launches,
+             "orcnn_bf16_train_20_steps": orcnn_bf16_train_launches,
+             "orcnn_bf16_train_b16_5_steps": orcnn_bf16_b16_launches,
+             "orcnn_run_net": orcnn_run_net_launches}
+    kernels = [entry, assign_entry, per_image_entry, roi_entry, generic_entry]
     for e in kernels:
-        e["launches_by_path"] = {p: n[e["name"]] for p, n in paths.items()}
+        e["launches_by_path"] = {p: route_launches(n)[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())
+    check(all(n["max_iou_assign_rect_per_image"] == 0 for p, n in paths.items()
+              if not p.startswith(("orcnn", "s2anet"))),
+          "a per-image fused launch outside S2ANet's and Oriented R-CNN's paths")
+    check(all(n["max_iou_assign_rect_per_image_masked"] == (
+        n["max_iou_assign_rect_per_image"] if p.startswith("orcnn") else 0)
+        for p, n in paths.items()),
+          "a per-image launch without per-image masks on an Oriented R-CNN path, "
+          "or one with them elsewhere")
+    log(f"profiler windows: {len(MARKERS_DROPPED)}, markers dropped in each {MARKERS_DROPPED}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {

@@ -66,6 +66,14 @@
 //     unmasked one (the reference's and mmdet's behaviour, e.g. for a gt
 //     outside all anchors): per image, k0 = the largest such k, and an
 //     anchor's claim is max(k0, its pass-2 claim).
+//   Without the low-quality match (match_low_quality = 0, the Oriented
+//   R-CNN RoI head's assigner) pass 1 keeps no gt maxima and pass 2 makes
+//   no claim: it only writes the labels and sends masked anchors to -1.
+// The anchor mask is (N,), one for every image (batch stride 0), or
+// (B, N), one per image (stride N, with per-image anchors: the RoI head's
+// proposals, each image's gts prepended). "Some anchor of the image is
+// unmasked" is kept per image, so an image whose anchors are all masked
+// changes no other image.
 //
 // Built without --use_fast_math: the parallel and collinear tolerances
 // (1e-5 * scale + 1e-12 here, 1e-6 / 1e-5 * qn * |.| + 1e-12 in the generic
@@ -334,8 +342,8 @@ __global__ void __launch_bounds__(kAssignThreads)
                         int* __restrict__ any_anchor,
                         long long* __restrict__ gt_inds,
                         float* __restrict__ max_overlaps, int K, int N,
-                        long long an_batch_stride, float pos_thr,
-                        float neg_thr) {
+                        long long an_batch_stride, long long mask_batch_stride,
+                        float pos_thr, float neg_thr, bool low_quality) {
   __shared__ float sg[kAssignThreads][kRows];
   __shared__ int slist[kAssignThreads];
   __shared__ unsigned smax[kAssignThreads];
@@ -346,10 +354,12 @@ __global__ void __launch_bounds__(kAssignThreads)
   const int b = blockIdx.y;
   const int t = threadIdx.x;
   const int n = blockIdx.x * kAssignThreads + t;
-  const Anchor a = load_anchor(an + b * an_batch_stride, an_mask, n, N);
+  const Anchor a = load_anchor(an + b * an_batch_stride,
+                               an_mask ? an_mask + b * mask_batch_stride : nullptr,
+                               n, N);
   if (t == 0) sfirst = K;
   const bool any_active = block_anchor_bounds(a, sbox, sred);
-  if (t == 0 && any_active) *any_anchor = 1;
+  if (t == 0 && any_active) any_anchor[b] = 1;
 
   // the anchor's max IoU over the touching gts, ties to the smallest k
   float best = 0.f;
@@ -376,8 +386,11 @@ __global__ void __launch_bounds__(kAssignThreads)
         best = iou;
         arg = c0 + s;
       }
-      const unsigned v = __reduce_max_sync(kFullMask, __float_as_uint(fabsf(iou)));
-      if ((t & 31) == 0 && v) atomicMax(&smax[s], v);
+      if (low_quality) {
+        const unsigned v =
+            __reduce_max_sync(kFullMask, __float_as_uint(fabsf(iou)));
+        if ((t & 31) == 0 && v) atomicMax(&smax[s], v);
+      }
     }
     __syncthreads();
     if (smax[t]) atomicMax(&gt_max_bits[static_cast<size_t>(b) * K + k], smax[t]);
@@ -407,7 +420,8 @@ __global__ void __launch_bounds__(kAssignThreads)
                         const int* __restrict__ any_anchor,
                         long long* __restrict__ gt_inds,
                         long long* __restrict__ labels, int K, int N,
-                        long long an_batch_stride, float min_pos) {
+                        long long an_batch_stride, long long mask_batch_stride,
+                        float min_pos, bool low_quality) {
   __shared__ float sg[kAssignThreads][kRows];
   __shared__ int slist[kAssignThreads];
   __shared__ float sgm[kAssignThreads];
@@ -418,14 +432,17 @@ __global__ void __launch_bounds__(kAssignThreads)
   const int b = blockIdx.y;
   const int t = threadIdx.x;
   const int n = blockIdx.x * kAssignThreads + t;
-  const Anchor a = load_anchor(an + b * an_batch_stride, an_mask, n, N);
+  const Anchor a = load_anchor(an + b * an_batch_stride,
+                               an_mask ? an_mask + b * mask_batch_stride : nullptr,
+                               n, N);
   if (t == 0) sk0 = -1;
   const bool any_active = block_anchor_bounds(a, sbox, sred);
-  // with every anchor masked, each gt_max is -inf: no gt is eligible
-  const bool anchors_seen = *any_anchor != 0;
+  // with every anchor of the image masked, each gt_max is -inf: no gt is
+  // eligible
+  const bool anchors_seen = any_anchor[b] != 0;
 
   int claim = -1;
-  for (int c0 = 0; c0 < K; c0 += kAssignThreads) {
+  for (int c0 = 0; low_quality && c0 < K; c0 += kAssignThreads) {
     if (t == 0) scount = 0;
     __syncthreads();
     const int k = c0 + t;
@@ -714,27 +731,32 @@ extern "C" int rotated_iou_rect(const float* gt, const float* anchors,
 
 // Both passes of the fused assigner. anchors (N, 5) or (B, N, 5), by
 // an_batch_stride as above. gt_mask (B, K) and anchor_mask (N,), one mask
-// for every image, are bools as bytes (anchor_mask may be null: every
-// anchor unmasked);
-// gt_labels (B, K) int64; scratch (B * K + 1) int32, zeroed by the caller:
-// the gts' max IoU bits, then a flag "some anchor is unmasked".
+// for every image (mask_batch_stride 0), or (B, N), one per image (stride
+// N), are bools as bytes (anchor_mask may be null: every anchor
+// unmasked); gt_labels (B, K) int64; scratch (B * K + B) int32, zeroed by
+// the caller: the gts' max IoU bits, then per image a flag "some anchor is
+// unmasked". match_low_quality 0 skips the gts' maxima and the claims.
 extern "C" int max_iou_assign_rect(
     const float* gt, const unsigned char* gt_mask, const long long* gt_labels,
     const float* anchors, const unsigned char* anchor_mask, int* scratch,
     long long* gt_inds, float* max_overlaps, long long* labels, int B, int K,
-    int N, long long an_batch_stride, float pos_iou_thr, float neg_iou_thr,
-    float min_pos_iou, cudaStream_t s) {
+    int N, long long an_batch_stride, long long mask_batch_stride,
+    float pos_iou_thr, float neg_iou_thr, float min_pos_iou,
+    int match_low_quality, cudaStream_t s) {
   const dim3 grid((N + kAssignThreads - 1) / kAssignThreads, B);
   unsigned* gt_max_bits = reinterpret_cast<unsigned*>(scratch);
   int* any_anchor = scratch + static_cast<size_t>(B) * K;
+  const bool low_quality = match_low_quality != 0;
   assign_pass1_kernel<<<grid, kAssignThreads, 0, s>>>(
       gt, gt_mask, anchors, anchor_mask, gt_max_bits, any_anchor, gt_inds,
-      max_overlaps, K, N, an_batch_stride, pos_iou_thr, neg_iou_thr);
+      max_overlaps, K, N, an_batch_stride, mask_batch_stride, pos_iou_thr,
+      neg_iou_thr, low_quality);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   assign_pass2_kernel<<<grid, kAssignThreads, 0, s>>>(
       gt, gt_mask, gt_labels, anchors, anchor_mask, gt_max_bits, any_anchor,
-      gt_inds, labels, K, N, an_batch_stride, min_pos_iou);
+      gt_inds, labels, K, N, an_batch_stride, mask_batch_stride, min_pos_iou,
+      low_quality);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
-"""Rotated anchor generation, built on the target device.
+"""Anchor generation, built on the target device.
 
 Port of `AnchorGeneratorRotated` in
 `jdet_tpu/models/boxes/anchor_generator.py` (:27, `_gen_base_anchors`
 :69, `grid_anchors` :103): base_size x scales x ratios x angles, anchors
 (cx, cy, w, h, theta) centred at 0.5*(base-1) plus the grid shifts, in
-(H, W, A) order.
+(H, W, A) order; and of `AnchorGeneratorHBB` (:235), the RPN's horizontal
+(x1, y1, x2, y2) anchors.
 """
 from __future__ import annotations
 
@@ -102,3 +103,47 @@ class AnchorGeneratorRotatedS2ANet(AnchorGeneratorRotated):
              np.zeros_like(ws)],
             axis=-1,
         ).astype(np.float32)
+
+
+class AnchorGeneratorHBB:
+    """mmdet-style horizontal anchors (x1, y1, x2, y2) per level: base
+    size = the level's stride, w = base * scale / sqrt(ratio), h = base *
+    scale * sqrt(ratio), ratios outer and scales inner, centred at
+    center_offset * base plus the grid shifts, in (H, W, A) order."""
+
+    def __init__(self, strides, ratios, scales, center_offset=0.0):
+        self.strides = tuple(strides)
+        self.ratios = np.asarray(ratios, np.float32)
+        self.scales = np.asarray(scales, np.float32)
+        self.base_anchors = []
+        for base in self.strides:
+            w = h = float(base)
+            h_ratios = np.sqrt(self.ratios)
+            w_ratios = 1 / h_ratios
+            ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
+            hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+            x_ctr, y_ctr = center_offset * w, center_offset * h
+            self.base_anchors.append(np.stack(
+                [x_ctr - 0.5 * ws, y_ctr - 0.5 * hs, x_ctr + 0.5 * ws, y_ctr + 0.5 * hs],
+                axis=-1).astype(np.float32))
+        self._base_on = {}
+
+    @property
+    def num_base_anchors(self):
+        return self.base_anchors[0].shape[0]
+
+    def grid_anchors(self, featmap_size, level, device="cuda"):
+        """(H*W*A, 4) float32 anchors of `level`, on `device`."""
+        feat_h, feat_w = featmap_size
+        device = torch.device(device)
+        stride = self.strides[level]
+        sx = torch.arange(feat_w, dtype=torch.float32, device=device) * stride
+        sy = torch.arange(feat_h, dtype=torch.float32, device=device) * stride
+        sxg = sx[None, :].expand(feat_h, feat_w)
+        syg = sy[:, None].expand(feat_h, feat_w)
+        shifts = torch.stack([sxg, syg, sxg, syg], -1).reshape(-1, 1, 4)
+        base = self._base_on.get((device, level))
+        if base is None:
+            base = self._base_on[(device, level)] = torch.as_tensor(
+                self.base_anchors[level], device=device)
+        return (shifts + base[None]).reshape(-1, 4)

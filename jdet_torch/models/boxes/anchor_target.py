@@ -1,21 +1,24 @@
 """Anchor targets — assign, sample, encode, weight — in fixed shapes.
 
-Port of the rotated, pseudo-sampler branch of
-`jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single` :37,
-`anchor_target_batch` :148). The reference vmaps the single-image
-function over the batch, over the anchors too where they are per image
-(:163-176, S2ANet's refined anchors); here `anchor_target_single` takes
-any leading batch dimensions, on shared (n, 5) or per-image (B, n, 5)
-anchors, so `anchor_target_batch` calls it once and the assigner's kernel
-runs once for all images.
+Port of `jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single`
+:37, `anchor_target_batch` :148): the rotated branch and the horizontal
+one (the RPN's, :91-95), the pseudo and the random sampler (:98-105), and
+`reg_decoded_bbox` (:121-122), whose targets are the matched gts
+themselves; horizontal deltas (`hbox2delta`) are not ported, so the
+horizontal branch takes `reg_decoded_bbox=True`. The reference vmaps the
+single-image function over the batch, over the anchors too where they
+are per image (:163-176, S2ANet's refined anchors); here
+`anchor_target_single` takes any leading batch dimensions, on shared
+(n, d) or per-image (B, n, d) anchors, so `anchor_target_batch` calls it
+once and the assigner's kernel runs once for all images.
 """
 from __future__ import annotations
 
 import torch
 
 from ...ops.box_convert import rbox2delta
-from .assigner import max_iou_assign_rotated
-from .sampler import pseudo_sample
+from .assigner import max_iou_assign_hbb, max_iou_assign_rotated
+from .sampler import pseudo_sample, random_sample
 
 
 def anchor_target_single(
@@ -28,38 +31,65 @@ def anchor_target_single(
     target_means=(0.0,) * 5,
     target_stds=(1.0,) * 5,
     assigner_cfg=None,
+    sampler_cfg=None,
     pos_weight=-1,
+    rotated=True,
+    reg_decoded_bbox=False,
     iou_chunk=512,
+    rand=None,
+    generator=None,
 ):
-    """Targets for gt_bboxes (..., k, 5) padded, gt_mask (..., k) bool and
-    gt_labels (..., k) 1-based, against shared anchors (n, 5) or per-image
-    anchors (B, n, 5) with (B, k, 5) gts, and valid_flags (n,) bool, one
-    for every image. Invalid anchors are excluded before assignment:
-    they can neither be argmax targets nor receive low-quality gt claims.
+    """Targets for gt_bboxes (..., k, d) padded, gt_mask (..., k) bool and
+    gt_labels (..., k) 1-based, against shared anchors (n, d) or per-image
+    anchors (B, n, d) with (B, k, d) gts, and valid_flags (n,) bool, one
+    for every image; d = 5 rotated, 4 horizontal (`rotated=False`, shared
+    anchors). Invalid anchors are excluded before assignment: they can
+    neither be argmax targets nor receive low-quality gt claims.
+    `sampler_cfg` of type "random" draws through `random_sample`, from
+    `rand` or `generator`.
 
     Returns a dict of (..., n) labels / label_weights / pos_mask /
-    neg_mask / gt_inds and (..., n, 5) bbox_targets / bbox_weights.
+    neg_mask / gt_inds and (..., n, d) bbox_targets / bbox_weights.
     """
     assigner_cfg = dict(assigner_cfg or {})
+    sampler_cfg = dict(sampler_cfg or {})
     assigner_type = assigner_cfg.pop("type", "max_iou")
     if assigner_type != "max_iou":
         raise NotImplementedError(f"assigner {assigner_type!r} is not ported")
-    assign = max_iou_assign_rotated(
-        anchors, gt_bboxes, gt_mask, gt_labels,
-        anchor_mask=valid_flags, iou_chunk=iou_chunk, **assigner_cfg
-    )
+    if rotated:
+        assign = max_iou_assign_rotated(
+            anchors, gt_bboxes, gt_mask, gt_labels,
+            anchor_mask=valid_flags, iou_chunk=iou_chunk, **assigner_cfg
+        )
+    elif not reg_decoded_bbox:
+        raise NotImplementedError("horizontal deltas (hbox2delta) are not ported: "
+                                  "the horizontal branch takes reg_decoded_bbox=True")
+    else:
+        assign = max_iou_assign_hbb(anchors, gt_bboxes, gt_mask, gt_labels,
+                                    anchor_mask=valid_flags, **assigner_cfg)
     gt_inds = assign["gt_inds"]
-    sample = pseudo_sample(assign)
+    sampler_type = sampler_cfg.pop("type", "pseudo")
+    if sampler_type == "random":
+        sample = random_sample(assign, sampler_cfg["num"], sampler_cfg["pos_fraction"],
+                               sampler_cfg.get("neg_pos_ub", -1), rand=rand,
+                               generator=generator)
+    elif sampler_type == "pseudo":
+        sample = pseudo_sample(assign)
+    else:
+        raise NotImplementedError(f"sampler {sampler_type!r} is not ported")
     pos_mask = sample["pos_mask"]
     neg_mask = sample["neg_mask"]
 
-    k = gt_bboxes.shape[-2]
+    k, d = gt_bboxes.shape[-2:]
     safe_gt = (gt_inds - 1).clamp(0, k - 1)
     matched_gt = torch.gather(
-        gt_bboxes, -2, safe_gt[..., None].expand(*safe_gt.shape, 5)
+        gt_bboxes, -2, safe_gt[..., None].expand(*safe_gt.shape, d)
     )
-    deltas = rbox2delta(anchors, matched_gt, target_means, target_stds)
-    bbox_targets = torch.where(pos_mask[..., None], deltas, 0.0)
+    if reg_decoded_bbox:
+        bbox_targets = torch.where(pos_mask[..., None], matched_gt, 0.0)
+    else:
+        deltas = rbox2delta(anchors, matched_gt, target_means, target_stds)
+        bbox_targets = torch.where(pos_mask[..., None], deltas, 0.0)
     bbox_weights = pos_mask[..., None].to(bbox_targets.dtype).expand_as(
         bbox_targets
     )
@@ -82,7 +112,7 @@ def anchor_target_single(
 
 def anchor_target_batch(anchors, valid_flags, gt_bboxes, gt_mask, gt_labels, **kw):
     """Targets for a batch: gt_* are (B, k, ...) per image, anchors shared
-    (n, 5) or per image (B, n, 5), valid_flags (n,) shared. Also returns
+    (n, d) or per image (B, n, d), valid_flags (n,) shared. Also returns
     num_total_pos / num_total_neg, each the sum over images of
     max(per-image count, 1)."""
     out = anchor_target_single(

@@ -1,9 +1,10 @@
 """Max-IoU assignment in masked, fixed-shape form.
 
-Port of the rotated branch of `jdet_tpu/models/boxes/assigner.py`
-(`assign_wrt_overlaps` :45, `max_iou_assign_rotated` :135). Every
-function takes a leading batch dimension (the reference's vmap over
-images, written out), so the IoU kernel is launched once for the batch.
+Port of `jdet_tpu/models/boxes/assigner.py` (`hbb_overlaps` :25,
+`assign_wrt_overlaps` :45, `max_iou_assign_rotated` :135,
+`max_iou_assign_hbb` :197). Every function takes a leading batch
+dimension (the reference's vmap over images, written out), so the IoU
+kernel is launched once for the batch.
 
 Per anchor the outputs are:
   gt_inds:      -1 ignore, 0 negative, i+1 positive for gt i
@@ -17,60 +18,67 @@ writes the IoU matrix: every CUDA call launches it. Its plain version,
 for CPU tensors, is the composition here, `assign_wrt_overlaps` on
 `box_iou_rotated`'s matrix; it lives here and not in `ops/`, because
 `ops/` does not depend on `models/`.
+
+`max_iou_assign_hbb` (the RPN's, plain PyTorch on either device) takes
+the gts `iou_chunk` rows at a time and never holds the whole (B, K, N)
+matrix of `hbb_overlaps` (the reference's formula, which is also the hbb
+NMS's `ops/nms.py::hbb_iou_matrix`): the maxima and the argmax run over the chunks, and the
+low-quality claim is per gt row, so the chunks compose exactly.
 """
 from __future__ import annotations
 
 import torch
 
 from ...ops.box_iou_rotated import box_iou_rotated
+from ...ops.nms import hbb_iou_matrix as hbb_overlaps
 from ...ops.rotated_iou_kernel import launch_max_iou_assign_rect, park_masked_boxes
 
 
-def assign_wrt_overlaps(
-    overlaps,
-    gt_mask,
-    gt_labels,
-    pos_iou_thr=0.5,
-    neg_iou_thr=0.4,
-    min_pos_iou=0.0,
-    anchor_mask=None,
-):
-    """Masked MaxIoU assignment from a (..., k, n) overlap matrix.
+def _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
+            anchor_mask, match_low_quality, gt_max_assign_all):
+    """The assignment from `chunks`, an iterable of (k0, overlaps of gt
+    rows k0..k0+c, (..., c, n)) in ascending k0."""
+    k = gt_mask.shape[-1]
+    max_ov = arg = claim = None
+    for k0, overlaps in chunks:
+        c = overlaps.shape[-2]
+        ov = torch.where(gt_mask[..., k0:k0 + c, None], overlaps, float("-inf"))
+        if anchor_mask is not None:
+            ov = torch.where(anchor_mask[..., None, :], ov, float("-inf"))
+        cmax, carg = ov.max(dim=-2)
+        if max_ov is None:
+            max_ov, arg = cmax, carg
+            claim = torch.full_like(carg, -1)
+        else:
+            # ties keep the earlier gt, as the argmax over all rows does
+            better = cmax > max_ov
+            max_ov = torch.where(better, cmax, max_ov)
+            arg = torch.where(better, carg + k0, arg)
+        if not match_low_quality:
+            continue
+        eligible_gt = gt_mask[..., k0:k0 + c]
+        if gt_max_assign_all:
+            gt_max = ov.amax(dim=-1)  # (..., c)
+            eligible_gt = eligible_gt & (gt_max >= min_pos_iou) & torch.isfinite(gt_max)
+            hits = ov == gt_max[..., None]
+        else:
+            gt_max, best = ov.max(dim=-1)
+            eligible_gt = eligible_gt & (gt_max >= min_pos_iou) & torch.isfinite(gt_max)
+            n_idx = torch.arange(ov.shape[-1], device=ov.device)
+            hits = best[..., None] == n_idx
+        # the reference loops gts in order and later gts override: the
+        # largest gt index claiming each anchor wins
+        gt_index = torch.arange(k0, k0 + c, device=ov.device)[:, None]
+        hits = hits & eligible_gt[..., None]
+        claim = torch.maximum(claim, torch.where(hits, gt_index, -1).amax(dim=-2))
 
-      1. default -1 (ignore)
-      2. max_overlap < neg_iou_thr -> 0 (negative)
-      3. max_overlap >= pos_iou_thr -> argmax gt + 1
-      4. low-quality match: each gt claims every anchor at its max IoU if
-         that max >= min_pos_iou (later gts override earlier ones).
-
-    gt_mask (..., k) bool marks real gt rows, gt_labels (..., k) their
-    1-based classes; anchor_mask (n,) bool marks anchors eligible at all
-    (in every image).
-    """
-    k = overlaps.shape[-2]
-    ov = torch.where(gt_mask[..., :, None], overlaps, float("-inf"))
-    if anchor_mask is not None:
-        ov = torch.where(anchor_mask, ov, float("-inf"))
-
-    max_overlaps, argmax_overlaps = ov.max(dim=-2)
     # with zero real gts, every anchor is negative
     any_gt = gt_mask.any(dim=-1, keepdim=True)
-    max_overlaps = torch.where(any_gt, max_overlaps, 0.0)
-
+    max_overlaps = torch.where(any_gt, max_ov, 0.0)
     neg = (max_overlaps >= 0) & (max_overlaps < neg_iou_thr)
     assigned = torch.where(neg, 0, -1)
-    pos = max_overlaps >= pos_iou_thr
-    assigned = torch.where(pos, argmax_overlaps + 1, assigned)
-
-    gt_max = ov.amax(dim=-1)  # (..., k)
-    eligible = gt_mask & (gt_max >= min_pos_iou) & torch.isfinite(gt_max)
-    hits = (ov == gt_max[..., None]) & eligible[..., None]
-    # the reference loops gts in order and later gts override: the largest
-    # gt index claiming each anchor wins
-    gt_index = torch.arange(k, device=ov.device)[:, None]
-    claim = torch.where(hits, gt_index, -1).amax(dim=-2)
+    assigned = torch.where(max_overlaps >= pos_iou_thr, arg + 1, assigned)
     assigned = torch.where(claim >= 0, claim + 1, assigned)
-
     if anchor_mask is not None:
         assigned = torch.where(anchor_mask, assigned, -1)
 
@@ -84,6 +92,72 @@ def assign_wrt_overlaps(
     }
 
 
+def assign_wrt_overlaps(
+    overlaps,
+    gt_mask,
+    gt_labels,
+    pos_iou_thr=0.5,
+    neg_iou_thr=0.4,
+    min_pos_iou=0.0,
+    anchor_mask=None,
+    match_low_quality=True,
+    gt_max_assign_all=True,
+):
+    """Masked MaxIoU assignment from a (..., k, n) overlap matrix.
+
+      1. default -1 (ignore)
+      2. max_overlap < neg_iou_thr -> 0 (negative)
+      3. max_overlap >= pos_iou_thr -> argmax gt + 1
+      4. with match_low_quality, each gt claims every anchor at its max
+         IoU (only its first, without gt_max_assign_all) if that max >=
+         min_pos_iou (later gts override earlier ones).
+
+    gt_mask (..., k) bool marks real gt rows, gt_labels (..., k) their
+    1-based classes; anchor_mask (n,) bool, one for every image, or
+    (..., n), one per image, marks anchors eligible at all: a masked
+    anchor is neither an argmax target nor claimed, and ends at -1.
+    """
+    return _assign([(0, overlaps)], gt_mask, gt_labels, pos_iou_thr, neg_iou_thr,
+                   min_pos_iou, anchor_mask, match_low_quality, gt_max_assign_all)
+
+
+def max_iou_assign_hbb(
+    anchors,
+    gt_bboxes,
+    gt_mask,
+    gt_labels,
+    pos_iou_thr=0.5,
+    neg_iou_thr=0.4,
+    min_pos_iou=0.0,
+    anchor_mask=None,
+    match_low_quality=True,
+    gt_max_assign_all=True,
+    iou_chunk=None,
+):
+    """MaxIoU assignment of horizontal (x1, y1, x2, y2) boxes: anchors
+    (n, 4) shared by the batch, gt_bboxes (..., k, 4) padded, gt_mask and
+    gt_labels of their leading shape. Returns `assign_wrt_overlaps`' dict.
+
+    The gts are taken `iou_chunk` rows at a time (by default as many as
+    keep a chunk's (..., rows, n) overlaps at 2^25 values), and only up
+    to the last real gt of the batch: the padding rows after it cannot
+    change the result. Finding it reads one number back to the host."""
+    k = gt_bboxes.shape[-2]
+    lead = gt_bboxes.shape[:-2].numel()
+    n = anchors.shape[-2]
+    if iou_chunk is None:
+        iou_chunk = max(1, (1 << 25) // max(lead * n, 1))
+    index = torch.arange(1, k + 1, device=gt_mask.device)
+    last = int(torch.where(gt_mask, index, 0).amax().item()) if gt_mask.numel() else 0
+    chunks = ((k0, hbb_overlaps(gt_bboxes[..., k0:min(k0 + iou_chunk, last), :], anchors))
+              for k0 in range(0, last, iou_chunk))
+    if last == 0:
+        # no real gt: one chunk of -inf rows gives the empty-gt result
+        chunks = [(0, gt_bboxes.new_zeros(*gt_bboxes.shape[:-2], 1, n))]
+    return _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
+                   anchor_mask, match_low_quality, gt_max_assign_all)
+
+
 def max_iou_assign_rotated(
     anchors,
     gt_bboxes,
@@ -93,29 +167,35 @@ def max_iou_assign_rotated(
     neg_iou_thr=0.4,
     min_pos_iou=0.0,
     anchor_mask=None,
+    match_low_quality=True,
+    gt_max_assign_all=True,
     iou_chunk=512,
 ):
     """Rotated MaxIoU assignment. anchors (n, 5) shared, or (B, n, 5) per
     image with (B, k, 5) gts (the reference's vmap over images and anchors,
-    `anchor_target.py:163-176`); gt_bboxes (k, 5) or (B, k, 5) padded;
-    gt_mask and gt_labels of gt_bboxes' leading shape, bool and integer;
-    anchor_mask (n,) bool or None, one for every image. Returns
-    `assign_wrt_overlaps`' dict.
+    `anchor_target.py:163-176`, and the RoI head's per-image proposals);
+    gt_bboxes (k, 5) or (B, k, 5) padded; gt_mask and gt_labels of
+    gt_bboxes' leading shape, bool and integer; anchor_mask (n,) bool, one
+    for every image, (B, n) bool, one per image (with per-image anchors
+    only), or None. Returns `assign_wrt_overlaps`' dict.
 
     A CUDA tensor launches the fused kernel (one launch for the batch) or
     raises; a CPU tensor is assigned on `box_iou_rotated`'s matrix, which
     broadcasts over per-image anchors, `iou_chunk` gt rows at a time (the
-    plain version)."""
+    plain version). Both raise on gt_max_assign_all=False, which no
+    config of the port takes and the kernel does not do."""
+    if not gt_max_assign_all:
+        raise NotImplementedError("gt_max_assign_all=False is not ported to the fused assigner")
     if gt_bboxes.is_cuda:
         return launch_max_iou_assign_rect(
             gt_bboxes.contiguous(), gt_mask, gt_labels,
             anchors.contiguous(), anchor_mask, pos_iou_thr,
-            neg_iou_thr, min_pos_iou,
+            neg_iou_thr, min_pos_iou, match_low_quality,
         )
     overlaps = box_iou_rotated(
         park_masked_boxes(gt_bboxes, gt_mask), anchors, chunk=iou_chunk
     )
     return assign_wrt_overlaps(
         overlaps, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr,
-        min_pos_iou, anchor_mask,
+        min_pos_iou, anchor_mask, match_low_quality,
     )

@@ -1,8 +1,9 @@
 """Config-driven model construction.
 
 Port of `jdet_tpu/models/builder.py::build_detector` (:22-94) for
-single-stage detectors: {type, backbone{type, ...}, neck{...},
-bbox_head{...}} assembled through the registries, weights drawn from one
+single-stage and two-stage detectors: {type, backbone{type, ...},
+neck{...}, [rpn_head{...},] bbox_head{...}} assembled through the
+registries, weights drawn from one
 seeded `torch.Generator` on the CPU, then moved to `device`. Its layers
 bind the compute dtype in force while it builds (`models/nn.py`): build
 inside `compute_dtype_scope(torch.bfloat16)` for the bf16 model.
@@ -44,7 +45,10 @@ def build_detector(cfg, device="cuda", seed=0, load_pretrained=True):
         load_pretrained_backbone(backbone, pretrained)
     neck = build_from_cfg(cfg.pop("neck", None), NECKS, generator=generator,
                           in_channels=backbone.out_channels)
-    bbox_head = build_from_cfg(cfg.pop("bbox_head"), HEADS, generator=generator)
-    model = build_from_cfg(cfg, MODELS, backbone=backbone, neck=neck,
-                           bbox_head=bbox_head)
+    heads = {}
+    for key in ("rpn_head", "bbox_head"):
+        hcfg = cfg.pop(key, None)
+        if hcfg is not None:
+            heads[key] = build_from_cfg(hcfg, HEADS, generator=generator)
+    model = build_from_cfg(cfg, MODELS, backbone=backbone, neck=neck, **heads)
     return model.to(device)

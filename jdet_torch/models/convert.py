@@ -6,6 +6,7 @@ them, with numpy arrays as values. The port's module attribute names
 mirror those paths, so the mapping is mechanical:
 
   <p>.kernel (H, W, I, O)   -> <p>.weight (O, I, H, W)   (inverse of conv_w)
+  <p>.kernel (I, O)         -> <p>.weight (O, I)         (Linear)
   <p>.bias                  -> <p>.bias
   <p>.scale / .mean / .var  -> <p>.weight / .running_mean / .running_var
                                (+ <p>.num_batches_tracked = 0)
@@ -34,11 +35,11 @@ def params_from_jax(flat):
         prefix, _, leaf = path.rpartition(".")
         arr = np.asarray(arr)
         if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{path}: expected an HWIO conv kernel, got {arr.shape}")
-            sd[f"{prefix}.weight"] = torch.from_numpy(
-                np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
-            )
+            if arr.ndim not in (2, 4):
+                raise ValueError(f"{path}: expected an HWIO conv or an (I, O) linear "
+                                 f"kernel, got {arr.shape}")
+            sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(
+                arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)))
         elif leaf in _BN_RENAMES:
             sd[f"{prefix}.{_BN_RENAMES[leaf]}"] = torch.from_numpy(arr.copy())
             if leaf == "scale":

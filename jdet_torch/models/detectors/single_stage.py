@@ -27,9 +27,10 @@ class SingleStageDetector(nn.Module):
             feats = self.neck(feats)
         return feats
 
-    def loss(self, images, targets):
+    def loss(self, images, targets, generator=None):
         """Training forward: images (B, H, W, 3), targets dict with
-        gt_bboxes / gt_labels / gt_mask. Returns dict of scalar losses."""
+        gt_bboxes / gt_labels / gt_mask. Returns dict of scalar losses.
+        `generator` (the train step's) is unused: nothing here draws."""
         return self.bbox_head.loss(self.bbox_head(self.extract_feat(images)), targets)
 
     @torch.no_grad()

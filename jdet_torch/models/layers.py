@@ -2,10 +2,11 @@
 
 Port of `jdet_tpu/models/layers.py` (`bias_init_with_prob` :20,
 `normal_init` :26, `ConvModule` :30 with norm None or 'bn', `max_pool`
-:101 with SAME padding, `resize_nearest` :112) plus the `Conv2d` and
-`BatchNorm2d` that stand in for flax's `nnx.Conv` and `nnx.BatchNorm`.
+:101, `resize_nearest` :112) plus the `Conv2d`, `BatchNorm2d` and
+`Linear` that stand in for flax's `nnx.Conv`, `nnx.BatchNorm` and
+`nnx.Linear` (`jdet_tpu/models/nn.py` :53-58).
 
-Both bind the compute dtype of `models/nn.py` when they are built and
+All three bind the compute dtype of `models/nn.py` when they are built and
 follow flax's arithmetic under it (flax 0.12, `promote_dtype` of every
 operand to the layer's dtype): the conv casts its input, its float32
 weight and its bias to that dtype, convolves, and adds the bias as an
@@ -42,6 +43,11 @@ def normal_init(std=0.01):
         return nn.init.normal_(w, 0.0, std, generator=generator)
 
     return init
+
+
+def xavier_uniform_init(w, generator):
+    """Flax's `xavier_uniform`: U(-a, a), a = sqrt(6 / (fan_in + fan_out))."""
+    return nn.init.xavier_uniform_(w, generator=generator)
 
 
 def lecun_normal_init(w, generator):
@@ -103,6 +109,27 @@ class Conv2d(nn.Module):
         if bias is None:
             return y
         return y + bias.to(y.dtype)[:, None, None]
+
+
+class Linear(nn.Module):
+    """y = x W^T + b over the last axis; weight (O, I) and bias float32;
+    computes in the compute dtype bound when it is built, with the bias
+    added after the product, in that dtype, as flax adds it."""
+
+    def __init__(self, in_features, out_features, kernel_init=lecun_normal_init, *,
+                 generator=None):
+        super().__init__()
+        self.dtype = compute_dtype()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        with torch.no_grad():
+            kernel_init(self.weight, generator)
+
+    def forward(self, x):
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            x, weight, bias = x.to(self.dtype), weight.to(self.dtype), bias.to(self.dtype)
+        return F.linear(x, weight) + bias
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -170,8 +197,10 @@ class ConvModule(nn.Module):
         return x
 
 
-def max_pool(x, window, stride):
-    """Max pool with flax 'SAME' padding (pads with -inf)."""
+def max_pool(x, window, stride, padding="SAME"):
+    """Max pool with flax's 'SAME' padding (pads with -inf) or 'VALID'."""
+    if padding == "VALID":
+        return F.max_pool2d(x, window, stride)
     ph = same_pads(x.shape[-2], window, stride)
     pw = same_pads(x.shape[-1], window, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))

@@ -1,9 +1,11 @@
 """Weighted detection losses with avg_factor-style reduction.
 
 Port of `jdet_tpu/models/losses/basic.py` (`weight_reduce_loss` :16,
-`_bce_with_logits` :32, `sigmoid_focal_loss` :44, `smooth_l1_loss` :82).
-Labels are integers, 0 = background, 1..C = foreground; sigmoid logits
-have C channels, so class c maps to channel c-1.
+`_bce_with_logits` :32, `sigmoid_focal_loss` :44, `smooth_l1_loss` :82,
+`cross_entropy_loss` :97, `binary_cross_entropy_loss` :116). Labels are
+integers, 0 = background, 1..C = foreground; sigmoid logits have C
+channels, so class c maps to channel c-1. The softmax cross entropy takes
+its labels as they index the logits (`label_offset` shifts them).
 """
 from __future__ import annotations
 
@@ -83,4 +85,21 @@ def smooth_l1_loss(
     """SmoothL1: 0.5 d^2 / beta below beta, d - beta/2 above."""
     diff = (pred - target).abs()
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def cross_entropy_loss(logits, labels, weight=None, avg_factor=None, reduction="mean",
+                       label_offset=0):
+    """Softmax cross entropy over the last axis of logits; labels (...,)
+    int index it after adding `label_offset`."""
+    logp = torch.log_softmax(logits, dim=-1)
+    lbl = (labels + label_offset).long()
+    loss = -torch.gather(logp, -1, lbl[..., None])[..., 0]
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def binary_cross_entropy_loss(logits, targets, weight=None, avg_factor=None,
+                              reduction="mean"):
+    """Elementwise BCE with logits against targets (bool or float)."""
+    loss = _bce_with_logits(logits, targets.to(logits.dtype))
     return weight_reduce_loss(loss, weight, reduction, avg_factor)

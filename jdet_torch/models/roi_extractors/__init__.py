@@ -1,0 +1,2 @@
+"""RoI feature extractors."""
+from .single_level import OrientedSingleRoIExtractor

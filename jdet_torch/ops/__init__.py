@@ -1,5 +1,14 @@
-"""Box ops: codecs, rotated IoU (with its CUDA kernel) and rotated NMS."""
-from .box_convert import delta2rbox, norm_angle, rbox2delta, rbox_to_hbox, rbox_to_poly
+"""Box ops: codecs, rotated IoU (with its CUDA kernel), rotated and
+horizontal NMS, and the rotated RoI align."""
+from .box_convert import (
+    delta2rbox,
+    norm_angle,
+    poly_to_hbox,
+    poly_to_rbox,
+    rbox2delta,
+    rbox_to_hbox,
+    rbox_to_poly,
+)
 from .box_iou_rotated import box_iou_rotated, box_iou_rotated_aligned
 from .nms_rotated import multiclass_nms_rotated, nms_rotated
 from .rotated_iou_kernel import (

@@ -1,8 +1,9 @@
 """Rotated-box codecs on tensors.
 
 Port of `jdet_tpu/ops/box_convert.py` (`norm_angle` :28, `rbox_to_poly`
-:103, `rbox_to_hbox` :149, `rbox2delta` :232, `delta2rbox` :257). All
-functions take arbitrary leading batch dimensions.
+:103, `poly_to_rbox` :119, `poly_to_hbox` :140, `rbox_to_hbox` :149,
+`rbox2delta` :232, `delta2rbox` :257). All functions take arbitrary
+leading batch dimensions.
 
 Conventions: rbox = (cx, cy, w, h, theta) with theta in radians, canonical
 range [-pi/4, 3*pi/4); hbox = (x1, y1, x2, y2); poly = 4 corners
@@ -38,14 +39,37 @@ def rbox_to_poly(rboxes):
     return torch.stack([xs, ys], dim=-1).reshape(*rboxes.shape[:-1], 8)
 
 
-def rbox_to_hbox(rboxes):
-    """(..., 5) -> (..., 4) enclosing axis-aligned box."""
-    p = rbox_to_poly(rboxes)
-    xs = p[..., 0::2]
-    ys = p[..., 1::2]
+def poly_to_rbox(polys):
+    """(..., 8) quad, a (near-)rectangle -> (..., 5) rbox: the longer of
+    the first two edges gives w and the angle, normalized to
+    [-pi/4, 3*pi/4); the center is the midpoint of corners 0 and 2."""
+    p = polys.reshape(*polys.shape[:-1], 4, 2)
+    pt1, pt2, pt3, pt4 = p.unbind(-2)
+    e1 = pt1 - pt2
+    e2 = pt2 - pt3
+    edge1 = torch.sqrt(e1[..., 0] * e1[..., 0] + e1[..., 1] * e1[..., 1])
+    edge2 = torch.sqrt(e2[..., 0] * e2[..., 0] + e2[..., 1] * e2[..., 1])
+    angle1 = torch.atan2(pt2[..., 1] - pt1[..., 1], pt2[..., 0] - pt1[..., 0])
+    angle2 = torch.atan2(pt4[..., 1] - pt1[..., 1], pt4[..., 0] - pt1[..., 0])
+    angle = norm_angle(torch.where(edge1 > edge2, angle1, angle2))
+    cx = (pt1[..., 0] + pt3[..., 0]) / 2.0
+    cy = (pt1[..., 1] + pt3[..., 1]) / 2.0
+    return torch.stack([cx, cy, torch.maximum(edge1, edge2),
+                        torch.minimum(edge1, edge2), angle], dim=-1)
+
+
+def poly_to_hbox(polys):
+    """(..., 8) -> (..., 4) axis-aligned bounding box."""
+    xs = polys[..., 0::2]
+    ys = polys[..., 1::2]
     return torch.stack(
         [xs.amin(-1), ys.amin(-1), xs.amax(-1), ys.amax(-1)], dim=-1
     )
+
+
+def rbox_to_hbox(rboxes):
+    """(..., 5) -> (..., 4) enclosing axis-aligned box."""
+    return poly_to_hbox(rbox_to_poly(rboxes))
 
 
 def rbox2delta(proposals, gt, means=(0.0,) * 5, stds=(1.0,) * 5):

@@ -9,7 +9,9 @@ versions.
 - `launch_max_iou_assign_rect` runs the max-IoU assigner fused onto the
   same IoU, so that the (B, K, N) matrix is never written, on shared
   (N, 5) or per-image (B, N, 5) anchors (S2ANet's ODM assigns on its
-  per-image refined anchors), one launch for the batch. Its wrapper,
+  per-image refined anchors; Oriented R-CNN's RoI head on its per-image
+  proposals, with a (B, N) mask and without the low-quality match), one
+  launch for the batch. Its wrapper,
   with the plain version for CPU tensors, is
   `jdet_torch/models/boxes/assigner.py::max_iou_assign_rotated`: the plain
   version is the assigner composed on the IoU matrix, which lives there.
@@ -52,11 +54,14 @@ _PAR_EPS = 1e-12
 FAR_CENTER = -1e6
 
 # kernel launches made by `box_iou_rotated_rect`, by
-# `launch_max_iou_assign_rect` on shared anchors and on per-image anchors,
-# and by `box_iou_rotated_generic`; callers may reset them
+# `launch_max_iou_assign_rect` on shared anchors and on per-image anchors
+# (of these, the ones with a per-image anchor mask also in
+# ASSIGN_PER_IMAGE_MASK_LAUNCHES), and by `box_iou_rotated_generic`;
+# callers may reset them
 LAUNCHES = 0
 ASSIGN_LAUNCHES = 0
 ASSIGN_PER_IMAGE_LAUNCHES = 0
+ASSIGN_PER_IMAGE_MASK_LAUNCHES = 0
 GENERIC_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rotated_iou.cu"
@@ -330,7 +335,7 @@ def build():
     signatures = {
         "rotated_iou_rect": [ptr] * 3 + [i32] * 3 + [i64, ptr],
         "rotated_iou_generic": [ptr] * 3 + [i32] * 3 + [ptr],
-        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [i64] + [f32] * 3 + [ptr],
+        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [i64] * 2 + [f32] * 3 + [i32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -420,7 +425,8 @@ def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=No
     or (B, K, 5) float32 contiguous with K >= 1, gt_mask bool and
     gt_labels integer of gt_bboxes' leading shape, anchors (N, 5) or, with
     (B, K, 5) gts, per-image (B, N, 5), float32 contiguous, anchor_mask
-    (N,) bool or None. True for CPU tensors, False for CUDA tensors."""
+    bool (N,), or (B, N) with per-image anchors, or None. True for CPU
+    tensors, False for CUDA tensors."""
     lead = tuple(gt_bboxes.shape[:-1])
     if gt_bboxes.dim() not in (2, 3) or gt_bboxes.shape[-1] != 5 or lead[-1] == 0:
         raise ValueError(f"gt_bboxes must be (K, 5) or (B, K, 5) with K >= 1, "
@@ -433,8 +439,9 @@ def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=No
     if tuple(gt_mask.shape) != lead or tuple(gt_labels.shape) != lead:
         raise ValueError(f"gt_mask {tuple(gt_mask.shape)} and gt_labels "
                          f"{tuple(gt_labels.shape)} must be {lead}")
-    if anchor_mask is not None and tuple(anchor_mask.shape) != (anchors.shape[-2],):
-        raise ValueError(f"anchor_mask must be ({anchors.shape[-2]},), got "
+    mask_shapes = [(anchors.shape[-2],)] + ([tuple(anchors.shape[:2])] if per_image else [])
+    if anchor_mask is not None and tuple(anchor_mask.shape) not in mask_shapes:
+        raise ValueError(f"anchor_mask must be {' or '.join(map(str, mask_shapes))}, got "
                          f"{tuple(anchor_mask.shape)}")
     if gt_bboxes.dtype != torch.float32 or anchors.dtype != torch.float32:
         raise TypeError(f"float32 boxes only, got {gt_bboxes.dtype} / {anchors.dtype}")
@@ -449,7 +456,7 @@ def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=No
 
 
 def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
-                   pos_iou_thr, neg_iou_thr, min_pos_iou):
+                   pos_iou_thr, neg_iou_thr, min_pos_iou, match_low_quality):
     """Run both passes of the fused assigner on checked operands (one
     call, none for an empty output)."""
     squeeze = gt_bboxes.dim() == 2
@@ -469,8 +476,9 @@ def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
         "labels": torch.empty((B, N), device=dev, dtype=torch.int64),
     }
     if B * N:
-        # the gts' max IoU bits, then a flag "some anchor is unmasked"
-        scratch = torch.zeros(B * K + 1, device=dev, dtype=torch.int32)
+        # the gts' max IoU bits, then per image a flag "some anchor is
+        # unmasked"
+        scratch = torch.zeros(B * K + B, device=dev, dtype=torch.int32)
         am = 0 if anchor_mask is None else anchor_mask.data_ptr()
         _run("max_iou_assign_rect", dev,
              g.data_ptr(), gt_mask.data_ptr(), gt_labels.data_ptr(),
@@ -478,31 +486,38 @@ def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
              out["gt_inds"].data_ptr(), out["max_overlaps"].data_ptr(),
              out["labels"].data_ptr(), B, K, N,
              N * 5 if anchors.dim() == 3 else 0,  # anchor batch stride
-             pos_iou_thr, neg_iou_thr, min_pos_iou)
+             N if anchor_mask is not None and anchor_mask.dim() == 2 else 0,
+             pos_iou_thr, neg_iou_thr, min_pos_iou, int(bool(match_low_quality)))
     return {k: v[0] for k, v in out.items()} if squeeze else out
 
 
 def launch_max_iou_assign_rect(gt_bboxes, gt_mask, gt_labels, anchors,
                                anchor_mask=None, pos_iou_thr=0.5,
-                               neg_iou_thr=0.4, min_pos_iou=0.0):
+                               neg_iou_thr=0.4, min_pos_iou=0.0,
+                               match_low_quality=True):
     """The max-IoU assigner fused onto the rect IoU, CUDA tensors only:
     one call of the fused kernel for the batch, counted in
     ASSIGN_LAUNCHES for shared (N, 5) anchors and in
-    ASSIGN_PER_IMAGE_LAUNCHES for per-image (B, N, 5) ones. Returns the
-    dict of `assign_wrt_overlaps` (gt_inds, max_overlaps, labels), each
-    (N,) or (B, N). Operands as `check_assign_operands` takes them.
+    ASSIGN_PER_IMAGE_LAUNCHES for per-image (B, N, 5) ones (with a shared
+    (N,) or a per-image (B, N) anchor mask; the latter also in
+    ASSIGN_PER_IMAGE_MASK_LAUNCHES). Returns the dict of
+    `assign_wrt_overlaps` (gt_inds, max_overlaps, labels), each (N,) or
+    (B, N). Operands as `check_assign_operands` takes them; without
+    `match_low_quality` no gt claims its best anchors.
 
     Callers take `jdet_torch.models.boxes.assigner.max_iou_assign_rotated`,
     which sends CPU tensors to the plain version."""
-    global ASSIGN_LAUNCHES, ASSIGN_PER_IMAGE_LAUNCHES
+    global ASSIGN_LAUNCHES, ASSIGN_PER_IMAGE_LAUNCHES, ASSIGN_PER_IMAGE_MASK_LAUNCHES
     if check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask):
         raise ValueError("CUDA tensors only: the plain version is "
                          "jdet_torch.models.boxes.assigner.max_iou_assign_rotated")
     out = _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
-                         pos_iou_thr, neg_iou_thr, min_pos_iou)
+                         pos_iou_thr, neg_iou_thr, min_pos_iou, match_low_quality)
     if out["gt_inds"].numel():
         if anchors.dim() == 3:
             ASSIGN_PER_IMAGE_LAUNCHES += 1
+            if anchor_mask is not None and anchor_mask.dim() == 2:
+                ASSIGN_PER_IMAGE_MASK_LAUNCHES += 1
         else:
             ASSIGN_LAUNCHES += 1
     return out

@@ -115,11 +115,14 @@ def make_device_augmenter(flip_h=0.0, flip_v=0.0, rot90=0.0):
 def build_train_step(model, optimizer, preprocess=None, augment=None, seed=0):
     """Build the train step on `model`'s device.
 
-    Returns ``step(images, targets, it) -> log_vars``. Each call augments
-    (`augment`, with a generator on the batch's device seeded from
-    (seed, it): fresh draws every step, the counterpart of the reference's
-    ``fold_in(root_key, it)``; JAX's random streams do not carry over),
-    normalizes (`preprocess`), runs `model.loss`, `parse_losses`,
+    Returns ``step(images, targets, it) -> log_vars``. Each call makes a
+    `torch.Generator` on the batch's device seeded from (seed, it): fresh
+    draws every step, the counterpart of the reference's
+    ``fold_in(root_key, it)`` (JAX's random streams do not carry over).
+    It augments (`augment`, drawing from the generator first), normalizes
+    (`preprocess`), runs ``model.loss(images, targets, generator=...)``
+    (a two-stage model's samplers draw from the same generator next;
+    single-stage models draw nothing), `parse_losses`,
     backward, and `optimizer.step()` (clip, weight decay, momentum SGD at
     the scheduled lr). log_vars holds detached 0-dim tensors on the
     device: the step itself copies nothing to or from the host.
@@ -127,13 +130,16 @@ def build_train_step(model, optimizer, preprocess=None, augment=None, seed=0):
 
     def step(images, targets, it):
         model.train()
+        generator = torch.Generator(device=images.device)
+        # the CPU generator keeps only a seed's low 32 bits: mix the seed
+        # into them (an odd multiplier), not above them
+        generator.manual_seed((seed * 0x9E3779B1 + it) % 2**64)
         if augment is not None:
-            generator = torch.Generator(device=images.device)
-            generator.manual_seed(seed * 2**32 + it)
             images, targets = augment(images, targets, generator)
         if preprocess is not None:
             images = preprocess(images)
-        total, log_vars = parse_losses(model.loss(images, targets))
+        losses = model.loss(images, targets, generator=generator)
+        total, log_vars = parse_losses(losses)
         optimizer.zero_grad()
         total.backward()
         optimizer.step()

@@ -190,3 +190,49 @@ def per_image_assign_edge_case(name, K=8, N=600, seed=11):
     them. anchor_mask stays (N,), one for both images."""
     gts, mask, labels, anchors, anchor_mask, about = assign_edge_case(name, K, N, seed)
     return gts, mask, labels, np.stack([anchors, refined_anchors(anchors)]), anchor_mask, about
+
+
+# the RoI head's assignment (jdet_tpu/models/heads/oriented_head.py:120-131):
+# per image, the gts prepended to the proposals, with per-image masks; each
+# of ASSIGN_CASES in that form, and these
+ROI_ASSIGN_CASES = (
+    "all_proposals_masked",  # image 0 keeps only its gts as candidates
+    "no_real_gt",  # image 0 has no real gt: all negative
+    "image_fully_masked",  # image 0: no real gt and every proposal masked
+    "masked_proposals_at_zero",  # a real gt at the origin, where they sit
+)
+
+
+def roi_assign_edge_case(name, K=8, P=600, seed=11):
+    """The RoI head's operands for case `name` (of ASSIGN_CASES or
+    ROI_ASSIGN_CASES, in image 0; image 1 random): gts (2, K, 5), mask
+    (2, K), labels (2, K), and per-image candidates (2, K + P, 5), each
+    image's gts followed by its P proposals (image 0's the case's anchors,
+    image 1's refined from them), with their per-image mask (2, K + P):
+    the gts' mask, then the proposals', about a fifth of them masked (and
+    the case's own anchor mask) and, as the RPN leaves them, set to
+    (0, 0, 0, 0, 0)."""
+    rng = np.random.RandomState(seed + 1)
+    base = name if name in ASSIGN_CASES else "gt_max_tied_on_several_anchors"
+    gts, mask, labels, props, anchor_mask, _ = per_image_assign_edge_case(base, K, P, seed)
+    pmask = rng.rand(2, P) < 0.8
+    if anchor_mask is not None:
+        pmask &= anchor_mask
+    if base in ("gt_max_tied_on_several_anchors", "argmax_tie_above_pos_thr"):
+        pmask[:, -2:] = True  # the anchors the case is about
+    if name == "all_proposals_masked":
+        pmask[0] = False
+    elif name == "no_real_gt":
+        mask[0] = False
+    elif name == "image_fully_masked":
+        mask[0] = False
+        pmask[0] = False
+    elif name == "masked_proposals_at_zero":
+        gts[1, 0] = (3.0, 2.0, 24.0, 12.0, 0.3)
+        props[1, :3] = (2.0, 1.0, 24.0, 12.0, 0.35)
+        pmask[1, :3] = True
+    elif name not in ASSIGN_CASES:
+        raise ValueError(name)
+    props[~pmask] = 0.0
+    return (gts, mask, labels, np.concatenate([gts, props], 1),
+            np.concatenate([mask, pmask], 1))

@@ -22,10 +22,13 @@ import torch
 from jdet_torch.models.boxes.assigner import assign_wrt_overlaps, max_iou_assign_rotated
 from jdet_torch.ops import box_iou_rotated, multiclass_nms_rotated
 from jdet_torch.ops import rotated_iou_kernel as rik
-from jdet_torch.utils.edge_cases import (ASSIGN_CASES, assign_edge_case, edge_case_boxes,
-                                         per_image_assign_edge_case, refined_anchors)
+from jdet_torch.utils.edge_cases import (ASSIGN_CASES, ROI_ASSIGN_CASES, assign_edge_case,
+                                         edge_case_boxes, per_image_assign_edge_case,
+                                         refined_anchors, roi_assign_edge_case)
 
 THR = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+# the Oriented R-CNN RoI head's assigner (oriented_head.py:35-39)
+ROI_THR = dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5, match_low_quality=False)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -182,8 +185,11 @@ def test_fused_wrapper_takes_per_image_anchors():
     g, m, lab, a = (torch.from_numpy(x) for x in (gts, mask, labels, anchors))
     am = torch.from_numpy(am)
     assert rik.check_assign_operands(g, m, lab, a, am)
+    # a per-image (B, N) mask goes with per-image anchors only
+    assert rik.check_assign_operands(g, m, lab, a, am.expand(2, -1))
     for bad in (dict(a=a[:1]), dict(g=g[0], m=m[0], lab=lab[0]),
-                dict(am=am.expand(2, -1)), dict(a=a[..., :4])):
+                dict(am=am.expand(3, -1)), dict(a=a[0], am=am.expand(2, -1)),
+                dict(am=am.expand(2, -1)[:, 1:]), dict(a=a[..., :4])):
         args = {**dict(g=g, m=m, lab=lab, a=a, am=am), **bad}
         with pytest.raises(ValueError):
             rik.check_assign_operands(args["g"], args["m"], args["lab"], args["a"], args["am"])
@@ -334,10 +340,12 @@ def test_fused_kernel_per_image_identical_to_unfused_route_on_card(case):
     gts, mask, labels, anchors = (torch.from_numpy(x).to(dev)
                                   for x in (gts, mask, labels, anchors))
     am = None if am is None else torch.from_numpy(am).to(dev)
-    before = rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES
+    before = (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES,
+              rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES)
     got = _assign(gts, mask, labels, anchors, am)
     torch.cuda.synchronize()
-    assert (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES) == (before[0], before[1] + 1)
+    assert (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES,
+            rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES) == (before[0], before[1] + 1, before[2])
     ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), anchors)
     unfused = assign_wrt_overlaps(ov, mask, labels, anchor_mask=am, **THR)
     for k in got:
@@ -390,3 +398,97 @@ def test_multiclass_nms_on_card_matches_cpu():
     assert torch.equal(got["valid"].cpu(), v) and v.any()
     for k in ("boxes", "scores", "labels"):
         assert torch.equal(got[k].cpu()[v], want[k][v]), k
+
+
+# The RoI head's route: per-image proposals with per-image masks ----------
+
+def _reference_roi_assign(gts, mask, labels, props, pmask, **thr):
+    """jdet_tpu's assigner vmapped over images as `oriented_head.py:168`
+    runs it: per image its candidates and their mask."""
+    import jax
+    import jax.numpy as jnp
+    from jdet_tpu.models.boxes.assigner import max_iou_assign_rotated as j_assign
+
+    out = jax.vmap(lambda p, g, m, lab, pm: j_assign(p, g, m, lab, anchor_mask=pm, **thr))(
+        *map(jnp.asarray, (props, gts, mask, labels, pmask)))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("low_quality", [False, True])
+@pytest.mark.parametrize("case", ASSIGN_CASES + ROI_ASSIGN_CASES)
+def test_plain_roi_route_matches_reference_vmapped(case, low_quality):
+    """The plain version with per-image masks, with and without the
+    low-quality match, against the reference vmapped over images:
+    gt_inds and labels equal, max_overlaps within 2e-4, -inf alike; and
+    image 1 assigned alone equals image 1 of the batch, whatever image 0
+    holds."""
+    gts, mask, labels, props, pmask = roi_assign_edge_case(case)
+    thr = dict(ROI_THR, match_low_quality=low_quality)
+    t = [torch.from_numpy(x) for x in (gts, mask, labels, props, pmask)]
+    got = max_iou_assign_rotated(t[3], *t[:3], anchor_mask=t[4], **thr)
+    want = _reference_roi_assign(gts, mask, labels, props, pmask, **thr)
+    np.testing.assert_array_equal(got["gt_inds"].numpy(), want["gt_inds"])
+    np.testing.assert_array_equal(got["labels"].numpy(), want["labels"])
+    mo, want_mo = got["max_overlaps"].numpy(), want["max_overlaps"]
+    np.testing.assert_array_equal(np.isfinite(mo), np.isfinite(want_mo))
+    fin = np.isfinite(want_mo)
+    np.testing.assert_allclose(mo[fin], want_mo[fin], atol=2e-4, rtol=0)
+    inds = got["gt_inds"]
+    assert (inds[~t[4]] == -1).all()
+    assert (inds[1] > 0).any() or case == "all_gts_padding"
+    # every real gt, prepended, is its own positive
+    real = torch.nonzero(t[1][1])[:, 0]
+    assert (inds[1, real] > 0).all()
+    one = max_iou_assign_rotated(t[3][1:], *(x[1:] for x in t[:3]), anchor_mask=t[4][1:],
+                                 **thr)
+    assert all(torch.equal(one[k][0], got[k][1]) for k in one)
+    if case in ("no_real_gt", "image_fully_masked"):
+        assert (inds[0] <= 0).all() and not got["max_overlaps"][0].any()
+    elif case == "all_proposals_masked":
+        assert (inds[0, 8:] == -1).all() and (inds[0, :6] > 0).all()
+    elif case == "masked_proposals_at_zero":
+        assert inds[1, 8:11].tolist() == [1, 1, 1]
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_do():
+    gts, mask, labels, props, pmask = (torch.from_numpy(x)
+                                       for x in roi_assign_edge_case("no_real_gt"))
+    with pytest.raises(NotImplementedError, match="gt_max_assign_all"):
+        max_iou_assign_rotated(props, gts, mask, labels, anchor_mask=pmask,
+                               gt_max_assign_all=False, **ROI_THR)
+    with pytest.raises(ValueError, match="anchor_mask"):
+        rik.check_assign_operands(gts, mask, labels, props[0].contiguous(), pmask)
+    with pytest.raises(TypeError):
+        rik.check_assign_operands(gts, mask, labels, props, pmask.to(torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        rik.launch_max_iou_assign_rect(gts, mask, labels, props, pmask, 0.5, 0.5, 0.5, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("low_quality", [False, True])
+@pytest.mark.parametrize("case", ASSIGN_CASES + ROI_ASSIGN_CASES)
+def test_fused_kernel_roi_route_identical_to_unfused_route_on_card(case, low_quality):
+    """The fused assigner on per-image proposals with per-image masks:
+    identical to K1's matrix + the PyTorch assigner, and equal to the CPU
+    plain version's gt_inds and labels; one per-image launch."""
+    dev = _card()
+    thr = dict(ROI_THR, match_low_quality=low_quality)
+    gts, mask, labels, props, pmask = (torch.from_numpy(x).to(dev)
+                                       for x in roi_assign_edge_case(case))
+    before = (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES,
+              rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES)
+    got = max_iou_assign_rotated(props, gts, mask, labels, anchor_mask=pmask, **thr)
+    torch.cuda.synchronize()
+    assert (rik.ASSIGN_LAUNCHES, rik.ASSIGN_PER_IMAGE_LAUNCHES,
+            rik.ASSIGN_PER_IMAGE_MASK_LAUNCHES) == (before[0], before[1] + 1, before[2] + 1)
+    ov = rik.box_iou_rotated_rect(rik.park_masked_boxes(gts, mask), props)
+    unfused = assign_wrt_overlaps(ov, mask, labels, anchor_mask=pmask, **thr)
+    for k in got:
+        assert got[k].dtype == unfused[k].dtype
+        assert torch.equal(got[k], unfused[k]), k
+    plain = max_iou_assign_rotated(props.cpu(), gts.cpu(), mask.cpu(), labels.cpu(),
+                                   anchor_mask=pmask.cpu(), **thr)
+    for k in ("gt_inds", "labels"):
+        torch.testing.assert_close(got[k].cpu(), plain[k], rtol=0, atol=0)
+    torch.testing.assert_close(got["max_overlaps"].cpu(), plain["max_overlaps"],
+                               rtol=0, atol=2e-4)

@@ -42,7 +42,10 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
                  "jdet_torch.runner.runner", "jdet_torch.runner.checkpoint",
                  "jdet_torch.tools.run_net", "jdet_torch.tools.merge_results",
                  "jdet_torch.ops.deform_conv", "jdet_torch.ops.orn",
-                 "jdet_torch.models.heads.s2anet_head"):
+                 "jdet_torch.models.heads.s2anet_head",
+                 "jdet_torch.models.detectors.two_stage", "jdet_torch.models.heads.rpn_heads",
+                 "jdet_torch.models.heads.oriented_head", "jdet_torch.ops.roi_align_rotated",
+                 "jdet_torch.ops.nms", "jdet_torch.models.boxes.coder"):
         assert name in walked, name
 
 

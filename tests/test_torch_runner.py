@@ -287,6 +287,74 @@ def test_s2anet_jax_checkpoint_resumes_with_the_deform_and_orconv_momentum(tmp_p
         torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
 
 
+def test_oriented_rcnn_jax_checkpoint_resumes_and_takes_the_reference_next_step(tmp_path):
+    """The reference Oriented R-CNN (tests/test_torch_oriented_rcnn.py's
+    model) trains 3 steps with its own train step and saves, with the
+    optax count and momentum; the port loads it, the RPN's and the RoI
+    head's leaves included (its Linear kernels and their traces
+    transposed), and its 4th step, on the reference's own sampler draws
+    for that step (fold_in(key, 3)), equals the reference's 4th: each
+    parameter within 1e-3 of its tensor's largest value."""
+    from jdet_tpu.parallel.spmd import build_train_step as j_build_train_step
+    from jdet_tpu.parallel.spmd import make_mesh
+    from test_torch_oriented_rcnn import B as ORCNN_B, CFG as ORCNN, K as ORCNN_K
+    from test_torch_oriented_rcnn import Replay, _batch as orcnn_batch, _jax_model
+    from test_torch_oriented_rcnn import _n_anchors, _port, model_draws
+
+    sched = dict(scheduler_type="StepLR", milestones=[8], steps_per_epoch=2,
+                 warmup="linear", warmup_iters=5, warmup_ratio=1.0 / 3)
+    opt_kw = dict(opt_type="SGD", momentum=0.9, weight_decay=1e-4,
+                  grad_clip=dict(max_norm=35.0))
+    jmodel = _jax_model()
+    images, targets = orcnn_batch(_port(_numpy_params(jmodel)))
+    jopt = j_build_optimizer(jmodel, lr_schedule=j_build_lr_schedule(0.01, **sched), **opt_kw)
+    _, state, jstep = j_build_train_step(jmodel, jopt, make_mesh(n_devices=1))
+    jt = {k: jnp.asarray(v) for k, v in targets.items()}
+    root_key = jax.random.PRNGKey(0)
+
+    def jax_step(state, it):
+        return jstep(state, jnp.asarray(images), jt, root_key, jnp.int32(it))[0]
+
+    for it in range(3):
+        state = jax_step(state, it)
+    nnx.update((jmodel, jopt), state)
+    path = str(tmp_path / "orcnn_ckpt_3.pkl")
+    j_save_checkpoint(path, jmodel, jopt, meta={"epoch": 1, "iter": 3})
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    nnx.update((jmodel, jopt), jax_step(state, 3))
+    p4 = {k: v.numpy() for k, v in params_from_jax(
+        {k: v for k, v in _numpy_params(jmodel).items()
+         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+
+    tmodel = build_detector(ORCNN, device="cpu", load_pretrained=False, seed=7)
+    topt = build_optimizer(tmodel, lr_schedule=build_lr_schedule(0.01, **sched), **opt_kw)
+    load_checkpoint(path, tmodel, topt)
+    assert topt.count == 3
+    traces = {k.split("/trace/", 1)[1]: v for k, v in saved["optimizer"].items()
+              if "/trace/" in k}
+    params = dict(tmodel.named_parameters())
+    buf = {n: topt.sgd.state[p]["momentum_buffer"].numpy() for n, p in params.items()
+           if p in topt.sgd.state}
+    assert len(buf) == len(params)
+    np.testing.assert_array_equal(buf["bbox_head.shared_fcs.0.weight"],
+                                  traces["bbox_head/shared_fcs/0/kernel"].T)
+    np.testing.assert_array_equal(buf["rpn_head.rpn_reg.weight"],
+                                  traces["rpn_head/rpn_reg/kernel"].transpose(3, 2, 0, 1))
+    for n in ("bbox_head.fc_cls.weight", "bbox_head.fc_reg.bias", "rpn_head.rpn_cls.bias"):
+        assert np.abs(buf[n]).sum() > 0, n
+
+    step = build_train_step(tmodel, topt)
+    loss = tmodel.loss
+    draws = Replay(model_draws(jax.random.fold_in(root_key, 3), ORCNN_B, _n_anchors(tmodel),
+                               ORCNN_K + tmodel.rpn_head.nms_post))
+    tmodel.loss = lambda images, targets, generator=None: loss(images, targets, rand=draws)
+    step(torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in targets.items()}, 3)
+    assert topt.count == 4 and not draws.blocks
+    got = {n: p.detach().numpy() for n, p in tmodel.named_parameters()}
+    _assert_close_per_tensor(got, {n: p4[n] for n in got}, "param")
+
+
 def test_checkpoint_round_trip_gives_the_next_step_bit_for_bit(tmp_path):
     images, targets = _batch(seed=1)
     images = torch.from_numpy(images)
@@ -450,6 +518,31 @@ def test_runner_trains_evaluates_saves_resumes_and_tests(mini_tree, monkeypatch,
     # flip test: one more predict pass per flip, unflipped back
     resumed.cfg["flip_test"] = ["H", "HV"]
     assert len(resumed._run_inference(resumed.val_dataset)) == 3 * 6
+
+
+def test_runner_runs_oriented_rcnn(mini_tree):
+    """`run()` of an Oriented R-CNN config (ResNet-18, FPN 64, 128²): one
+    epoch of 3 iterations, a val and a test, on the CPU."""
+    root, img_dir, ann = mini_tree
+    cfg = _mini_cfg(root, img_dir, ann, work_dir=os.path.join(root, "orcnn_work"), max_epoch=1,
+                    model=dict(
+                        type="OrientedRCNN", backbone=dict(type="ResNet", depth=18,
+                                                           frozen_stages=1),
+                        neck=dict(type="FPN", out_channels=64, num_outs=5),
+                        rpn_head=dict(type="OrientedRPNHead", in_channels=64,
+                                      feat_channels=64, nms_pre=128, nms_post=64),
+                        bbox_head=dict(type="OrientedHead", num_classes=15, in_channels=64,
+                                       fc_out_channels=128,
+                                       train_cfg=dict(sampler=dict(num=48, pos_fraction=0.25)),
+                                       test_cfg=dict(max_per_img=16, score_thr=0.0))))
+    runner = Runner(cfg, device="cpu")
+    assert type(runner.model).__name__ == "OrientedRCNN"
+    runner.run()
+    assert (runner.epoch, runner.iter) == (1, 3)
+    with open(os.path.join(runner.work_dir, "test", "test_1.pkl"), "rb") as f:
+        results = pickle.load(f)
+    assert len(results) == 6 and results[0][0]["polys"].shape == (16, 8)
+    assert sorted(os.listdir(os.path.join(runner.work_dir, "checkpoints"))) == ["ckpt_1.pkl"]
 
 
 def test_runner_profile_writes_a_trace(mini_tree):

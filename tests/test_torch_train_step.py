@@ -403,7 +403,7 @@ def test_train_step_draws_fresh_augmentation_each_step():
     aug = make_device_augmenter(flip_h=0.5)
 
     class Probe(torch.nn.Module):
-        def loss(self, x, t):
+        def loss(self, x, t, generator=None):
             seen.append(t["gt_bboxes"].clone())
             return {"loss_x": (self.p * x.mean()) ** 2}
 
