@@ -1,2 +1,3 @@
 """Backbones."""
+from .re_resnet import ReResNet
 from .resnet import ResNet

@@ -11,11 +11,19 @@ mirror those paths, so the mapping is mechanical:
   <p>.scale / .mean / .var  -> <p>.weight / .running_mean / .running_var
                                (+ <p>.num_batches_tracked = 0)
   <p>.weight (H, W, I, O)   -> <p>.weight (O, I, H, W)   (DeformConv)
-  <p>.weight (O, I, nOr, k, k) -> <p>.weight as it is      (ORConv2d)
-  <p>.wexp, <p>._src        -> skipped: ORConv2d's expanded-weight cache,
-                               a non-parameter of shape (0,), and its static
-                               ARF gather table, which the port builds
-                               itself (`ops/orn.py::arf_gather_indices`)
+  <p>.weight (O, I, k, k)   -> <p>.weight as it is        (REConv2dLift)
+  <p>.weight (O, I, nOr, k, k) -> <p>.weight as it is      (ORConv2d, REConv2d)
+  <p>.bn.scale / .mean / .var -> <p>.bn.weight / ...       (InnerBatchNorm's
+                               BatchNorm child, by the BN rule above)
+  <p>.wexp, <p>._src        -> skipped: the expanded-weight cache of
+                               ORConv2d and the C8 convs, a non-parameter
+                               of shape (0,), and their static ARF gather
+                               table, which the port builds itself
+                               (`ops/orn.py::arf_gather_indices`)
+
+A 4-D `weight` is a DeformConv's HWIO kernel or a lifting conv's OIHW
+one: the rule is the module's, so `params_from_jax(flat, model)` takes
+`model`, the module the parameters are for.
 """
 from __future__ import annotations
 
@@ -25,11 +33,26 @@ import pickle
 import numpy as np
 import torch
 
+from ..ops.deform_conv import DeformConv
+from .equivariant.econv import REConv2dLift
+
 _BN_RENAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def params_from_jax(flat):
-    """{jax flat path: np.ndarray} -> torch state_dict (CPU tensors)."""
+def _weight_4d(model, path, prefix, arr):
+    """A 4-D `weight` leaf in the layout of the module it belongs to."""
+    module = model.get_submodule(prefix)
+    if isinstance(module, DeformConv):
+        return arr.transpose(3, 2, 0, 1)
+    if isinstance(module, REConv2dLift):
+        return arr
+    raise KeyError(f"{path}: no 4-D weight rule for {type(module).__name__}")
+
+
+def params_from_jax(flat, model):
+    """{jax flat path: np.ndarray} -> torch state_dict (CPU tensors).
+    `model`, the module the parameters are for, decides the layout of 4-D
+    `weight` leaves."""
     sd = {}
     for path, arr in flat.items():
         prefix, _, leaf = path.rpartition(".")
@@ -46,9 +69,10 @@ def params_from_jax(flat):
                 sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
         elif leaf == "bias":
             sd[path] = torch.from_numpy(arr.copy())
-        elif leaf == "weight" and arr.ndim in (4, 5):
-            sd[path] = torch.from_numpy(np.array(
-                arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr))
+        elif leaf == "weight" and arr.ndim == 4:
+            sd[path] = torch.from_numpy(np.array(_weight_4d(model, path, prefix, arr)))
+        elif leaf == "weight" and arr.ndim == 5:
+            sd[path] = torch.from_numpy(arr.copy())
         elif leaf in ("wexp", "_src"):
             continue
         else:
@@ -59,7 +83,7 @@ def params_from_jax(flat):
 def load_from_jax(module, flat):
     """Strictly load JAX flat parameters into `module`: raises on any
     missing or unexpected key, or a shape mismatch."""
-    module.load_state_dict(params_from_jax(flat), strict=True)
+    module.load_state_dict(params_from_jax(flat, module), strict=True)
     return module
 
 

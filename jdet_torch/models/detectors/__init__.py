@@ -1,3 +1,3 @@
 """Detectors."""
 from .single_stage import RotatedRetinaNet, S2ANet, SingleStageDetector
-from .two_stage import RCNN, OrientedRCNN
+from .two_stage import RCNN, OrientedRCNN, ReDet, RoITransformer

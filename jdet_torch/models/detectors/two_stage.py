@@ -1,7 +1,7 @@
 """Two-stage detectors: backbone -> neck -> RPN -> RoI head.
 
 Port of `jdet_tpu/models/detectors/two_stage.py` (`RCNN` :20,
-`OrientedRCNN` :67). Images come in as (B, H, W, 3) NHWC float32 and are
+`OrientedRCNN` :67, `RoITransformer` :83, `ReDet` :93). Images come in as (B, H, W, 3) NHWC float32 and are
 permuted to NCHW once. `loss` adds the RPN's losses to the RoI head's,
 the RoI head working on the RPN's proposals without their gradient.
 
@@ -10,8 +10,9 @@ draw uniforms from `generator` (a `torch.Generator` on the images'
 device; the train step seeds one per iteration, and without one the loss
 seeds its own with 0, as the reference takes `PRNGKey(0)`), or from
 `rand(shape)`, which a caller replaying another stream of draws passes;
-the draws come in the order RPN positives, RPN negatives, RoI positives,
-RoI negatives.
+the draws come in the order RPN positives, RPN negatives, then the RoI
+head's (positives, negatives; for the cascades of RoI-Transformer and
+ReDet, stage 1's, then stage 2's).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ class RCNN(nn.Module):
     def loss(self, images, targets, generator=None, rand=None):
         """Training forward: images (B, H, W, 3), targets dict with
         gt_bboxes / gt_labels / gt_mask (and gt_hboxes, else computed).
-        Returns the dict of the four scalar losses."""
+        Returns the dict of the scalar losses."""
         if rand is None and generator is None:
             generator = torch.Generator(device=images.device).manual_seed(0)
         targets = dict(targets)
@@ -64,3 +65,13 @@ class RCNN(nn.Module):
 @MODELS.register_module()
 class OrientedRCNN(RCNN):
     """RCNN with `OrientedRPNHead` and `OrientedHead`."""
+
+
+@MODELS.register_module()
+class RoITransformer(RCNN):
+    """RCNN with `RPNHead` and the `RoITransHead` cascade."""
+
+
+@MODELS.register_module()
+class ReDet(RCNN):
+    """RCNN on `ReResNet` and `ReFPN` with `RPNHead` and `ReDetHead`."""

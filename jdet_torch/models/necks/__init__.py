@@ -1,2 +1,3 @@
 """Necks."""
 from .fpn import FPN
+from .re_fpn import ReFPN

@@ -1,2 +1,2 @@
 """RoI feature extractors."""
-from .single_level import OrientedSingleRoIExtractor
+from .single_level import OrientedSingleRoIExtractor, SingleRoIExtractor

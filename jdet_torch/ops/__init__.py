@@ -1,7 +1,10 @@
 """Box ops: codecs, rotated IoU (with its CUDA kernel), rotated and
 horizontal NMS, and the rotated RoI align."""
 from .box_convert import (
+    delta2hbox,
     delta2rbox,
+    hbox2delta,
+    hbox_to_rbox,
     norm_angle,
     poly_to_hbox,
     poly_to_rbox,

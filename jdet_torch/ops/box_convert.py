@@ -2,8 +2,9 @@
 
 Port of `jdet_tpu/ops/box_convert.py` (`norm_angle` :28, `rbox_to_poly`
 :103, `poly_to_rbox` :119, `poly_to_hbox` :140, `rbox_to_hbox` :149,
-`rbox2delta` :232, `delta2rbox` :257). All functions take arbitrary
-leading batch dimensions.
+`hbox_to_rbox` :157, `rbox2delta` :232, `delta2rbox` :257, `hbox2delta`
+:290, `delta2hbox` :313). All functions take arbitrary leading batch
+dimensions.
 
 Conventions: rbox = (cx, cy, w, h, theta) with theta in radians, canonical
 range [-pi/4, 3*pi/4); hbox = (x1, y1, x2, y2); poly = 4 corners
@@ -123,3 +124,59 @@ def delta2rbox(
     ga = norm_angle(PI * da + ra)
     out = torch.stack([gx, gy, gw, gh, ga], dim=-1)
     return out.reshape(*deltas.shape[:-1], k * 5) if k > 1 else out[..., 0, :]
+
+
+def hbox_to_rbox(hboxes):
+    """(..., 4) (x1, y1, x2, y2) -> (..., 5) rbox with w >= h: theta 0 for
+    a wide box, pi/2 for a tall one (w and h swapped), through
+    `norm_angle`."""
+    x1, y1, x2, y2 = hboxes.split(1, dim=-1)
+    cx = (x1 + x2) * 0.5
+    cy = (y1 + y2) * 0.5
+    w = x2 - x1
+    h = y2 - y1
+    wide = w >= h
+    theta = torch.where(wide, 0.0, PI / 2).to(w.dtype)
+    return torch.cat([cx, cy, torch.where(wide, w, h), torch.where(wide, h, w),
+                      norm_angle(theta)], dim=-1)
+
+
+def hbox2delta(proposals, gt, means=(0.0,) * 4, stds=(1.0,) * 4):
+    """Horizontal-box deltas (dx, dy, dw, dh) of gt against proposals,
+    mmdet-v2's convention (no +1 on the sizes)."""
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0]
+    gh = gt[..., 3] - gt[..., 1]
+    dx = (gx - px) / pw.clamp(min=1e-6)
+    dy = (gy - py) / ph.clamp(min=1e-6)
+    dw = torch.log(gw.clamp(min=1e-6) / pw.clamp(min=1e-6))
+    dh = torch.log(gh.clamp(min=1e-6) / ph.clamp(min=1e-6))
+    deltas = torch.stack([dx, dy, dw, dh], dim=-1)
+    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
+
+
+def delta2hbox(rois, deltas, means=(0.0,) * 4, stds=(1.0,) * 4, wh_ratio_clip=16 / 1000):
+    """Inverse of hbox2delta, dw and dh clipped to |log(wh_ratio_clip)|.
+    Handles (..., 4) or (..., K*4) deltas against (..., 4) rois."""
+    k = deltas.shape[-1] // 4
+    d = deltas.reshape(*deltas.shape[:-1], k, 4) * deltas.new_tensor(stds) \
+        + deltas.new_tensor(means)
+    dx, dy, dw, dh = d.unbind(-1)
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = dw.clamp(-max_ratio, max_ratio)
+    dh = dh.clamp(-max_ratio, max_ratio)
+    px = ((rois[..., 0] + rois[..., 2]) * 0.5)[..., None]
+    py = ((rois[..., 1] + rois[..., 3]) * 0.5)[..., None]
+    pw = (rois[..., 2] - rois[..., 0])[..., None]
+    ph = (rois[..., 3] - rois[..., 1])[..., None]
+    gw = pw * torch.exp(dw)
+    gh = ph * torch.exp(dh)
+    gx = px + pw * dx
+    gy = py + ph * dy
+    out = torch.stack([gx - gw * 0.5, gy - gh * 0.5, gx + gw * 0.5, gy + gh * 0.5], dim=-1)
+    return out.reshape(*deltas.shape[:-1], k * 4) if k > 1 else out[..., 0, :]

@@ -2,8 +2,9 @@
 rotation-invariant pooling, NCHW.
 
 Port of `jdet_tpu/ops/orn.py` (`_KERNEL_INDICES` :26,
-`arf_gather_indices` :43, `rotate_arf` :68, `ORConv2d` :101,
-`rotation_invariant_pooling` :155). The ARF expansion is a static
+`arf_gather_indices` :43, `rotate_arf` :68, `ExpandedWeight` :94,
+`ORConv2d` :101, `rotation_invariant_pooling` :155,
+`rotation_invariant_encoding` :167). The ARF expansion is a static
 gather: the reference's forward scatter table, inverted once in numpy
 into a permutation, drives one `index_select`, whose autograd backward is
 the scatter-add of the ARF backward.
@@ -12,6 +13,10 @@ Channel layout as in the reference: out channel o * nRot + k (rotation
 fastest), in channel i * nOrient + orient; the expanded weight is OIHW
 (O * nRot, I * nOrient, k, k), the reference's HWIO transposed.
 `rotation_invariant_pooling` views the channels as (out, nRot).
+
+`CachedExpansion` is the expanded-weight cache that `ORConv2d` and the
+C8 convs of `models/equivariant/econv.py` share (the reference's
+`ExpandedWeight` buffers, filled by `cache_expanded_weights`).
 
 `ORConv2d` rounds its expanded weight to its input's dtype and returns
 float32, as the reference does (:140-152). In S2ANet its input is the
@@ -73,7 +78,42 @@ def rotate_arf(weight, src_indices):
     return rot.permute(4, 0, 5, 1, 2, 3).reshape(O * n_rot, I * n_or, kh, kw)
 
 
-class ORConv2d(nn.Module):
+class CachedExpansion(nn.Module):
+    """A module whose conv weight is an expansion (`_expand()`) of its
+    `weight`, with a cache of it: `fill_cache` keeps the expansion in the
+    non-persistent buffer `wexp` and `expanded_weight` returns it until
+    `drop_cache`. The cache records the weight's version: reading it after
+    the weight changed, or where the weight's gradient is wanted, raises."""
+
+    def _init_cache(self):
+        self.register_buffer("wexp", torch.zeros(0), persistent=False)
+        self.cache_on = False
+        self._wexp_version = None
+
+    def fill_cache(self):
+        with torch.no_grad():
+            self.wexp = self._expand()
+        self._wexp_version = self.weight._version
+        self.cache_on = True
+
+    def drop_cache(self):
+        self.wexp = self.weight.new_zeros(0)
+        self._wexp_version = None
+        self.cache_on = False
+
+    def expanded_weight(self):
+        if not self.cache_on:
+            return self._expand()
+        if self.weight._version != self._wexp_version:
+            raise RuntimeError(f"{type(self).__name__}: the expansion cache is stale "
+                               "(the weight changed after it was filled)")
+        if self.weight.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{type(self).__name__}: the expansion cache would cut the "
+                               "weight's gradient; drop it before training")
+        return self.wexp
+
+
+class ORConv2d(CachedExpansion):
     """Oriented-response conv, stride 1 and "same" padding (S2ANet's):
     weight (O, I, nOrient, k, k) drawn from N(0, 2/n), n = I * nOrient * k
     * k; bias (O * nRot,) zero."""
@@ -98,8 +138,9 @@ class ORConv2d(nn.Module):
             torch.from_numpy(arf_gather_indices(self.n_orientation, self.n_rotation,
                                                 kernel_size)),
             persistent=False)
+        self._init_cache()
 
-    def expanded_weight(self):
+    def _expand(self):
         return rotate_arf(self.weight, self.src_indices)
 
     def forward(self, x):
@@ -114,3 +155,18 @@ def rotation_invariant_pooling(x, n_orientation=8):
     -> (B, C / nOrient, H, W), channels viewed as (out, nRot)."""
     B, C, H, W = x.shape
     return x.reshape(B, C // n_orientation, n_orientation, H, W).amax(2)
+
+
+def rotation_invariant_encoding(x, n_orientation=8):
+    """Align each sample to its main direction: x (B, F * nOrient), the
+    orientation of largest summed |x| over the F fields (the first on a
+    tie) rotated to the front of every field. Returns (aligned (B, C),
+    main direction (B,))."""
+    B, C = x.shape
+    xo = x.reshape(B, C // n_orientation, n_orientation)
+    # argmax returns the first of tied maxima, as jnp.argmax does
+    main = xo.abs().sum(1).argmax(-1)
+    idx = torch.arange(n_orientation, device=x.device)
+    shift = (idx[None] + main[:, None]) % n_orientation
+    aligned = torch.gather(xo, 2, shift[:, None, :].expand_as(xo))
+    return aligned.reshape(B, C), main

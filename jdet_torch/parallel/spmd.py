@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from ..models.equivariant import cache_frozen_expansions
 from ..ops.box_convert import norm_angle
 from ..utils.general import parse_losses
 
@@ -126,7 +127,14 @@ def build_train_step(model, optimizer, preprocess=None, augment=None, seed=0):
     backward, and `optimizer.step()` (clip, weight decay, momentum SGD at
     the scheduled lr). log_vars holds detached 0-dim tensors on the
     device: the step itself copies nothing to or from the host.
+
+    Building the step drops every expanded-weight cache of the model's
+    equivariant and ORN convs and fills those of the frozen backbone
+    stages (`models/equivariant::cache_frozen_expansions`, as the
+    reference Runner's `_build_train_step` does): their weights never
+    change, so they are expanded once and not at every step.
     """
+    cache_frozen_expansions(model)
 
     def step(images, targets, it):
         model.train()

@@ -10,7 +10,8 @@ momentum buffers by parameter name and the count of updates made.
 `load_checkpoint` also takes a `jdet_tpu` checkpoint (its meta carries
 `jdet_tpu_version`), as the reference restores it (:115-121): the nnx
 parameter paths, joined by "/", go through
-`models/convert.py::params_from_jax`, and so does the optax momentum,
+`models/convert.py::params_from_jax` (given the model, whose modules
+decide the layout of 4-D weights), and so does the optax momentum,
 `opt_state/.../trace/<param path>`, into the SGD momentum buffers of the
 parameters SGD updates (the frozen ones keep none, as in the port's own
 checkpoints); the update count comes from the schedule's
@@ -65,7 +66,7 @@ def _load_state(model, state):
                           strict=True)
 
 
-def _jax_optimizer_state(opt_state, meta):
+def _jax_optimizer_state(opt_state, meta, model):
     """A `jdet_tpu` optimizer payload -> the port's {"count": updates made,
     "momentum": {parameter name: buffer}}."""
     counts = [v for k, v in opt_state.items() if k.startswith("opt_state/") and k.endswith("/count")]
@@ -74,7 +75,7 @@ def _jax_optimizer_state(opt_state, meta):
     traces = {k.split("/trace/", 1)[1].replace("/", "."): v
               for k, v in opt_state.items() if "/trace/" in k}
     return {"count": int(counts[0]) if counts else int(meta.get("iter", 0)),
-            "momentum": params_from_jax(traces)}
+            "momentum": params_from_jax(traces, model)}
 
 
 def load_checkpoint(path, model, optimizer=None, model_only=False):
@@ -88,9 +89,9 @@ def load_checkpoint(path, model, optimizer=None, model_only=False):
     opt = payload.get("optimizer") if optimizer is not None and not model_only else None
     if "jdet_tpu_version" in meta:
         flat = {k.replace("/", "."): v for k, v in payload["model"].items()}
-        _load_state(model, params_from_jax(flat))
+        _load_state(model, params_from_jax(flat, model))
         if opt is not None:
-            opt = _jax_optimizer_state(opt, meta)
+            opt = _jax_optimizer_state(opt, meta, model)
     elif "jdet_torch_version" in meta:
         _load_state(model, payload["model"])
     else:

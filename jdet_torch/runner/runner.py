@@ -29,6 +29,7 @@ import torch
 from .. import data as _data  # noqa: F401 — registers DATASETS/TRANSFORMS
 from ..config import get_cfg, save_cfg
 from ..models.builder import build_detector
+from ..models.equivariant import cache_expanded_weights, cache_frozen_expansions
 from ..optim import build_lr_schedule, build_optimizer
 from ..parallel import build_train_step, make_device_augmenter, make_device_normalizer
 from ..utils.general import build_file, check_interval, search_ckpt, set_random_seed
@@ -192,8 +193,14 @@ class Runner:
     def _run_inference(self, dataset):
         """Eval-mode predict over `dataset`, with the flips of `flip_test`
         (reference runner.py:340) as extra passes whose detections are
-        unflipped back. Returns [(det of numpy arrays, meta)]."""
+        unflipped back. Returns [(det of numpy arrays, meta)].
+
+        The expanded weights of the equivariant and ORN convs are cached
+        from the current weights for the pass (the reference's
+        `cache_expanded_weights` around inference), and afterwards only
+        the frozen stages' stay cached, as the train step wants them."""
         self.model.eval()
+        cache_expanded_weights(self.model)
         flip_modes = list(self.cfg.get("flip_test") or [])
         results = []
         for batch, metas in dataset.batches(pin_memory=self.pin_memory):
@@ -215,6 +222,7 @@ class Runner:
                     det = _unflip_dets(det, mode, images.shape[2], images.shape[1])
                 for i, meta in enumerate(metas):
                     results.append(({k: v[i] for k, v in det.items()}, meta))
+        cache_frozen_expansions(self.model)
         return results
 
     def val(self):
@@ -297,6 +305,8 @@ class Runner:
 
     def load(self, path, model_only=False):
         meta = load_checkpoint(path, self.model, self.optimizer, model_only)
+        # the frozen stages' expansions, from the loaded weights
+        cache_frozen_expansions(self.model)
         if not model_only:
             self.epoch = meta.get("epoch", 0)
             self.iter = meta.get("iter", 0)

@@ -126,10 +126,11 @@ def _jax_run(dtype, u8, targets):
         return outs, log_vars, grads
 
     outs, log_vars, grads = forward_and_grads(jmodel)
+    tmodel = build_detector(CFG, device="cpu", load_pretrained=False)
     out = {
         "outs": [(np.asarray(c), np.asarray(r)) for c, r in outs],
         "losses": {k: float(v) for k, v in log_vars.items()},
-        "grads": {k: v.numpy() for k, v in params_from_jax(_flat(grads)).items()},
+        "grads": {k: v.numpy() for k, v in params_from_jax(_flat(grads), tmodel).items()},
     }
     jopt = j_build_optimizer(jmodel, lr_schedule=j_build_lr_schedule(0.01, **SCHED), **OPT_KW)
     _, state, jstep = j_build_train_step(jmodel, jopt, make_mesh(n_devices=1),
@@ -138,7 +139,7 @@ def _jax_run(dtype, u8, targets):
     nnx.update((jmodel, jopt), state)
     out["params"] = {k: v.numpy() for k, v in params_from_jax(
         {k: v for k, v in _numpy_params(jmodel).items()
-         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}, tmodel).items()}
     return out, weights
 
 
@@ -224,7 +225,8 @@ def test_single_layers_round_like_flax(layer):
         tl = Conv2d(32, 32, 3, stride) if conv else BatchNorm2d(32)
     flat = {f"l.{k}": np.asarray(getattr(jl, k).value)
             for k in (("kernel", "bias") if conv else ("scale", "bias", "mean", "var"))}
-    tl.load_state_dict({k[2:]: v for k, v in params_from_jax(flat).items()})
+    tl.load_state_dict({k[2:]: v for k, v in params_from_jax(
+        flat, torch.nn.ModuleDict({"l": tl})).items()})
     train = layer == "bn_train"
     tl.train(train)
     want = nnx.jit(lambda m, x: m(x) if conv else m(x, use_running_average=not train))(jl, x)

@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
                  "jdet_torch.models.heads.s2anet_head",
                  "jdet_torch.models.detectors.two_stage", "jdet_torch.models.heads.rpn_heads",
                  "jdet_torch.models.heads.oriented_head", "jdet_torch.ops.roi_align_rotated",
-                 "jdet_torch.ops.nms", "jdet_torch.models.boxes.coder"):
+                 "jdet_torch.ops.nms", "jdet_torch.models.boxes.coder",
+                 "jdet_torch.models.equivariant.econv", "jdet_torch.models.backbones.re_resnet",
+                 "jdet_torch.models.necks.re_fpn", "jdet_torch.ops.riroi_align",
+                 "jdet_torch.models.heads.roi_head_base",
+                 "jdet_torch.models.heads.obb_roi_heads"):
         assert name in walked, name
 
 

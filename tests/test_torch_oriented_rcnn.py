@@ -305,7 +305,7 @@ def test_linear_matches(dtype):
     with tnn.compute_dtype_scope(BF16 if dtype else None):
         tl = Linear(300, 20)
     sd = params_from_jax({"kernel": np.asarray(jl.kernel.get_value()),
-                          "bias": np.asarray(jl.bias.get_value())})
+                          "bias": np.asarray(jl.bias.get_value())}, tl)
     tl.load_state_dict({k.lstrip("."): v for k, v in sd.items()})
     x = rng.normal(0, 1, (4, 7, 300)).astype(np.float32)
     want = np.asarray(jl(jnp.asarray(x)), np.float32)
@@ -320,11 +320,12 @@ def test_linear_matches(dtype):
 
 def test_params_from_jax_converts_linear_kernels():
     kernel = np.arange(12, dtype=np.float32).reshape(3, 4)
-    sd = params_from_jax({"fc.kernel": kernel, "fc.bias": np.zeros(4, np.float32)})
+    model = torch.nn.ModuleDict({"fc": Linear(3, 4)})
+    sd = params_from_jax({"fc.kernel": kernel, "fc.bias": np.zeros(4, np.float32)}, model)
     assert sd["fc.weight"].shape == (4, 3)
     np.testing.assert_array_equal(sd["fc.weight"].numpy(), kernel.T)
     with pytest.raises(ValueError, match="kernel"):
-        params_from_jax({"fc.kernel": np.zeros((2, 3, 4), np.float32)})
+        params_from_jax({"fc.kernel": np.zeros((2, 3, 4), np.float32)}, model)
 
 
 @pytest.mark.parametrize("extra", [
@@ -340,7 +341,7 @@ def test_fpn_matches_with_each_extra_level_option(extra):
     chans = (8, 16, 24, 32)
     jfpn = JFPN(chans, 12, num_outs=6, rngs=nnx.Rngs(1), **extra)
     tfpn = FPN(chans, 12, num_outs=6, **extra)
-    sd = params_from_jax({k: v for k, v in _numpy_params(jfpn).items()})
+    sd = params_from_jax({k: v for k, v in _numpy_params(jfpn).items()}, tfpn)
     tfpn.load_state_dict(sd, strict=True)
     xs = [rng.normal(0, 1, (2, 32 // 2 ** i, 30 // 2 ** i, c)).astype(np.float32)
           for i, c in enumerate(chans)]
@@ -521,7 +522,8 @@ def ref():
     network outputs and the losses. Also the weights and the batch."""
     jmodel = _jax_model()
     weights = _numpy_params(jmodel)
-    images, targets = _batch(_port(weights))
+    tmodel = _port(weights)
+    images, targets = _batch(tmodel)
     ji, jt = jnp.asarray(images), _targets(targets, "jax")
     key = jax.random.PRNGKey(3)
     k1, k2 = jax.random.split(key)
@@ -562,7 +564,7 @@ def ref():
         step(jmodel, jopt, jax.random.PRNGKey(100 + it))
     runs["step_params"] = {k: v.numpy() for k, v in params_from_jax(
         {k: v for k, v in _numpy_params(jmodel).items()
-         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}, tmodel).items()}
     return weights, images, targets, runs
 
 
@@ -573,11 +575,11 @@ def _replayed_loss(model, images, targets, key):
 
 def test_params_from_jax_maps_the_two_stage_leaves(ref):
     weights, *_ = ref
-    sd = params_from_jax(weights)
+    model = _port(weights)
+    sd = params_from_jax(weights, model)
     assert sd["bbox_head.shared_fcs.0.weight"].shape == (128, 64 * 49)
     assert sd["bbox_head.fc_cls.weight"].shape == (16, 128)
     assert sd["rpn_head.rpn_reg.weight"].shape == (18, 64, 1, 1)
-    model = _port(weights)
     assert set(model.state_dict()) == set(sd)
 
 
@@ -682,7 +684,7 @@ def test_two_train_steps_match(ref):
     want = runs["step_params"]
     got = {n: p.detach().numpy() for n, p in model.named_parameters()}
     assert set(got) <= set(want)
-    start = {k: v.numpy() for k, v in params_from_jax(weights).items()}
+    start = {k: v.numpy() for k, v in params_from_jax(weights, model).items()}
     for n, g in got.items():
         w = want[n]
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * max(np.abs(w).max(), 1e-12),

@@ -91,7 +91,7 @@ def pair():
 def test_params_from_jax_is_strict(pair):
     jmodel, tmodel, _, _ = pair
     flat = _numpy_params(jmodel)
-    sd = params_from_jax(flat)
+    sd = params_from_jax(flat, tmodel)
     assert sd["backbone.conv1.weight"].shape == (64, 3, 7, 7)
     assert "backbone.bn1.running_var" in sd
     flat.pop("neck.fpn_convs.0.bias")

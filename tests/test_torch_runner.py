@@ -179,21 +179,23 @@ def test_resume_from_a_jax_checkpoint_takes_the_reference_next_step(tmp_path):
         saved = pickle.load(f)
     nnx.update((jmodel, jopt), jax_step(state, 3))
 
+    tmodel = build_detector(CFG, device="cpu", load_pretrained=False, seed=7)
+
     def trainable(flat):
         return {k: v.numpy() for k, v in params_from_jax(
             {k: v for k, v in flat.items()
-             if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+             if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}, tmodel).items()}
 
     p3 = trainable({k.replace("/", "."): v for k, v in saved["model"].items()})
     p4 = trainable(_numpy_params(jmodel))
 
-    tmodel = build_detector(CFG, device="cpu", load_pretrained=False, seed=7)
     assert _assignment_margin(tmodel, targets) > 1e-5
     topt = build_optimizer(tmodel, lr_schedule=build_lr_schedule(0.01, **sched), **opt_kw)
     load_checkpoint(path, tmodel, topt)
     assert topt.count == 3
     traces = params_from_jax({k.split("/trace/", 1)[1].replace("/", "."): v
-                              for k, v in saved["optimizer"].items() if "/trace/" in k})
+                              for k, v in saved["optimizer"].items() if "/trace/" in k},
+                             tmodel)
     n_buf = 0
     for name, p in tmodel.named_parameters():
         if p in topt.sgd.state:
@@ -231,7 +233,8 @@ def test_ema_checkpoint_loads_model_only(tmp_path):
     tmodel = build_detector(SMALL, device="cpu", load_pretrained=False, seed=7)
     meta = load_checkpoint(path, tmodel, model_only=True)
     assert meta["iter"] == 10
-    want = params_from_jax({k.replace("/", "."): v for k, v in payload["model"].items()})
+    want = params_from_jax({k.replace("/", "."): v for k, v in payload["model"].items()},
+                           tmodel)
     for name, t in tmodel.state_dict().items():
         torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
     with pytest.raises(NotImplementedError, match="ema_ckpt.pkl"):
@@ -278,11 +281,11 @@ def test_s2anet_jax_checkpoint_resumes_with_the_deform_and_orconv_momentum(tmp_p
                                   traces["bbox_head/or_conv/weight"])
     # the frozen stem keeps no momentum in the port, as in its own checkpoints
     assert len(buf) == sum(p.requires_grad for p in params.values()) > 50
-    mapped = params_from_jax({k.replace("/", "."): v for k, v in traces.items()})
+    mapped = params_from_jax({k.replace("/", "."): v for k, v in traces.items()}, tmodel)
     for name, b in buf.items():
         np.testing.assert_array_equal(b, mapped[name].numpy(), err_msg=name)
         assert np.abs(b).sum() > 0, name
-    want = params_from_jax({k.replace("/", "."): v for k, v in saved["model"].items()})
+    want = params_from_jax({k.replace("/", "."): v for k, v in saved["model"].items()}, tmodel)
     for name, t in tmodel.state_dict().items():
         torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
 
@@ -323,11 +326,11 @@ def test_oriented_rcnn_jax_checkpoint_resumes_and_takes_the_reference_next_step(
     with open(path, "rb") as f:
         saved = pickle.load(f)
     nnx.update((jmodel, jopt), jax_step(state, 3))
+    tmodel = build_detector(ORCNN, device="cpu", load_pretrained=False, seed=7)
     p4 = {k: v.numpy() for k, v in params_from_jax(
         {k: v for k, v in _numpy_params(jmodel).items()
-         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}, tmodel).items()}
 
-    tmodel = build_detector(ORCNN, device="cpu", load_pretrained=False, seed=7)
     topt = build_optimizer(tmodel, lr_schedule=build_lr_schedule(0.01, **sched), **opt_kw)
     load_checkpoint(path, tmodel, topt)
     assert topt.count == 3

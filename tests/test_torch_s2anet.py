@@ -100,11 +100,11 @@ def _numpy_params(module):
             for k, v in flat.items()}
 
 
-def _trainable(flat):
+def _trainable(flat, model):
     """The port's names and values of the reference's parameters."""
     return {k: v.numpy() for k, v in params_from_jax(
         {k: v for k, v in flat.items()
-         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale", "weight")}).items()}
+         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale", "weight")}, model).items()}
 
 
 def _margin(head, gts, mask, anchors):
@@ -212,7 +212,7 @@ def ref():
     runs = {"f32": {"outs": [[np.asarray(t) for t in lvl] for lvl in outs],
                     "predict": {k: np.asarray(v) for k, v in det.items()},
                     "losses": {k: float(v) for k, v in log_vars.items()},
-                    "step_params": _trainable(_numpy_params(jmodel))}}
+                    "step_params": _trainable(_numpy_params(jmodel), tmodel)}}
     outs, log_vars = nnx.jit(bf16_forward)(_jax_model(jnp.bfloat16))
     runs["bf16"] = {"outs": [[np.asarray(t, np.float32) for t in lvl] for lvl in outs],
                     "losses": {k: float(v) for k, v in log_vars.items()}}
@@ -299,7 +299,7 @@ def test_orconv_matches_and_its_arf_backward_is_a_scatter_add():
     conv = ORConv2d(16, 4, kernel_size=3, arf_config=(1, 8))
     conv.load_state_dict(params_from_jax(
         {k.split(".", 1)[1] if "." in k else k: v
-         for k, v in {f"m.{k}": v for k, v in _numpy_params(jconv).items()}.items()}))
+         for k, v in {f"m.{k}": v for k, v in _numpy_params(jconv).items()}.items()}, conv))
     x = rng.randn(2, 7, 6, 16).astype(np.float32)
     cot = rng.randn(2, 7, 6, 32).astype(np.float32)
 
@@ -320,7 +320,7 @@ def test_orconv_matches_and_its_arf_backward_is_a_scatter_add():
 
 def test_params_from_jax_maps_the_s2anet_leaves(ref):
     weights, tmodel, *_ = ref
-    sd = params_from_jax(weights)
+    sd = params_from_jax(weights, tmodel)
     assert sd["bbox_head.align_conv.deform_conv.weight"].shape == (64, 64, 3, 3)
     np.testing.assert_array_equal(sd["bbox_head.align_conv.deform_conv.weight"].numpy(),
                                   weights["bbox_head.align_conv.deform_conv.weight"]

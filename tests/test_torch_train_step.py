@@ -163,7 +163,7 @@ def test_gradients_match():
         return nnx.value_and_grad(lf, has_aux=True)(m)
 
     (jtotal, _), jgrads = value_and_grad(jmodel)
-    want = params_from_jax({k: v for k, v in _flat(jgrads).items()})
+    want = params_from_jax({k: v for k, v in _flat(jgrads).items()}, tmodel)
 
     tmodel.train()
     images = make_device_normalizer(MEAN, STD)(torch.from_numpy(u8))
@@ -269,7 +269,7 @@ def test_three_sgd_steps_match(max_norm):
 
     want = {k: v.numpy() for k, v in params_from_jax(
         {k: v for k, v in _numpy_params(jmodel).items()
-         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}).items()}
+         if k.rsplit(".", 1)[-1] in ("kernel", "bias", "scale")}, tmodel).items()}
     got = {n: p.detach().numpy() for n, p in tmodel.named_parameters()}
     _assert_close_per_tensor(got, {n: want[n] for n in got}, "param")
     for n, p0 in frozen0.items():
