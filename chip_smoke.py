@@ -88,6 +88,20 @@
    weight expansions, stage-1 and stage-2 sampling, RiRoIAlign forward and
    backward, the FCs); and `run_net` on 8 synthetic tiles, which fills
    and drops the expansion cache around its val and test.
+8d. The Rotated RetinaNet family's other configs, each at full width
+   with random weights, from its own file: GWD, KLD, KFIoU, RSDet, ATSS,
+   CSL, LD (an R18 student, an R50 teacher), the hbb assigner, ResNet-50-
+   v1d and DOTA-1.5. K1's matrix route inside ATSS's assigner at the
+   train step's (4, 512, 21824): K1 against its plain version, the
+   assignment against the CPU plain version on the decisive anchors, K1
+   timed against its bound. Each head (but v1d's and DOTA-1.5's, the
+   main path's) on the card against a CPU copy fed the same outputs at
+   512², B=2: the losses, their gradients with respect to the outputs,
+   CSL's predict as sets; in bf16 too for KLD and CSL. Then each model's
+   loss forward and predict at B=2, 1024², and 5 train steps at B=4,
+   1024², K=512, in float32 and bf16, timed, with the peak memory; LD's
+   teacher bit-unchanged by them. Then `run_net` on LD's config (8
+   tiles), its checkpoint's teacher leaves unchanged.
 9. Drives the Runner from the same config at full width on a synthetic
    DOTA tree (16 PNG tiles of 1024² under `build/`, uint8 batches, device
    normalize and augment, 2 spawned loader workers, the tile cache):
@@ -112,14 +126,17 @@
    last line `{"ok": true, "device": {...}}`.
 
 Each path (serving, K2's entry point, training, the same in bf16, the
-S2ANet, Oriented R-CNN and ReDet paths and their `run_net`, the Runner's
-`run()`, the epoch on the preprocessed tiles and its val and test) runs
-with the launch counters set to 0 just before it and read just after:
+S2ANet, Oriented R-CNN, ReDet and RetinaNet variants' paths and their
+`run_net`, the Runner's `run()`, the epoch on the preprocessed tiles and
+its val and test) runs with the launch counters set to 0 just before it
+and read just after:
 one fused assigner launch per loss forward and per train step
 (RetinaNet), two for S2ANet (FAM on shared anchors, ODM on per-image
 anchors), one per-image launch for Oriented R-CNN (its RoI head) and for
-ReDet (its stage 2), one K1 matrix launch per `predict` (per predict
-batch in `val` and `test`), no K2 launch.
+ReDet (its stage 2), and for the RetinaNet variants one fused launch
+(GWD, KLD, KFIoU, RSDet, CSL, LD, v1d, DOTA-1.5), one K1 matrix launch
+inside the assigner (ATSS) or none (hbb); one K1 matrix launch per
+`predict` (per predict batch in `val` and `test`), no K2 launch.
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
@@ -921,14 +938,16 @@ def check_s2anet_card_against_cpu(cfg, rik):
     check_train_card_against_cpu(cfg, rik)
 
 
-def run_net_phase(rik, root, config=S2ANET_CONFIG, per_iter=None, n_tiles=8):
+def run_net_phase(rik, root, config=S2ANET_CONFIG, per_iter=None, n_tiles=8,
+                  model_override="model = dict(backbone=dict(pretrained=None))"):
     """`python -m jdet_torch.tools.run_net --config-file <cfg>` on the card,
     in this process, with a config whose `_base_` is `config` (S2ANet's
     by default) and which points the datasets at a synthetic DOTA tree of
     `n_tiles` 1024² tiles (random weights: no backbone checkpoint): one
     epoch of n_tiles / 4 iterations, a val, a checkpoint and a test.
     `per_iter` is the fused assigner's launches per train iteration, by
-    route. Returns the launches and the logged records."""
+    route; `model_override` the config line that drops the checkpoints the
+    model names. Returns the launches and the logged records."""
     import shutil
 
     from jdet_torch.data.synthetic import make_synthetic_dota
@@ -941,7 +960,7 @@ def run_net_phase(rik, root, config=S2ANET_CONFIG, per_iter=None, n_tiles=8):
     data = dict(annotations_file=ann, images_dir=img_dir, num_workers=2)
     cfg_file.write_text("\n".join([
         f"_base_ = [{str(config)!r}]",
-        "model = dict(backbone=dict(pretrained=None))",
+        model_override,
         f"dataset = dict(train={data!r}, val={data!r}, "
         f"test=dict(images_dir={img_dir!r}, num_workers=2))",
         f"work_dir = {str(root / 'work')!r}",
@@ -1193,15 +1212,20 @@ def assignment_margin(model, targets, size, images=None):
         anchor_sets = [[head._flat_init_anchors(sizes, "cpu")] * B, list(refined)]
     else:
         anchor_sets = [[head._flat_anchors(sizes, "cpu")] * B]
-    margin = np.inf
-    for per_image in anchor_sets:
-        for gt, m, anchors in zip(targets["gt_bboxes"], targets["gt_mask"], per_image):
-            iou = box_iou_rotated(torch.as_tensor(gt[m]), anchors).double()
-            top2 = iou.topk(2, dim=1).values
-            best = iou.max(0).values
-            margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item(),
-                         (best - 0.5).abs().min().item(), (best - 0.4).abs().min().item())
-    return margin
+    return min(iou_margin(box_iou_rotated(torch.as_tensor(gt[m]), anchors))
+               for per_image in anchor_sets
+               for gt, m, anchors in zip(targets["gt_bboxes"], targets["gt_mask"], per_image))
+
+
+def iou_margin(iou):
+    """Of a (K, N) IoU matrix of real gts: the smallest gap between a gt's
+    best IoU and its second best, and between an anchor's best IoU and
+    the 0.4 / 0.5 thresholds."""
+    iou = iou.double()
+    top2 = iou.topk(2, dim=1).values
+    best = iou.max(0).values
+    return min((top2[:, 0] - top2[:, 1]).min().item(), (best - 0.5).abs().min().item(),
+               (best - 0.4).abs().min().item())
 
 
 def build_trainer(cfg, model, augment=True):
@@ -2260,6 +2284,21 @@ def check_assign_roi_kernel(rik, model, cfg, edge_cases=True):
     }
 
 
+def as_sets(got, want, rel=0.0):
+    """Two detection dicts (CPU tensors) as sets: the share of `got`'s
+    valid boxes within 1e-2 px (plus `rel` of their larger side) of one
+    of `want`'s, the valid counts, and the largest difference of the
+    sorted valid scores over the shorter list."""
+    gb, wb = got["boxes"][got["valid"]], want["boxes"][want["valid"]]
+    near = torch.cdist(gb[:, :4].double(), wb[:, :4].double(), p=float("inf")).amin(1)
+    side = (gb[:, 2:4] - gb[:, :2]).abs().amax(1) if gb.shape[1] == 4 else gb[:, 2:4].amax(1)
+    gs = got["scores"][got["valid"]].sort(descending=True).values
+    ws = want["scores"][want["valid"]].sort(descending=True).values
+    n = min(len(gs), len(ws))
+    return ((near <= 1e-2 + rel * side.double()).double().mean().item(),
+            (len(gb), len(wb)), (gs[:n] - ws[:n]).abs().max().item())
+
+
 def check_rcnn_card_against_cpu(cfg, rik):
     """The full-width Oriented R-CNN or ReDet with the same random weights
     on the card and on the CPU, B=1 at 512², on a batch without near ties
@@ -2385,25 +2424,11 @@ def check_rcnn_card_against_cpu(cfg, rik):
     # ReDet's boxes: 1e-2 px plus 1e-3 of the box's larger side (its RPN
     # outputs carry float32's ~5e-5 on either device)
     rel = 1e-3 if redet else 0.0
-
-    def as_sets(got, want):
-        """The share of `got`'s valid boxes within 1e-2 px (plus `rel` of
-        their larger side) of one of `want`'s, the valid counts, and the
-        largest difference of the sorted valid scores over the shorter
-        list."""
-        gb, wb = got["boxes"][got["valid"]], want["boxes"][want["valid"]]
-        near = torch.cdist(gb[:, :4].double(), wb[:, :4].double(), p=float("inf")).amin(1)
-        side = (gb[:, 2:4] - gb[:, :2]).abs().amax(1) if gb.shape[1] == 4 else gb[:, 2:4].amax(1)
-        gs = got["scores"][got["valid"]].sort(descending=True).values
-        ws = want["scores"][want["valid"]].sort(descending=True).values
-        n = min(len(gs), len(ws))
-        return ((near <= 1e-2 + rel * side.double()).double().mean().item(),
-                (len(gb), len(wb)), (gs[:n] - ws[:n]).abs().max().item())
-
     card, cpu = out["f32_card"], out["f32_cpu"]
     same_slots = (torch.equal(card["props"]["valid"], cpu["props"]["valid"])
                   and (card["props"]["boxes"] - cpu["props"]["boxes"]).abs().max().item() <= 1e-2)
-    props_match, det_match = as_sets(card["props"], cpu["props"]), as_sets(card["det"], cpu["det"])
+    props_match = as_sets(card["props"], cpu["props"], rel)
+    det_match = as_sets(card["det"], cpu["det"], rel)
     # max abs error over the largest magnitude
     errs = {k: ((card[k] - cpu[k]).abs().max() / cpu[k].abs().max()).item()
             for k in ("rpn", "head")}
@@ -2838,6 +2863,502 @@ def redet_phases(rik):
     return entry, paths
 
 
+# ---------------------------------------------------------------------------
+# The Rotated RetinaNet family's other configs
+# ---------------------------------------------------------------------------
+
+# config -> the head's assignment route: "fused" (K1's fused assigner),
+# "atss" (the ATSS assigner on K1's matrix) or "hbb" (the max-IoU assigner
+# on circumscribed hbbs, no kernel)
+RETINA_VARIANTS = {
+    "gwd_r50_fpn_1x_dota": "fused",
+    "kld_r50_fpn_1x_dota": "fused",
+    "kfiou_r50_fpn_1x_dota": "fused",
+    "rsdet_r50_fpn_1x_dota": "fused",
+    "atss_obb_r50_fpn_1x_dota": "atss",
+    "csl_r50_fpn_1x_dota": "fused",
+    "ld_r50_fpn_1x_dota": "fused",
+    "rotated_retinanet_hbb_r50_fpn_1x_dota": "hbb",
+    "rotated_retinanet_obb_r50v1d_fpn_1x_dota": "fused",
+    "rotated_retinanet_obb_r50_fpn_1x_dota1_5": "fused",
+}
+CONFIG_DIR = Path(__file__).resolve().parent / "configs"
+# the variants whose head is checked card against CPU (v1d and DOTA-1.5
+# have the main path's head), and of those, in bf16 too
+RETINA_HEAD_CHECKS = ("gwd_r50_fpn_1x_dota", "kld_r50_fpn_1x_dota", "kfiou_r50_fpn_1x_dota",
+                      "rsdet_r50_fpn_1x_dota", "atss_obb_r50_fpn_1x_dota", "csl_r50_fpn_1x_dota",
+                      "ld_r50_fpn_1x_dota", "rotated_retinanet_hbb_r50_fpn_1x_dota")
+RETINA_BF16_HEAD_CHECKS = ("kld_r50_fpn_1x_dota", "csl_r50_fpn_1x_dota")
+
+
+def variant_label(name):
+    return name.replace("_fpn_1x_dota", "").replace("rotated_retinanet_", "")
+
+
+def variant_launches_per_loss(route):
+    """Launches of one loss forward (or train step) by route: the fused
+    assigner once, K1's matrix once inside ATSS's assigner (counted apart
+    from `predict`'s matrix launches, as rotated_iou_rect_atss), or
+    neither."""
+    return {"rotated_iou_rect": 0, "rotated_iou_generic": 0,
+            "max_iou_assign_rect": int(route == "fused"),
+            "max_iou_assign_rect_per_image": 0, "max_iou_assign_rect_per_image_masked": 0,
+            "rotated_iou_rect_atss": int(route == "atss")}
+
+
+def assigner_launches(counts, route):
+    """`launch_counts` of a path that runs no `predict`, K1's matrix
+    launches given to ATSS's route (they are its assigner's)."""
+    counts = dict(counts, rotated_iou_rect_atss=0)
+    if route == "atss":
+        counts["rotated_iou_rect_atss"], counts["rotated_iou_rect"] = counts["rotated_iou_rect"], 0
+    return counts
+
+
+def check_variant_model(name, model):
+    """The config's model at full width: R50-FPN 256 (R18 with an R50
+    teacher for LD, ResNet-50-v1d for v1d), 4 + 4 tower convs of 256, 9
+    anchors per location (1 for ATSS), 15 classes (16 on DOTA-1.5)."""
+    head, bb = model.bbox_head, model.backbone
+    ld = name.startswith("ld_")
+    ok = (bb.depth == (18 if ld else 50) and model.neck.out_channels == 256
+          and head.feat_channels == 256 and len(head.cls_convs) == 4
+          and head.num_anchors == (1 if name.startswith("atss") else 9)
+          and head.cls_out_channels == (16 if name.endswith("1_5") else 15))
+    if ld:
+        ok &= (model.teacher.backbone.depth == 50 and model.teacher.neck.out_channels == 256
+               and head.reg_max == 8)
+    if "v1d" in name:
+        ok &= bb.deep_stem and bb.layer2[0].downsample.avg_pool_first
+    check(ok, f"{name}: the model is not the config's at full width")
+
+
+def variant_margin(head, targets, size, route):
+    """Smallest distance, over every real gt of `targets`, between what
+    decides its assignment and the threshold it is held to, on the CPU
+    plain version: for the max-IoU routes `iou_margin` on the rotated IoU
+    (the hbb IoU for "hbb"), for ATSS `atss_decisive`'s."""
+    from jdet_torch.ops import box_iou_rotated, rbox_to_hbox
+    from jdet_torch.ops.nms import hbb_iou_matrix
+
+    sizes = [(size // s, size // s) for s in head.anchor_strides]
+    anchors = head._flat_anchors(sizes, "cpu")
+    margin = np.inf
+    for gt, m in zip(targets["gt_bboxes"], targets["gt_mask"]):
+        gt = torch.as_tensor(gt[m])
+        if route == "atss":
+            m = atss_decisive(anchors, gt, [h * w * head.num_anchors for h, w in sizes])[1]
+        elif route == "hbb":
+            m = iou_margin(hbb_iou_matrix(rbox_to_hbox(gt), rbox_to_hbox(anchors)))
+        else:
+            m = iou_margin(box_iou_rotated(gt, anchors))
+        margin = min(margin, m)
+    return margin
+
+
+def atss_decisive(anchors, gts, num_level, tol=1e-5):
+    """ATSS on the CPU plain IoU of gts (K, 5) (real ones) against anchors
+    (N, 5): the (N,) mask of the anchors whose assignment no change below
+    `tol` in an IoU (and 1e-3 px in a candidate's offset from its gt's
+    sides) can flip, and the smallest such distance."""
+    from jdet_torch.models.boxes.assigner import atss_candidates
+    from jdet_torch.ops import box_iou_rotated_rect_reference
+
+    ious = box_iou_rotated_rect_reference(gts, anchors)
+    cand = atss_candidates(anchors, gts, num_level)
+    ci = torch.gather(ious, -1, cand)
+    thr = ci.mean(-1, keepdim=True) + torch.sqrt(((ci - ci.mean(-1, keepdim=True)) ** 2)
+                                                 .mean(-1, keepdim=True))
+    off = anchors[cand, :2] - gts[:, None, :2]
+    c, s = torch.cos(gts[:, None, 4]), torch.sin(gts[:, None, 4])
+    # the candidate's distance from its gt's sides, in the gt's frame
+    side = torch.minimum((gts[:, None, 2] / 2 - (off[..., 0] * c + off[..., 1] * s).abs()).abs(),
+                         (gts[:, None, 3] / 2 - (off[..., 1] * c - off[..., 0] * s).abs()).abs())
+    pair = torch.minimum((ci - thr).abs() / tol, side / 1e-3)  # >= 1: decisive pair
+    per_anchor = torch.full((anchors.shape[0],), float("inf"))
+    per_anchor.scatter_reduce_(0, cand.flatten(), pair.flatten(), "amin")
+    # two gts sharing a candidate: their IoUs there apart
+    cand_iou = torch.full_like(ious, float("-inf")).scatter_(-1, cand, ci)
+    top2 = cand_iou.topk(min(2, len(gts)), dim=0).values
+    if len(gts) > 1:
+        shared = torch.isfinite(top2[1])
+        gap = torch.where(shared, (top2[0] - top2[1]) / tol, float("inf"))
+        per_anchor = torch.minimum(per_anchor, gap)
+    return per_anchor >= 1, per_anchor.min().item() * tol
+
+
+def topk_score_ties(head, outs, dev):
+    """`predict`'s per-level cut to its `nms_pre` best anchors, on `dev`:
+    over the levels it cuts, the kept scores (sorted, per image), and per
+    level and image the candidates whose score equals the k-th kept one
+    and how many of those the cut keeps. Where it keeps some of them and
+    not all, which ones follows the order in which the device breaks the
+    tie."""
+    k = head.test_cfg["nms_pre"]
+    kept, ties = [], []
+    for out in outs:
+        cls = out[0].to(dev)
+        b = cls.shape[0]
+        s = torch.sigmoid(head._nhwc(cls.float(), b, head.cls_out_channels)).amax(-1)
+        if not 0 < k < s.shape[1]:
+            continue
+        top = s.topk(k, dim=-1).values
+        kth = top[:, -1:]
+        kept.append(top.cpu())
+        ties.append(list(zip((s == kth).sum(-1).tolist(), (top == kth).sum(-1).tolist())))
+    return torch.cat(kept, 1), ties
+
+
+def ld_kd_witness(head, outs, t_outs):
+    """LD's KD term on the model's own outputs, whose student and teacher
+    distributions are nearly equal with random weights: the term on the
+    card and on the CPU in float32, and on the CPU in float64."""
+    from jdet_torch.models.losses import knowledge_distillation_kl_div_loss
+
+    n1 = head.reg_max + 1
+    T = head.loss_ld_cfg.get("T", 10.0)
+    w = head.loss_ld_cfg.get("loss_weight", 0.25)
+    got = {}
+    for side, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu_f64", "cpu", torch.float64)):
+        s = head._flatten_dist([tuple(t.to(dev, dtype) for t in lvl) for lvl in outs])
+        t = head._flatten_dist([tuple(x.to(dev, dtype) for x in lvl) for lvl in t_outs])
+        got[side] = (knowledge_distillation_kl_div_loss(s.reshape(-1, n1), t.reshape(-1, n1),
+                                                         T=T) * w).item()
+    return got
+
+
+def variant_head_card_against_cpu(name, model, route, cfg, label="fp32"):
+    """The head of `model` on the card and a CPU copy of it, fed the same
+    head outputs (the card's network forward at 512², B=2, taken to the
+    CPU) and the same targets, from a batch without near ties in the
+    assignment: each loss, and the gradients of their total with respect
+    to each head output at each level. CSL's `predict` is compared as sets
+    in float32; in bf16 the logits take few distinct values, the scores
+    tie by the thousand at `predict`'s per-level top-k cut, and each device
+    keeps the tied candidates of its own order (as
+    `check_bf16_card_against_cpu` finds for RetinaNet), so there the kept
+    scores are compared, which ties do not move, and the ties are counted.
+    LD's losses are the KD detector's on its teacher's outputs with a
+    standard normal added to the teacher's distributions' logits: with
+    random weights the two are nearly equal, the KD term ~1e-5 is a sum of
+    differences of nearly equal log-softmaxes, and the card's float32
+    rounding moves it by ~1e-3 of itself (`ld_kd_witness` reads that on
+    the model's own outputs, beside the CPU's float32 and a float64 CPU
+    run)."""
+    import copy
+
+    from jdet_torch.parallel import make_device_normalizer
+
+    head = model.bbox_head
+    cpu_head = copy.deepcopy(head).cpu()
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    seed = next(s for s in range(5, 100)
+                if variant_margin(cpu_head, synth_batch(2, 512, seed=s)[1], 512, route) > 1e-5)
+    images, targets = synth_batch(2, 512, seed=seed, uint8=True)
+    x = normalize(torch.as_tensor(images, device="cuda"))
+    model.eval()
+    with torch.no_grad():
+        outs = head(model.extract_feat(x))
+        t_outs = (model.teacher.bbox_head(model.teacher.extract_feat(x))
+                  if hasattr(model, "teacher") else None)
+    model.train()
+    if t_outs is not None:
+        witness = ld_kd_witness(cpu_head, outs, t_outs)
+        log(f"{label} {name} KD term on the model's own outputs: card {witness['card']!r}, "
+            f"cpu {witness['cpu']!r}, cpu float64 {witness['cpu_f64']!r}; card - float64 "
+            f"{witness['card'] - witness['cpu_f64']:.3e}, cpu - float64 "
+            f"{witness['cpu'] - witness['cpu_f64']:.3e}")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t_outs = [(c, r + torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype))
+                  for c, r in t_outs]
+    res = {}
+    for side, dev, h in (("card", "cuda", head), ("cpu", "cpu", cpu_head)):
+        leaves = [tuple(t.detach().to(dev).requires_grad_(True) for t in lvl) for lvl in outs]
+        tg = {k: torch.as_tensor(v, device=dev) for k, v in targets.items()}
+        if t_outs is None:
+            losses = h.loss(leaves, tg)
+        else:
+            losses = h.loss_with_teacher(leaves, [tuple(t.to(dev) for t in lvl)
+                                                  for lvl in t_outs], tg)
+        sum(losses.values()).backward()
+        # per output (cls, reg[, angle]) and level, its gradient
+        res[side] = ({k: v.item() for k, v in losses.items()},
+                     [t.grad.float().cpu() for lvl in leaves for t in lvl])
+        if name.startswith("csl_"):
+            if label == "fp32":
+                test_cfg = h.test_cfg
+                h.test_cfg = dict(test_cfg, score_thr=0.0)
+                det = h.predict([tuple(t.to(dev) for t in lvl) for lvl in outs])
+                res[side] += ({k: v.cpu() for k, v in det.items()},)
+                h.test_cfg = test_cfg
+            else:
+                res[side] += (topk_score_ties(h, outs, dev),)
+    (lc, gc, *dc), (lp, gp, *dp) = res["card"], res["cpu"]
+    # each loss's error over itself
+    loss_err = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    # each output's gradient error at each level over its largest there:
+    # the levels without a positive see only the class loss's gradient
+    # and (LD) the KD term's
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                   for a, b in zip(gc, gp))
+    # float32: transcendentals a few ulp apart on the two devices; bf16:
+    # the float32 gradient rounded to bf16 on each side, one ulp (2^-8)
+    # apart at most
+    grad_bound = 1e-4 if label == "fp32" else 1e-2
+    log(f"{label} {name} head card vs cpu at 512², B=2, batch seed {seed}: losses {lc} vs "
+        f"{lp}, max loss error over itself {loss_err:.3e}, gradient error over each "
+        f"output's largest at each level {grad_err:.3e}")
+    check(all(np.isfinite(v) for v in lc.values()), f"{name}: a non-finite loss")
+    check(loss_err <= 1e-4, f"{name}: losses off the CPU by {loss_err}")
+    check(grad_err <= grad_bound, f"{name}: gradients off the CPU by {grad_err}")
+    if t_outs is not None:
+        check(lp["loss_ld"] > 1e-2, f"{name}: the KD term {lp['loss_ld']} is not clear of 0")
+    if dc and label == "fp32":
+        share, (n_got, n_want), score_err = as_sets(dc[0], dp[0])
+        log(f"{label} {name} predict card vs cpu as sets: {share} matched, counts "
+            f"{n_got} vs {n_want}, sorted score err {score_err:.2e}")
+        # as check_card_against_cpu holds RetinaNet's: the NMS may decide a
+        # pair within rounding of its IoU threshold (K1 against the plain
+        # IoU) otherwise, and the sweep carries it on
+        check(n_want > 0 and share >= 0.99 and abs(n_got - n_want) <= 0.01 * n_want
+              and score_err <= 1e-4, f"{name}: predict differs from the CPU's")
+    elif dc:
+        (kc, tc), (kp, tp) = dc[0], dp[0]
+        kept_err = (kc - kp).abs().max().item()
+        log(f"{label} {name} predict's per-level top-{head.test_cfg['nms_pre']} cut, per level "
+            f"and image (candidates tied at the k-th score, of them kept): card {tc}, cpu {tp}; "
+            f"kept scores card vs cpu max err {kept_err:.3e}")
+        # float32 sigmoids of the same bf16 logits, a few ulp apart
+        check(kept_err <= 1e-6, f"{name}: predict's kept scores off the CPU by {kept_err}")
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
+def variant_paths(name, cfg, model, rik, route, label, n_steps=5):
+    """The config's serving path at B=2, 1024² (the loss forward, then
+    `predict` at its test_cfg, each once with the launch counts read around
+    it, then timed, median of 3) and `n_steps` train steps at B=4, 1024²,
+    K=512 with 64 real gts (each timed; the median, and the peak memory).
+    Checks finite losses, the predict's shapes and the launches of each
+    route. Returns the launches of each path and the times."""
+    head = model.bbox_head
+    want = variant_launches_per_loss(route)
+    images, targets = to_device(*synth_batch(2, 1024), "cuda")
+
+    def loss_fwd():
+        model.train()
+        out = model.loss(images, targets)
+        model.eval()
+        return out
+
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    losses = loss_fwd()
+    torch.cuda.synchronize()
+    loss_launches = assigner_launches(launch_counts(rik), route)
+    reset_launch_counts(rik)
+    det = model.predict(images)
+    torch.cuda.synchronize()
+    predict_launches = {**launch_counts(rik), "rotated_iou_rect_atss": 0}
+    lv = {k: v.item() for k, v in losses.items()}
+    log(f"{label} {name} loss forward at 1024², B=2: {lv}; launches {loss_launches}; "
+        f"predict launches {predict_launches}")
+    check(loss_launches == want, f"{name}: loss forward launches {loss_launches}, not {want}")
+    check(predict_launches == {**{k: 0 for k in want}, "rotated_iou_rect": 1},
+          f"{name}: not one K1 matrix launch in predict: {predict_launches}")
+    check(all(np.isfinite(v) for v in lv.values()), f"{name}: a non-finite loss")
+    shapes = {k: tuple(v.shape) for k, v in det.items()}
+    check(shapes["boxes"] == (2, 2000, 5) and shapes["polys"] == (2, 2000, 8)
+          and all(torch.isfinite(det[k]).all().item() for k in ("boxes", "polys", "scores")),
+          f"{name}: predict {shapes}, or non-finite detections")
+    check(((det["labels"][det["valid"]] >= 0)
+           & (det["labels"][det["valid"]] < head.cls_out_channels)).all().item(),
+          f"{name}: bad labels")
+    times = {"loss_forward_ms": median_ms(loss_fwd, warmup=1, iters=3)}
+    with torch.no_grad():
+        times["predict_ms"] = median_ms(lambda: model.predict(images), warmup=1, iters=3)
+    del images, targets, losses, det
+
+    # the train steps at the config's traffic
+    step, _, _, _ = build_trainer(cfg, model)
+    images, targets = to_device(*synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True),
+                                "cuda")
+    teacher = ({k: v.clone() for k, v in model.teacher.state_dict().items()}
+               if hasattr(model, "teacher") else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    step_ms, per_step, step_losses = [], [], []
+    for it in range(n_steps):
+        before = launch_counts(rik)
+        t0 = time.perf_counter()
+        step_losses.append({k: v.item() for k, v in step(images, targets, it).items()})
+        step_ms.append((time.perf_counter() - t0) * 1e3)  # .item() synchronized
+        per_step.append(assigner_launches(
+            {k: v - before[k] for k, v in launch_counts(rik).items()}, route))
+    train_launches = assigner_launches(launch_counts(rik), route)
+    times.update(train_step_ms=float(np.median(step_ms)),
+                 train_step_ms_each=[round(t, 3) for t in step_ms],
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log(f"{label} {name} train steps at 1024², B=4, K=512: losses {step_losses}; launches "
+        f"{train_launches}; {json.dumps(times)}")
+    check(all(np.isfinite(v) for lv in step_losses for v in lv.values()),
+          f"{name}: a non-finite train loss")
+    check(per_step == [want] * n_steps, f"{name}: launches per step {per_step}, not {want}")
+    if teacher is not None:
+        after = model.teacher.state_dict()
+        changed = [k for k, v in teacher.items() if not torch.equal(after[k], v)]
+        check(not changed, f"{name}: the teacher changed in training: {changed[:5]}")
+        log(f"{label} {name}: the teacher's {len(teacher)} parameters and buffers are "
+            f"bit-unchanged after {n_steps} train steps")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          f"{name}: a parameter is not float32")
+    return ({f"{variant_label(name)}_{label}_loss_forward": loss_launches,
+             f"{variant_label(name)}_{label}_predict": predict_launches,
+             f"{variant_label(name)}_{label}_train_{n_steps}_steps": train_launches}, times)
+
+
+def check_atss_route(rik, head):
+    """K1's matrix route inside ATSS's assigner at the train step's
+    (4, 512, 21824): K1 against its plain version on the card; the
+    assignment on the card against the CPU plain version on the decisive
+    anchors; K1 timed per call and on the device, against its bound and
+    its plain version. Returns its entry of the kernels line (launches
+    filled in later)."""
+    from jdet_torch.models.boxes.assigner import atss_assign_rotated
+
+    sizes = [(1024 // s, 1024 // s) for s in head.anchor_strides]
+    num_level = [h * w * head.num_anchors for h, w in sizes]
+    anchors = head._flat_anchors(sizes, "cuda")
+    _, t = synth_batch(4, 1024, K=512, real=64, seed=3)
+    gts, mask, labels = (torch.as_tensor(t[k], device="cuda")
+                         for k in ("gt_bboxes", "gt_mask", "gt_labels"))
+    B, K, N = gts.shape[0], gts.shape[1], anchors.shape[0]
+    check(N == 21824, f"expected 21,824 ATSS anchors at 1024², got {N}")
+    parked = rik.park_masked_boxes(gts, mask).contiguous()
+    got = rik.box_iou_rotated_rect(parked, anchors)
+    want = rik.box_iou_rotated_rect_reference(parked, anchors)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    del got, want
+    check(err <= 2e-4, f"ATSS route: K1 off its plain version by {err}")
+
+    card = atss_assign_rotated(anchors, gts, mask, labels, num_level_anchors=num_level)
+    real = int(mask.sum(1).max())
+    check(bool(mask[:, :real].all()) and not mask[:, real:].any(), "real gts not first")
+    t0 = time.perf_counter()
+    cpu = atss_assign_rotated(anchors.cpu(), *(x[:, :real].cpu() for x in (gts, mask, labels)),
+                              num_level_anchors=num_level)
+    cpu_s = time.perf_counter() - t0
+    ok = torch.stack([atss_decisive(anchors.cpu(), gts[b, :real].cpu(), num_level)[0]
+                      for b in range(B)])
+    disagree = {k: int((card[k].cpu()[ok] != cpu[k][ok]).sum()) for k in ("gt_inds", "labels")}
+    mo_err = (card["max_overlaps"].cpu() - cpu["max_overlaps"]).abs().max().item()
+    log(f"ATSS assigner ({B}, {K}, {N}), {real} real gts: vs the CPU plain version "
+        f"({cpu_s:.1f} s): {int(ok.sum())} of {ok.numel()} anchors decisive, disagreements "
+        f"there {disagree}, max_overlaps err {mo_err:.2e}, positives "
+        f"{int((card['gt_inds'] > 0).sum())}")
+    check(ok.float().mean() > 0.99 and not any(disagree.values()) and mo_err <= 2e-4,
+          "ATSS: the card's assignment is off the CPU plain version")
+
+    ms = median_ms(lambda: rik.box_iou_rotated_rect(parked, anchors), iters=20)
+    plain_ms = median_ms(lambda: rik.box_iou_rotated_rect_reference(parked, anchors),
+                         warmup=1, iters=3)
+    assign_ms = median_ms(lambda: atss_assign_rotated(anchors, gts, mask, labels,
+                                                      num_level_anchors=num_level))
+    kernels, device_ms, _ = device_profile(lambda: rik.box_iou_rotated_rect(parked, anchors),
+                                           expect=("rotated_iou_rect_kernel",))
+    nbytes = (B * K * 5 + N * 5 + B * K * N) * 4
+    touching = touching_pairs(gts, anchors, mask)
+    bound_ms, bound_by = bound(nbytes, IOU_FLOPS_PER_TOUCHING_PAIR * touching)
+    log(f"ATSS route, K1 matrix ({B}, {K}, {N}): {ms:.4f} ms per call, device {kernels}; "
+        f"plain version {plain_ms:.4f} ms; the whole ATSS assignment {assign_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} (bytes {nbytes}, {touching} touching pairs x "
+        f"{IOU_FLOPS_PER_TOUCHING_PAIR} flops); K1 vs plain max_abs_err {err:.3e}")
+    return {
+        "name": "rotated_iou_rect_atss",
+        "route": "cuda",
+        "source": "jdet_torch/csrc/rotated_iou.cu",
+        "replaces": "jdet_tpu/ops/pallas_iou.py:148",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": [B, K, N],
+        "device_ms": device_ms,
+        "atss_assign_ms": assign_ms,
+    }
+
+
+def retina_variant_phases(rik):
+    """Each of the Rotated RetinaNet family's other configs at full width
+    with random weights: its head card against CPU (float32; KLD and CSL
+    in bf16 too), its serving path and 5 train steps in float32 and bf16;
+    K1's matrix route inside ATSS's assigner; and `run_net` on LD's
+    config. Returns the ATSS route's entry of the kernels line, the
+    launches of each path and the times."""
+    from jdet_torch.config import load_cfg_file
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    paths, times, atss_entry = {}, {}, None
+    for name, route in RETINA_VARIANTS.items():
+        t0 = time.perf_counter()
+        cfg = load_cfg_file(CONFIG_DIR / f"{name}.py")
+        model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+        check_variant_model(name, model)
+        if route == "atss":
+            atss_entry = check_atss_route(rik, model.bbox_head)
+        if name in RETINA_HEAD_CHECKS:
+            variant_head_card_against_cpu(name, model, route, cfg)
+        p, times[f"{name} fp32"] = variant_paths(name, cfg, model, rik, route, "fp32")
+        paths.update(p)
+        state = model.state_dict()
+        del model
+        torch.cuda.empty_cache()
+        with compute_dtype_scope(torch.bfloat16):
+            bf16 = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+        bf16.load_state_dict(state)
+        del state
+        check(model_dtype(bf16) == torch.bfloat16, f"{name}: the bf16 model is not bf16")
+        if name in RETINA_BF16_HEAD_CHECKS:
+            variant_head_card_against_cpu(name, bf16, route, cfg, label="bf16")
+        p, times[f"{name} bf16"] = variant_paths(name, cfg, bf16, rik, route, "bf16")
+        paths.update(p)
+        del bf16
+        torch.cuda.empty_cache()
+        elapsed(f"the {name} phases ({time.perf_counter() - t0:.1f} s)")
+
+    # LD through the CLI: the builder's teacher, the optimizer's mask, and
+    # checkpoints with the teacher's leaves
+    root = rik.BUILD_DIR / "ld_run_net"
+    ld_config = CONFIG_DIR / "ld_r50_fpn_1x_dota.py"
+    launches, _ = run_net_phase(
+        rik, root, ld_config,
+        {"max_iou_assign_rect": 1, "max_iou_assign_rect_per_image": 0,
+         "max_iou_assign_rect_per_image_masked": 0},
+        model_override="model = dict(backbone=dict(pretrained=None), "
+                       "teacher=dict(backbone=dict(pretrained=None)))")
+    with open(root / "work" / "checkpoints" / "ckpt_1.pkl", "rb") as f:
+        saved = pickle.load(f)["model"]
+    start = build_detector(load_cfg_file(root / "smoke_cfg.py")["model"], device="cpu",
+                           seed=0, load_pretrained=False).state_dict()
+    teacher_keys = [k for k in start if k.startswith("teacher.")]
+    changed = [k for k in teacher_keys if not np.array_equal(saved[k], start[k].numpy())]
+    moved = not np.array_equal(saved["bbox_head.retina_reg.weight"],
+                               start["bbox_head.retina_reg.weight"].numpy())
+    log(f"run_net {ld_config.name}: the checkpoint holds {len(teacher_keys)} teacher leaves, "
+        f"{len(changed)} of them changed by training; the student moved: {moved}")
+    check(teacher_keys and not changed and moved,
+          "run_net LD: the checkpoint's teacher changed, or the student did not train")
+    paths["ld_run_net"] = {**launches, "rotated_iou_rect_atss": 0}
+    elapsed("the LD run_net phase")
+    return atss_entry, paths, times
+
+
 def main():
     import argparse
 
@@ -3009,6 +3530,11 @@ def main():
 
     redet_entry, redet_paths = redet_phases(rik)
 
+    # the Rotated RetinaNet family's other configs, K1's route inside ATSS's
+    # assigner, and LD's run_net
+    atss_entry, variant_paths_, variant_times = retina_variant_phases(rik)
+    log(f"Rotated RetinaNet variants, serving and train times: {json.dumps(variant_times)}")
+
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
     elapsed('runner_phase')
     tiling_launches, tiling_eval_launches = tiling_phase(full_cfg, rik,
@@ -3035,14 +3561,16 @@ def main():
              "orcnn_bf16_serving": orcnn_bf16_serving_launches,
              "orcnn_bf16_train_20_steps": orcnn_bf16_train_launches,
              "orcnn_bf16_train_b16_5_steps": orcnn_bf16_b16_launches,
-             "orcnn_run_net": orcnn_run_net_launches, **redet_paths}
-    kernels = [entry, assign_entry, per_image_entry, roi_entry, redet_entry, generic_entry]
+             "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_}
+    kernels = [entry, assign_entry, per_image_entry, roi_entry, redet_entry, atss_entry,
+               generic_entry]
     for e in kernels:
         # the RoI route has an entry per model and shape: each counts its
-        # own model's paths
+        # own model's paths; K1's matrix launches inside ATSS's assigner
+        # are counted apart, as rotated_iou_rect_atss
         own = {"OrientedRCNN": "orcnn", "ReDet": "redet"}.get(e.get("model"), "")
-        e["launches_by_path"] = {p: route_launches(n)[e["name"]] for p, n in paths.items()
-                                 if p.startswith(own)}
+        e["launches_by_path"] = {p: route_launches(n).get(e["name"], 0)
+                                 for p, n in paths.items() if p.startswith(own)}
         e["launches"] = sum(e["launches_by_path"].values())
     check(all(n["max_iou_assign_rect_per_image"] == 0 for p, n in paths.items()
               if not p.startswith(("orcnn", "s2anet", "redet"))),
@@ -3054,6 +3582,9 @@ def main():
           "or one with them elsewhere")
     check(roi_entry["launches"] > 0 and redet_entry["launches"] > 0,
           "the RoI route was not launched on a main path")
+    check(atss_entry["launches"] == 2 * (1 + 5),
+          f"ATSS's route: {atss_entry['launches']} launches, not one per loss forward and "
+          f"train step in float32 and bf16")
     log(f"profiler windows: {len(MARKERS_DROPPED)}, markers dropped in each {MARKERS_DROPPED}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")

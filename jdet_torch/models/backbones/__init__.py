@@ -1,3 +1,3 @@
 """Backbones."""
 from .re_resnet import ReResNet
-from .resnet import ResNet
+from .resnet import ResNet, ResNet_v1d

@@ -1,10 +1,11 @@
 """Anchor targets — assign, sample, encode, weight — in fixed shapes.
 
 Port of `jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single`
-:37, `anchor_target_batch` :148): the rotated branch and the horizontal
-one (the RPN's, :91-95), the pseudo and the random sampler (:98-105), and
-`reg_decoded_bbox` (:121-122), whose targets are the matched gts
-themselves; horizontal deltas (`hbox2delta`) are not ported, so the
+:37, `anchor_target_batch` :148): the rotated branch on the max-IoU or the
+ATSS assigner (:79-90), the horizontal one (the RPN's, :91-95), the
+pseudo and the random sampler (:98-105), and `reg_decoded_bbox`
+(:121-122), whose targets are the matched gts themselves (the gaussian
+and IoU losses regress on them); horizontal deltas (`hbox2delta`) are not ported, so the
 horizontal branch takes `reg_decoded_bbox=True`. The reference vmaps the
 single-image function over the batch, over the anchors too where they
 are per image (:163-176, S2ANet's refined anchors); here
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.box_convert import rbox2delta
-from .assigner import max_iou_assign_hbb, max_iou_assign_rotated
+from .assigner import atss_assign_rotated, max_iou_assign_hbb, max_iou_assign_rotated
 from .sampler import pseudo_sample, random_sample
 
 
@@ -54,9 +55,16 @@ def anchor_target_single(
     assigner_cfg = dict(assigner_cfg or {})
     sampler_cfg = dict(sampler_cfg or {})
     assigner_type = assigner_cfg.pop("type", "max_iou")
-    if assigner_type != "max_iou":
+    if assigner_type not in ("max_iou", "atss"):
         raise NotImplementedError(f"assigner {assigner_type!r} is not ported")
-    if rotated:
+    if assigner_type == "atss":
+        if not rotated or anchors.dim() != 2:
+            raise NotImplementedError("the ATSS assigner takes shared rotated anchors")
+        assign = atss_assign_rotated(
+            anchors, gt_bboxes, gt_mask, gt_labels,
+            anchor_mask=valid_flags, iou_chunk=iou_chunk, **assigner_cfg
+        )
+    elif rotated:
         assign = max_iou_assign_rotated(
             anchors, gt_bboxes, gt_mask, gt_labels,
             anchor_mask=valid_flags, iou_chunk=iou_chunk, **assigner_cfg

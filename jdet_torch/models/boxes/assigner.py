@@ -1,8 +1,9 @@
 """Max-IoU assignment in masked, fixed-shape form.
 
 Port of `jdet_tpu/models/boxes/assigner.py` (`hbb_overlaps` :25,
-`assign_wrt_overlaps` :45, `max_iou_assign_rotated` :135,
-`max_iou_assign_hbb` :197). Every function takes a leading batch
+`assign_wrt_overlaps` :45, `max_iou_assign_rotated` :135 with its
+`fake_rbb` branch :156-168, `max_iou_assign_hbb` :197,
+`atss_assign_rotated` :237). Every function takes a leading batch
 dimension (the reference's vmap over images, written out), so the IoU
 kernel is launched once for the batch.
 
@@ -14,7 +15,10 @@ Padding gt rows never match: their IoU rows are masked to -inf.
 
 `max_iou_assign_rotated` is the wrapper of the fused CUDA assigner
 (`ops/rotated_iou_kernel.py::launch_max_iou_assign_rect`), which never
-writes the IoU matrix: every CUDA call launches it. Its plain version,
+writes the IoU matrix: every CUDA call with the rotated IoU launches it
+(`iou_calculator="fake_rbb"` assigns on the circumscribed hbbs through
+`max_iou_assign_hbb` on either device, and launches nothing). Its plain
+version,
 for CPU tensors, is the composition here, `assign_wrt_overlaps` on
 `box_iou_rotated`'s matrix; it lives here and not in `ops/`, because
 `ops/` does not depend on `models/`.
@@ -29,9 +33,11 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.box_convert import points_in_rbox, rbox_to_hbox
 from ...ops.box_iou_rotated import box_iou_rotated
 from ...ops.nms import hbb_iou_matrix as hbb_overlaps
-from ...ops.rotated_iou_kernel import launch_max_iou_assign_rect, park_masked_boxes
+from ...ops.rotated_iou_kernel import (box_iou_rotated_rect, launch_max_iou_assign_rect,
+                                       park_masked_boxes)
 
 
 def _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
@@ -170,6 +176,7 @@ def max_iou_assign_rotated(
     match_low_quality=True,
     gt_max_assign_all=True,
     iou_chunk=512,
+    iou_calculator="rotated",
 ):
     """Rotated MaxIoU assignment. anchors (n, 5) shared, or (B, n, 5) per
     image with (B, k, 5) gts (the reference's vmap over images and anchors,
@@ -183,7 +190,19 @@ def max_iou_assign_rotated(
     raises; a CPU tensor is assigned on `box_iou_rotated`'s matrix, which
     broadcasts over per-image anchors, `iou_chunk` gt rows at a time (the
     plain version). Both raise on gt_max_assign_all=False, which no
-    config of the port takes and the kernel does not do."""
+    config of the port takes and the kernel does not do.
+
+    iou_calculator="fake_rbb" assigns on the circumscribed hbbs of the
+    parked gts and of the anchors (the reference's
+    FakeBboxOverlaps2D_rotated), through the exact chunked
+    `max_iou_assign_hbb` on either device: no kernel is launched."""
+    if iou_calculator == "fake_rbb":
+        return max_iou_assign_hbb(
+            rbox_to_hbox(anchors), rbox_to_hbox(park_masked_boxes(gt_bboxes, gt_mask)),
+            gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou, anchor_mask,
+            match_low_quality, gt_max_assign_all)
+    if iou_calculator != "rotated":
+        raise NotImplementedError(f"iou_calculator {iou_calculator!r} is not ported")
     if not gt_max_assign_all:
         raise NotImplementedError("gt_max_assign_all=False is not ported to the fused assigner")
     if gt_bboxes.is_cuda:
@@ -199,3 +218,81 @@ def max_iou_assign_rotated(
         overlaps, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr,
         min_pos_iou, anchor_mask, match_low_quality,
     )
+
+
+def atss_candidates(anchors, gt_bboxes, num_level_anchors=None, topk=9, anchor_mask=None):
+    """ATSS's candidates: for each gt of gt_bboxes (..., k, 5), the indices
+    (..., k, c) of the `topk` anchors (n, 5) of each level nearest its
+    center, ties to the lower index: rank < topk within a level is the
+    first topk of a stable sort (the reference's argsort of the argsort).
+    Masked anchors are the farthest."""
+    d = anchors[:, :2] - gt_bboxes[..., :, None, :2]
+    dist = torch.sqrt((d * d).sum(-1))  # (..., k, n)
+    if anchor_mask is not None:
+        dist = torch.where(anchor_mask[..., None, :], dist, float("inf"))
+    cand = []
+    start = 0
+    for n_l in num_level_anchors or [anchors.shape[0]]:
+        order = torch.sort(dist[..., start:start + n_l], dim=-1, stable=True).indices
+        cand.append(order[..., :min(topk, n_l)] + start)
+        start += n_l
+    return torch.cat(cand, -1)
+
+
+def atss_assign_rotated(
+    anchors,
+    gt_bboxes,
+    gt_mask,
+    gt_labels,
+    num_level_anchors=None,
+    topk=9,
+    anchor_mask=None,
+    iou_chunk=512,
+):
+    """ATSS adaptive assignment of rotated boxes: anchors (n, 5) shared,
+    gt_bboxes (..., k, 5) padded, gt_mask and gt_labels of their leading
+    shape. Per gt, its `atss_candidates` (the `topk` anchors of each
+    level nearest its center); its threshold is the mean plus the
+    population std of their IoUs; candidates at or above it whose center
+    lies inside the gt are its positives; an anchor claimed by several gts goes to the one
+    of highest IoU (the first on a tie). Returns `assign_wrt_overlaps`'
+    dict: gt_inds 0 for every anchor not positive, -1 where anchor_mask
+    is False.
+
+    The IoU matrix is `box_iou_rotated_rect`'s: on a CUDA tensor K1's
+    matrix kernel, one launch for the batch; on a CPU tensor its plain
+    version, `iou_chunk` gt rows at a time."""
+    k = gt_bboxes.shape[-2]
+    parked = park_masked_boxes(gt_bboxes, gt_mask).contiguous()
+    anchors = anchors.contiguous()
+    if parked.is_cuda:
+        ious = box_iou_rotated_rect(parked, anchors)
+    else:
+        ious = torch.cat([box_iou_rotated_rect(parked[..., i:i + iou_chunk, :], anchors)
+                          for i in range(0, k, iou_chunk)], -2)
+    ious = torch.where(gt_mask[..., None], ious, 0.0)
+    if anchor_mask is not None:
+        ious = torch.where(anchor_mask[..., None, :], ious, 0.0)
+
+    cand = atss_candidates(anchors, gt_bboxes, num_level_anchors, topk, anchor_mask)
+    cand_ious = torch.gather(ious, -1, cand)
+    mean = cand_ious.mean(-1, keepdim=True)
+    std = torch.sqrt(((cand_ious - mean) ** 2).mean(-1, keepdim=True))
+    # each candidate's center against its own gt: (..., k, c, 1, 1)
+    inside = points_in_rbox(anchors[cand, :2][..., None, :], gt_bboxes[..., :, None, None, :])
+    pos = (cand_ious >= mean + std) & inside[..., 0, 0] & gt_mask[..., None]
+    pos_cand = torch.zeros_like(ious, dtype=torch.bool).scatter_(-1, cand, pos)
+
+    claimed_iou = torch.where(pos_cand, ious, float("-inf"))
+    best_iou, best_gt = claimed_iou.max(dim=-2)
+    any_pos = pos_cand.any(-2)
+    assigned = torch.where(any_pos, best_gt + 1, 0)
+    if anchor_mask is not None:
+        assigned = torch.where(anchor_mask, assigned, -1)
+    max_overlaps = torch.where(any_pos, best_iou, ious.amax(-2))
+    picked = torch.gather(gt_labels.long(), -1, (assigned - 1).clamp(0, k - 1))
+    return {
+        "gt_inds": assigned,
+        "max_overlaps": max_overlaps,
+        "labels": torch.where(assigned > 0, picked, 0),
+    }

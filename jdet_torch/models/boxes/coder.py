@@ -1,11 +1,13 @@
-"""The midpoint-offset coder of Oriented R-CNN's RPN.
+"""The midpoint-offset coder of Oriented R-CNN's RPN, and CSL's angle
+coder.
 
 Port of `jdet_tpu/models/boxes/coder.py` (`midpoint_offset_encode` :23,
-`midpoint_offset_decode` :60): an oriented box is coded against a
-horizontal proposal (x1, y1, x2, y2) as the hbb deltas (dx, dy, dw, dh)
-of its enclosing box, plus the offsets of its topmost vertex's x and its
-rightmost vertex's y from that box's center, over its width and height.
-Every function takes arbitrary leading batch dimensions.
+`midpoint_offset_decode` :60, `CSLCoder` :176). Midpoint offset: an
+oriented box is coded against a horizontal proposal (x1, y1, x2, y2) as
+the hbb deltas (dx, dy, dw, dh) of its enclosing box, plus the offsets of
+its topmost vertex's x and its rightmost vertex's y from that box's
+center, over its width and height. Every function takes arbitrary
+leading batch dimensions.
 """
 from __future__ import annotations
 
@@ -83,3 +85,44 @@ def midpoint_offset_decode(hbb_proposals, deltas, means=(0.0,) * 6, stds=(1.0,) 
     rect = cp * scale.repeat_interleave(2, -1) + center
     out = poly_to_rbox(rect)
     return out.reshape(*deltas.shape[:-1], k * 5) if k > 1 else out[..., 0, :]
+
+
+class CSLCoder:
+    """Circular smooth label: an angle (radians, in [-pi/4, 3pi/4), offset
+    45 degrees) -> a window (gaussian, triangle, rect or pulse) over
+    180 / omega circular bins around its bin; decode takes the argmax
+    bin's center, (argmax + 0.5) * omega - 45 degrees. The CSL head codes
+    its encoded delta angle."""
+
+    def __init__(self, omega=1, window="gaussian", radius=6):
+        if window not in ("gaussian", "triangle", "rect", "pulse"):
+            raise ValueError(f"unknown CSL window {window!r}")
+        self.angle_range = 180
+        self.angle_offset = 45
+        self.omega = omega
+        self.window = window
+        self.radius = radius
+        self.coding_len = int(self.angle_range // omega)
+
+    def encode(self, angle):
+        """angle (...,) radians -> (..., coding_len) smooth labels."""
+        deg = angle * (180.0 / math.pi)
+        # truncation toward zero, as the reference's `.long()`
+        center = torch.trunc((deg + self.angle_offset) / self.omega)
+        bins = torch.arange(self.coding_len, dtype=angle.dtype, device=angle.device)
+        d = bins - center[..., None]
+        d = (d + self.coding_len / 2) % self.coding_len - self.coding_len / 2
+        if self.window == "gaussian":
+            return torch.exp(-(d ** 2) / (2 * self.radius ** 2))
+        if self.window == "triangle":
+            return torch.where(d.abs() < self.radius, 1.0 - d.abs() / self.radius, 0.0)
+        if self.window == "rect":
+            # the window is [-radius, radius), as the reference scatters it
+            return ((d >= -self.radius) & (d < self.radius)).to(angle.dtype)
+        return (d.abs() < 0.5).to(angle.dtype)
+
+    def decode(self, logits):
+        """(..., coding_len) -> angle (...,) radians."""
+        idx = logits.argmax(-1).to(logits.dtype)
+        deg = ((idx + 0.5) * self.omega) % self.angle_range - self.angle_offset
+        return deg * (math.pi / 180.0)

@@ -3,8 +3,10 @@
 Port of `jdet_tpu/models/builder.py::build_detector` (:22-94) for
 single-stage and two-stage detectors: {type, backbone{type, ...},
 neck{...}, [rpn_head{...},] bbox_head{...}} assembled through the
-registries, weights drawn from one
-seeded `torch.Generator` on the CPU, then moved to `device`. Its layers
+registries, and a distillation detector's `teacher{...}` (built after
+the student from the same stream, :79-88) with its `teacher_ckpt`;
+weights drawn from one seeded `torch.Generator` on the CPU, then moved
+to `device`. Its layers
 bind the compute dtype in force while it builds (`models/nn.py`): build
 inside `compute_dtype_scope(torch.bfloat16)` for the bf16 model.
 """
@@ -36,7 +38,10 @@ def build_detector(cfg, device="cuda", seed=0, load_pretrained=True):
             "build_detector: device 'cuda' requested but CUDA is not "
             "available; pass device='cpu' to build on the CPU"
         )
-    generator = torch.Generator().manual_seed(seed)
+    return _build(cfg, torch.Generator().manual_seed(seed), load_pretrained).to(device)
+
+
+def _build(cfg, generator, load_pretrained):
     cfg = dict(cfg)
     bcfg = dict(cfg.pop("backbone"))
     pretrained = bcfg.pop("pretrained", None)
@@ -45,10 +50,14 @@ def build_detector(cfg, device="cuda", seed=0, load_pretrained=True):
         load_pretrained_backbone(backbone, pretrained)
     neck = build_from_cfg(cfg.pop("neck", None), NECKS, generator=generator,
                           in_channels=backbone.out_channels)
-    heads = {}
+    parts = {}
     for key in ("rpn_head", "bbox_head"):
         hcfg = cfg.pop(key, None)
         if hcfg is not None:
-            heads[key] = build_from_cfg(hcfg, HEADS, generator=generator)
-    model = build_from_cfg(cfg, MODELS, backbone=backbone, neck=neck, **heads)
-    return model.to(device)
+            parts[key] = build_from_cfg(hcfg, HEADS, generator=generator)
+    if cfg.get("teacher") is not None:
+        parts["teacher"] = _build(cfg.pop("teacher"), generator, load_pretrained)
+    else:
+        cfg.pop("teacher", None)
+        cfg.pop("teacher_ckpt", None)
+    return build_from_cfg(cfg, MODELS, backbone=backbone, neck=neck, **parts)

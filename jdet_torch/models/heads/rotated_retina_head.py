@@ -1,12 +1,18 @@
 """Rotated RetinaNet head.
 
 Port of `jdet_tpu/models/heads/rotated_retina_head.py::RotatedRetinaHead`
-(:59; `forward_single` :149, `_flatten_outs` :178, `loss` :187 with the
-smooth-L1 branch of `_bbox_loss`, `predict` :357): 4-conv cls and reg
-towers, A anchors per location predicting (dx, dy, dw, dh, da) deltas and
-C = num_classes - 1 sigmoid class scores; max-IoU assignment on rotated
-IoU; focal + smooth-L1 losses averaged by the total positives; test-time
-per-level top-k -> decode -> multiclass rotated NMS, fixed output size.
+(:59; `forward_single` :149, `_reg_to_deltas` :173, `_flatten_outs` :178,
+`loss` :187, `_bbox_loss` :241, `predict` :357) and its loss variants
+(`GWDRetinaHead`, `KLDRetinaHead`, `KFIoURRetinaHead`, `RotatedATSSHead`,
+`RSDetHead`, :420-477): 4-conv cls and reg towers, A anchors per location
+predicting (dx, dy, dw, dh, da) deltas and C = num_classes - 1 sigmoid
+class scores; max-IoU (or ATSS) assignment on rotated IoU; focal loss
+plus the regression loss of `loss_bbox["type"]` (smooth-L1 on deltas;
+GWD / KLD / BCD / IoU on decoded boxes against the gts themselves;
+KFIoU on both; RSDet's modulated loss), averaged by the total
+positives; test-time per-level top-k -> decode -> multiclass rotated
+NMS, fixed output size. `poly_iou`, `poly_giou` (with `ops/convex.py`)
+and `ridet` (with S2ANet's RIDet config) are not ported and raise.
 
 Head outputs are NCHW. Anchors run (H, W, A), so `_flatten_outs`
 permutes to NHWC before the reshape: channel a*C + c lands at anchor a,
@@ -27,7 +33,16 @@ from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorRotated
 from ..boxes.anchor_target import anchor_target_batch
 from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init
-from ..losses import sigmoid_focal_loss, smooth_l1_loss
+from ..losses import (gaussian_dist_loss, kf_iou_loss, rotated_iou_loss, rsdet_loss,
+                      sigmoid_focal_loss, smooth_l1_loss)
+
+# regression losses on decoded boxes, against the matched gts themselves
+# (the reference's reg_decoded_bbox, rotated_retina_head.py:198-201)
+REG_DECODED = ("gwd", "kld", "bcd", "iou", "poly_iou", "poly_giou", "ridet")
+# the losses of the reference's dispatch that wait for a module of their own
+NOT_PORTED = {"poly_iou": "ops/convex.py (ROADMAP queue 1 item 11)",
+              "poly_giou": "ops/convex.py (ROADMAP queue 1 item 11)",
+              "ridet": "losses/ridet_loss.py (ROADMAP queue 1 item 6b)"}
 
 DEFAULT_TRAIN_CFG = dict(
     assigner=dict(
@@ -79,10 +94,12 @@ class RotatedRetinaHead(nn.Module):
         self.target_stds = tuple(target_stds)
         self.loss_cls_cfg = dict(loss_cls)
         self.loss_bbox_cfg = dict(loss_bbox)
-        if self.loss_bbox_cfg.get("type", "smooth_l1") != "smooth_l1":
+        kind = self.loss_bbox_cfg.get("type", "smooth_l1")
+        if kind in NOT_PORTED:
             raise NotImplementedError(
-                f"loss_bbox {self.loss_bbox_cfg['type']!r} is not ported"
-            )
+                f"loss_bbox {kind!r} is not ported: it needs {NOT_PORTED[kind]}")
+        if kind not in ("smooth_l1", "gwd", "kld", "bcd", "kfiou", "rsdet", "iou"):
+            raise ValueError(f"unknown loss_bbox {kind!r}")
         self.train_cfg = {**DEFAULT_TRAIN_CFG, **(train_cfg or {})}
         self.test_cfg = {**DEFAULT_TEST_CFG, **(test_cfg or {})}
 
@@ -100,6 +117,7 @@ class RotatedRetinaHead(nn.Module):
             for bs in base_sizes
         ]
         self.num_anchors = self.anchor_generators[0].num_base_anchors
+        self.feat_channels = feat_channels
 
         def tower():
             return nn.ModuleList(
@@ -149,26 +167,46 @@ class RotatedRetinaHead(nn.Module):
             0,
         )
 
+    @staticmethod
+    def _nhwc(x, b, c):
+        """NCHW level output -> (b, H * W * A, c)."""
+        return x.permute(0, 2, 3, 1).reshape(b, -1, c)
+
+    def _reg_to_deltas(self, reg, b):
+        """One level's NCHW regression output -> (b, H * W * A, 5) deltas
+        (the hook of the distribution heads)."""
+        return self._nhwc(reg, b, 5)
+
+    def _predict_deltas(self, out, b):
+        """One level's outputs -> the (b, H * W * A, 5) deltas `predict`
+        decodes (the hook of the CSL head)."""
+        return self._reg_to_deltas(out[1].float(), b)
+
     def _flatten_outs(self, outs):
         """[(cls NCHW, reg NCHW)] -> (B, A_total, C), (B, A_total, 5)."""
-        cls_list, reg_list = [], []
-        for cls, reg in outs:
-            b = cls.shape[0]
-            cls_list.append(
-                cls.permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
-            )
-            reg_list.append(reg.permute(0, 2, 3, 1).reshape(b, -1, 5))
-        return torch.cat(cls_list, 1), torch.cat(reg_list, 1)
+        b = outs[0][0].shape[0]
+        return (torch.cat([self._nhwc(o[0], b, self.cls_out_channels) for o in outs], 1),
+                torch.cat([self._reg_to_deltas(o[1], b) for o in outs], 1))
 
     def loss(self, outs, targets):
         """Losses from head outputs. targets: gt_bboxes (B, K, 5),
         gt_labels (B, K) 1-based, gt_mask (B, K) bool."""
-        featmap_sizes = [o[0].shape[-2:] for o in outs]
-        outs = [(c.float(), r.float()) for c, r in outs]
-        cls_scores, bbox_preds = self._flatten_outs(outs)
-        anchors = self._flat_anchors(featmap_sizes, cls_scores.device)
+        return self._losses_and_targets(outs, targets)[0]
 
+    def _losses_and_targets(self, outs, targets):
+        """`loss`'s dict, with what a head that adds a loss of its own
+        needs: the float32 outputs, `anchor_target_batch`'s dict and the
+        total positives (at least 1). The ATSS assigner gets the anchors
+        per level."""
+        outs = [tuple(t.float() for t in o) for o in outs]
+        cls_scores, bbox_preds = self._flatten_outs(outs)
+        featmap_sizes = [o[0].shape[-2:] for o in outs]
+        anchors = self._flat_anchors(featmap_sizes, cls_scores.device)
         tcfg = self.train_cfg
+        assigner_cfg = dict(tcfg["assigner"])
+        if assigner_cfg.get("type") == "atss":
+            assigner_cfg.setdefault("num_level_anchors", [
+                int(fs[0]) * int(fs[1]) * self.num_anchors for fs in featmap_sizes])
         tgt, num_pos, _ = anchor_target_batch(
             anchors,
             torch.ones(anchors.shape[0], dtype=torch.bool, device=anchors.device),
@@ -177,10 +215,11 @@ class RotatedRetinaHead(nn.Module):
             targets["gt_labels"],
             target_means=self.target_means,
             target_stds=self.target_stds,
-            assigner_cfg=dict(tcfg["assigner"]),
+            assigner_cfg=assigner_cfg,
             pos_weight=tcfg.get("pos_weight", -1),
+            reg_decoded_bbox=self.loss_bbox_cfg.get("type", "smooth_l1") in REG_DECODED,
         )
-        num_total = num_pos.clamp(min=1).to(cls_scores.dtype)
+        num_total = num_pos.clamp(min=1).float()
         loss_cls = sigmoid_focal_loss(
             cls_scores,
             tgt["labels"],
@@ -189,14 +228,47 @@ class RotatedRetinaHead(nn.Module):
             alpha=self.loss_cls_cfg.get("alpha", 0.25),
             avg_factor=num_total,
         ) * self.loss_cls_cfg.get("loss_weight", 1.0)
-        loss_bbox = smooth_l1_loss(
-            bbox_preds,
-            tgt["bbox_targets"],
-            weight=tgt["bbox_weights"],
-            beta=self.loss_bbox_cfg.get("beta", 1.0 / 9.0),
-            avg_factor=num_total,
-        ) * self.loss_bbox_cfg.get("loss_weight", 1.0)
-        return {"loss_cls": loss_cls, "loss_bbox": loss_bbox}
+        loss_bbox = self._bbox_loss(anchors, bbox_preds, tgt, num_total)
+        losses = {"loss_cls": loss_cls,
+                  "loss_bbox": loss_bbox * self.loss_bbox_cfg.get("loss_weight", 1.0)}
+        return losses, outs, tgt, num_total
+
+    def _decode(self, anchors, deltas):
+        return delta2rbox(anchors, deltas, self.target_means, self.target_stds)
+
+    def _bbox_loss(self, anchors, bbox_preds, tgt, num_total):
+        """The regression loss of `loss_bbox["type"]` on (B, N, 5) deltas
+        against the targets of every anchor, weighted by the positives."""
+        cfg = self.loss_bbox_cfg
+        kind = cfg.get("type", "smooth_l1")
+        w1 = tgt["bbox_weights"][..., 0].reshape(-1)
+        targets = tgt["bbox_targets"]
+        if kind == "smooth_l1":
+            return smooth_l1_loss(bbox_preds, targets, weight=tgt["bbox_weights"],
+                                  beta=cfg.get("beta", 1.0 / 9.0), avg_factor=num_total)
+        if kind in ("gwd", "kld", "bcd"):
+            extra = {"compat_ref": cfg["compat_ref"]} if kind == "kld" and "compat_ref" in cfg \
+                else {}
+            return gaussian_dist_loss(
+                self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),
+                loss_type=kind, weight=w1, fun=cfg.get("fun", "log1p"),
+                tau=cfg.get("tau", 1.0), avg_factor=num_total, **extra)
+        if kind == "kfiou":
+            # the centers on the deltas, the shapes on both sides decoded
+            return kf_iou_loss(
+                bbox_preds.reshape(-1, 5), targets.reshape(-1, 5),
+                pred_decode=self._decode(anchors, bbox_preds).reshape(-1, 5),
+                targets_decode=self._decode(anchors, targets).reshape(-1, 5),
+                weight=w1, avg_factor=num_total)
+        if kind == "rsdet":
+            return rsdet_loss(
+                bbox_preds.reshape(-1, 5), targets.reshape(-1, 5),
+                anchors.expand(bbox_preds.shape[0], -1, -1).reshape(-1, 5),
+                weight=w1, sigma=cfg.get("sigma", 3.0), avg_factor=num_total)
+        # "iou"
+        return rotated_iou_loss(
+            self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),
+            weight=w1, mode=cfg.get("mode", "log"), avg_factor=num_total)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -209,12 +281,11 @@ class RotatedRetinaHead(nn.Module):
         cfg = self.test_cfg
         nms_pre = cfg["nms_pre"]
         level_scores, level_boxes = [], []
-        for lvl, (cls, reg) in enumerate(outs):
+        for lvl, out in enumerate(outs):
+            cls = out[0]
             b = cls.shape[0]
-            scores = torch.sigmoid(
-                cls.float().permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
-            )
-            deltas = reg.float().permute(0, 2, 3, 1).reshape(b, -1, 5)
+            scores = torch.sigmoid(self._nhwc(cls.float(), b, self.cls_out_channels))
+            deltas = self._predict_deltas(out, b)
             anchors = self.anchor_generators[lvl].grid_anchors(
                 tuple(cls.shape[-2:]), self.anchor_strides[lvl],
                 device=cls.device,
@@ -249,3 +320,49 @@ class RotatedRetinaHead(nn.Module):
         )
         det["polys"] = rbox_to_poly(det["boxes"])
         return det
+
+
+@HEADS.register_module()
+class GWDRetinaHead(RotatedRetinaHead):
+    """The GWD loss on decoded boxes."""
+
+    def __init__(self, *a, loss_bbox=None, **kw):
+        super().__init__(*a, loss_bbox=loss_bbox or dict(type="gwd", tau=1.0, loss_weight=1.0),
+                         **kw)
+
+
+@HEADS.register_module()
+class KLDRetinaHead(RotatedRetinaHead):
+    """The KLD loss on decoded boxes."""
+
+    def __init__(self, *a, loss_bbox=None, **kw):
+        super().__init__(*a, loss_bbox=loss_bbox or dict(type="kld", tau=1.0, loss_weight=1.0),
+                         **kw)
+
+
+@HEADS.register_module()
+class KFIoURRetinaHead(RotatedRetinaHead):
+    """The KFIoU loss."""
+
+    def __init__(self, *a, loss_bbox=None, **kw):
+        super().__init__(*a, loss_bbox=loss_bbox or dict(type="kfiou", loss_weight=1.0), **kw)
+
+
+@HEADS.register_module()
+class RotatedATSSHead(RotatedRetinaHead):
+    """The ATSS assigner (top 9 center-nearest anchors of each level as
+    candidates), usually with one anchor per location."""
+
+    def __init__(self, *a, train_cfg=None, **kw):
+        tc = dict(train_cfg or {})
+        tc.setdefault("assigner", dict(type="atss", topk=9))
+        super().__init__(*a, train_cfg=tc, **kw)
+
+
+@HEADS.register_module()
+class RSDetHead(RotatedRetinaHead):
+    """RSDet's modulated loss."""
+
+    def __init__(self, *a, loss_bbox=None, **kw):
+        super().__init__(*a, loss_bbox=loss_bbox or dict(type="rsdet", sigma=3.0,
+                                                         loss_weight=1.0), **kw)

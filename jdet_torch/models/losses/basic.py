@@ -1,7 +1,7 @@
 """Weighted detection losses with avg_factor-style reduction.
 
 Port of `jdet_tpu/models/losses/basic.py` (`weight_reduce_loss` :16,
-`_bce_with_logits` :32, `sigmoid_focal_loss` :44, `smooth_l1_loss` :82,
+`_bce_with_logits` :32, `sigmoid_focal_loss` :44, `smooth_l1_loss` :82, `l1_loss` :91,
 `cross_entropy_loss` :97, `binary_cross_entropy_loss` :116). Labels are
 integers, 0 = background, 1..C = foreground; sigmoid logits have C
 channels, so class c maps to channel c-1. The softmax cross entropy takes
@@ -86,6 +86,11 @@ def smooth_l1_loss(
     diff = (pred - target).abs()
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
     return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def l1_loss(pred, target, weight=None, avg_factor=None, reduction="mean"):
+    """|pred - target|, weighted and reduced."""
+    return weight_reduce_loss((pred - target).abs(), weight, reduction, avg_factor)
 
 
 def cross_entropy_loss(logits, labels, weight=None, avg_factor=None, reduction="mean",

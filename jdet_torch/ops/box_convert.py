@@ -3,7 +3,8 @@
 Port of `jdet_tpu/ops/box_convert.py` (`norm_angle` :28, `rbox_to_poly`
 :103, `poly_to_rbox` :119, `poly_to_hbox` :140, `rbox_to_hbox` :149,
 `hbox_to_rbox` :157, `rbox2delta` :232, `delta2rbox` :257, `hbox2delta`
-:290, `delta2hbox` :313). All functions take arbitrary leading batch
+:290, `delta2hbox` :313, `points_in_rbox` :385, `integral` :399,
+`integral_angle` :410). All functions take arbitrary leading batch
 dimensions.
 
 Conventions: rbox = (cx, cy, w, h, theta) with theta in radians, canonical
@@ -180,3 +181,34 @@ def delta2hbox(rois, deltas, means=(0.0,) * 4, stds=(1.0,) * 4, wh_ratio_clip=16
     gy = py + ph * dy
     out = torch.stack([gx - gw * 0.5, gy - gh * 0.5, gx + gw * 0.5, gy + gh * 0.5], dim=-1)
     return out.reshape(*deltas.shape[:-1], k * 4) if k > 1 else out[..., 0, :]
+
+
+def points_in_rbox(points, rboxes):
+    """Strict containment of points (..., n, 2) in rboxes (..., m, 5) ->
+    (..., n, m) bool, leading dimensions broadcast: the offset's length
+    projected on the box's axes, below half its w and h."""
+    off = points[..., :, None, :2] - rboxes[..., None, :, :2]
+    ang = torch.atan2(off[..., 1], off[..., 0])
+    dist = torch.sqrt((off * off).sum(-1))
+    da = ang - rboxes[..., None, :, 4]
+    dw = (dist * torch.cos(da)).abs()
+    dh = (dist * torch.sin(da)).abs()
+    return (dw < rboxes[..., None, :, 2] / 2) & (dh < rboxes[..., None, :, 3] / 2)
+
+
+def integral(x, n, lo=-2.0, hi=2.0):
+    """Distributions over n + 1 bins -> their expectations over
+    linspace(lo, hi, n + 1) (GFL / LD), 4 sides: (..., 4 * (n + 1)) ->
+    (rows, 4). The bins are float32, as the reference's, so the result
+    is at least float32."""
+    e = torch.linspace(lo, hi, n + 1, device=x.device)
+    y = torch.softmax(x.reshape(-1, n + 1), dim=1)
+    return (y * e).sum(dim=1).reshape(-1, 4)
+
+
+def integral_angle(x, n, lo=-5.0, hi=2.0):
+    """The angle's distribution over n + 1 bins -> its expectation over
+    linspace(lo, hi, n + 1): (..., n + 1) -> (rows,)."""
+    e = torch.linspace(lo, hi, n + 1, device=x.device)
+    y = torch.softmax(x.reshape(-1, n + 1), dim=1)
+    return (y * e).sum(dim=1).reshape(-1)

@@ -58,3 +58,4 @@ NECKS = Registry("NECKS")
 HEADS = Registry("HEADS")
 DATASETS = Registry("DATASETS")
 TRANSFORMS = Registry("TRANSFORMS")
+LOSSES = Registry("LOSSES")

@@ -41,6 +41,7 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
     for name in ("jdet_torch.data.image_io", "jdet_torch.data.devkits.voc_eval",
                  "jdet_torch.runner.runner", "jdet_torch.runner.checkpoint",
                  "jdet_torch.tools.run_net", "jdet_torch.tools.merge_results",
+                 "jdet_torch.tools.time_paths",
                  "jdet_torch.ops.deform_conv", "jdet_torch.ops.orn",
                  "jdet_torch.models.heads.s2anet_head",
                  "jdet_torch.models.detectors.two_stage", "jdet_torch.models.heads.rpn_heads",
@@ -49,7 +50,14 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
                  "jdet_torch.models.equivariant.econv", "jdet_torch.models.backbones.re_resnet",
                  "jdet_torch.models.necks.re_fpn", "jdet_torch.ops.riroi_align",
                  "jdet_torch.models.heads.roi_head_base",
-                 "jdet_torch.models.heads.obb_roi_heads"):
+                 "jdet_torch.models.heads.obb_roi_heads",
+                 "jdet_torch.models.heads.csl_retina_head",
+                 "jdet_torch.models.heads.ld_retina_head",
+                 "jdet_torch.models.losses.gaussian_dist_loss",
+                 "jdet_torch.models.losses.kf_iou_loss",
+                 "jdet_torch.models.losses.misc_losses",
+                 "jdet_torch.models.losses.smooth_focal_loss",
+                 "jdet_torch.models.losses.iou_loss"):
         assert name in walked, name
 
 
