@@ -102,6 +102,24 @@
    1024², K=512, in float32 and bf16, timed, with the peak memory; LD's
    teacher bit-unchanged by them. Then `run_net` on LD's config (8
    tiles), its checkpoint's teacher leaves unchanged.
+8e. Oriented R-CNN LSKNet-S (`configs/oriented_rcnn_lsknet_s_fpn_1x_dota.py`)
+   and Strip R-CNN StripNet-S (`configs/strip_rcnn_stripnet_s_fpn_1x_dota.py`
+   with one override, rpn_head.type="OrientedRPNHead": the committed hbb
+   RPN fails in the reference), each at full width (dims 64-128-320-512,
+   depths 2-2-4-2) with random weights and the config's AdamW: card
+   against CPU at 512² (network outputs, proposals and detections as
+   sets, the losses and every gradient from one state, and in bf16
+   within the f32 - bf16 gap); the serving path at B=2 and the train step
+   at B=4, 1024², K=512 (20 steps for LSKNet-S, 10 for StripNet-S) with
+   peak memory and the depthwise convs' share of the profile, in float32
+   and bf16.
+8f. Weight import, from files written from a seed: a torchvision-named
+   ResNet-50 `.pth` as the main config's `backbone.pretrained`; a JDet
+   payload of the whole RetinaNet through `Runner.load`, then its loss
+   forward and `predict` on the card against the CPU; `python -m
+   jdet_torch.tools.convert_weights` on an mmcls-named LSKNet-S state
+   dict, its output as the LSKNet-S config's `backbone.pretrained`. Each
+   import held tensor for tensor to its file.
 9. Drives the Runner from the same config at full width on a synthetic
    DOTA tree (16 PNG tiles of 1024² under `build/`, uint8 batches, device
    normalize and augment, 2 spawned loader workers, the tile cache):
@@ -127,13 +145,15 @@
 
 Each path (serving, K2's entry point, training, the same in bf16, the
 S2ANet, Oriented R-CNN, ReDet and RetinaNet variants' paths and their
-`run_net`, the Runner's `run()`, the epoch on the preprocessed tiles and
+`run_net`, LSKNet-S's and StripNet-S's paths, the imported detector's
+loss forward and `predict`, the Runner's `run()`, the epoch on the preprocessed tiles and
 its val and test) runs with the launch counters set to 0 just before it
 and read just after:
 one fused assigner launch per loss forward and per train step
 (RetinaNet), two for S2ANet (FAM on shared anchors, ODM on per-image
 anchors), one per-image launch for Oriented R-CNN (its RoI head) and for
-ReDet (its stage 2), and for the RetinaNet variants one fused launch
+ReDet (its stage 2) and for LSKNet-S and StripNet-S (their RoI heads),
+and for the RetinaNet variants one fused launch
 (GWD, KLD, KFIoU, RSDet, CSL, LD, v1d, DOTA-1.5), one K1 matrix launch
 inside the assigner (ATSS) or none (hbb); one K1 matrix launch per
 `predict` (per predict batch in `val` and `test`), no K2 launch.
@@ -180,6 +200,13 @@ CONFIG = Path(__file__).resolve().parent / "configs/rotated_retinanet_obb_r50_fp
 S2ANET_CONFIG = Path(__file__).resolve().parent / "configs/s2anet_r50_fpn_1x_dota.py"
 ORCNN_CONFIG = Path(__file__).resolve().parent / "configs/oriented_rcnn_r50_fpn_1x_dota.py"
 REDET_CONFIG = Path(__file__).resolve().parent / "configs/redet_re50_refpn_1x_dota.py"
+LSKNET_CONFIG = Path(__file__).resolve().parent / "configs/oriented_rcnn_lsknet_s_fpn_1x_dota.py"
+STRIP_CONFIG = Path(__file__).resolve().parent / "configs/strip_rcnn_stripnet_s_fpn_1x_dota.py"
+# the card-vs-CPU gradients of LSKNet-S / StripNet-S from one state: each
+# trainable tensor's largest error over its largest CPU gradient, and the
+# error's RMS over the gradient's RMS (a probe run read StripNet-S's worst
+# at 5.2e-6 and 2.6e-6, PERF.md §6)
+GRAD_LIMITS = {"grad": 1e-3, "grad_rms": 5e-4}
 # the Oriented R-CNN RoI head's assigner (jdet_tpu/models/heads/oriented_head.py:35-39)
 ROI_THR = dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5, match_low_quality=False)
 
@@ -221,7 +248,9 @@ def is_s2anet(model):
 
 
 def is_orcnn(model):
-    return type(model).__name__ == "OrientedRCNN"
+    """Oriented R-CNN's RoI route: Oriented R-CNN on any backbone, and
+    Strip R-CNN (its head an Oriented R-CNN head with strip convs)."""
+    return type(model).__name__ in ("OrientedRCNN", "StripRCNN")
 
 
 def is_redet(model):
@@ -387,6 +416,11 @@ def device_profile(fn, iters=50, warmup=True, families=None, expect=()):
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and "spin_kernel" in e.key:
                 counts["spin_kernel"] += e.count
+            elif getattr(e, "is_user_annotation", False) or e.key.startswith("Optimizer."):
+                # a `record_function` range's span on the device (torch.optim
+                # wraps each step in one), not a kernel: its kernels count
+                # on their own
+                continue
             elif e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
                 ms = e.self_device_time_total / 1e3 / iters
                 ours = re.search(r"(assign_pass\d_kernel|rotated_iou_(?:rect|generic)_kernel)",
@@ -1245,9 +1279,9 @@ def build_trainer(cfg, model, augment=True):
         warmup_iters=scfg["warmup_iters"], warmup_ratio=scfg["warmup_ratio"])
     opt = build_optimizer(
         model, opt_type=ocfg["type"], lr_schedule=schedule,
-        momentum=ocfg["momentum"], weight_decay=ocfg["weight_decay"],
+        momentum=ocfg.get("momentum", 0.9), weight_decay=ocfg["weight_decay"],
         grad_clip=ocfg["grad_clip"],
-        frozen_stages=cfg["model"]["backbone"]["frozen_stages"])
+        frozen_stages=cfg["model"]["backbone"].get("frozen_stages"))
     normalize = make_device_normalizer(**cfg["device_normalize"])
     augment = make_device_augmenter(**cfg["device_augment"]) if augment else None
     step = build_train_step(model, opt, preprocess=normalize, augment=augment,
@@ -1509,6 +1543,7 @@ def train_at_config_traffic(cfg, model, rik, label, n_steps=20):
                   "deform_grid_sample_backward_scatter_add_ms": r"grid_sampler_2d_backward",
                   "orconv_arf_index_select_and_backward_ms": r"index_?[Ss]elect|indexFunc|index_add",
                   "fused_assigner_ms": r"assign_pass\d_kernel",
+                  "depthwise_conv_ms": r"depthwise|[Gg]rouped",
                   "roi_align_gather_forward_ms": r"EmbeddingBag|embedding_bag",
                   "roi_align_scatter_backward_ms":
                       r"embedding_backward|compute_grad_weight|sum_and_scatter|partials_per_segment"})
@@ -2299,13 +2334,16 @@ def as_sets(got, want, rel=0.0):
             (len(gb), len(wb)), (gs[:n] - ws[:n]).abs().max().item())
 
 
-def check_rcnn_card_against_cpu(cfg, rik):
+def check_rcnn_card_against_cpu(cfg, rik, grads=False):
     """The full-width Oriented R-CNN or ReDet with the same random weights
     on the card and on the CPU, B=1 at 512², on a batch without near ties
     in any assignment, the samplers fed the same draws (`Draws`): the
     network outputs, the proposals, the losses and `predict`, then 2
-    train steps; and the model under the bf16 policy within this run's
-    f32 - bf16 gap. The RPN's class conv is drawn with std 0.05 (0.01 at
+    train steps (with `grads`, instead, the gradients of the loss forward
+    from the one state, held to `GRAD_LIMITS`: an Adam step divides each
+    gradient by its own size, so a gradient near 0 takes a full step in
+    either direction and two devices' steps are not comparable); and the
+    model under the bf16 policy within this run's f32 - bf16 gap. The RPN's class conv is drawn with std 0.05 (0.01 at
     init), and the proposals are compared as sets: each card box within
     1e-2 px of one of the CPU's, the sorted scores within 1e-4. Scores a
     few ulps apart still trade places between the devices, and a
@@ -2327,6 +2365,7 @@ def check_rcnn_card_against_cpu(cfg, rik):
     from jdet_torch.models.builder import build_detector
     from jdet_torch.models.nn import compute_dtype_scope
     from jdet_torch.parallel import make_device_normalizer
+    from jdet_torch.utils.general import parse_losses
 
     normalize = make_device_normalizer(**cfg["device_normalize"])
     # each CPU model before the models it feeds its proposals to
@@ -2350,7 +2389,7 @@ def check_rcnn_card_against_cpu(cfg, rik):
     start = {n: p.detach().clone() for n, p in models["f32_cpu"].named_parameters()}
 
     margin_of = redet_margin if is_redet(models["f32_cpu"]) else orcnn_margin
-    family = type(models["f32_cpu"]).__name__
+    family = f'{type(models["f32_cpu"]).__name__} on {type(models["f32_cpu"].backbone).__name__}'
 
     def margin(seed):
         images, targets = synth_batch(1, 512, seed=seed, uint8=True)
@@ -2392,13 +2431,22 @@ def check_rcnn_card_against_cpu(cfg, rik):
             rpn = torch.cat([o.float().flatten().cpu() for lvl in m.rpn_head(feats) for o in lvl])
             head = roi_head_outputs(m, feats, rois[0].to(dev), rois[1].to(dev))
         m.train()
-        losses = {k: v.item() for k, v in type(m).loss(m, x, t, rand=Draws(7, dev)).items()}
+        loss_out = type(m).loss(m, x, t, rand=Draws(7, dev))
+        losses = {k: v.item() for k, v in loss_out.items()}
+        grad = None
+        if grads:
+            m.zero_grad(set_to_none=True)
+            parse_losses(loss_out)[0].backward()
+            grad = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()
+                    if p.grad is not None}
+            m.zero_grad(set_to_none=True)
+        del loss_out
         m.eval()
         det = {k: v.cpu() for k, v in m.predict(x).items()}
         step, opt = build_trainer(cfg, m, augment=False)[:2]
         replay_draws(m, 100, dev)
         steps, after = [], []
-        for it in range(2):
+        for it in range(0 if grads else 2):
             steps.append({k: v.item()
                           for k, v in step(*to_device(images, targets, dev), it).items()})
             after.append({n: p.detach().cpu().clone() for n, p in m.named_parameters()
@@ -2409,12 +2457,15 @@ def check_rcnn_card_against_cpu(cfg, rik):
                 elif name == "f32_card":
                     load_sgd_state(m, opt, cpu_state)
         out[name] = dict(props={k: v.cpu() for k, v in props.items()}, rpn=rpn, head=head,
-                         losses=losses, det=det, steps=steps, after=after, params=after[-1])
+                         losses=losses, det=det, steps=steps, after=after,
+                         params=after[-1] if after else None, grads=grad)
         if dev == "cuda":
             got = {k: v - launches[k] for k, v in launch_counts(rik).items()}
+            n_fused = 1 if grads else 3
             check(got == {"rotated_iou_rect": 1, "max_iou_assign_rect": 0,
-                          "max_iou_assign_rect_per_image": 3,
-                          "max_iou_assign_rect_per_image_masked": 3, "rotated_iou_generic": 0},
+                          "max_iou_assign_rect_per_image": n_fused,
+                          "max_iou_assign_rect_per_image_masked": n_fused,
+                          "rotated_iou_generic": 0},
                   f"{family} {name}: not 1 per-image fused launch per loss forward and train step "
                   f"and 1 K1 matrix launch per predict: {got}")
         log(f"{family} card vs cpu at 512², B=1: {name} done at "
@@ -2446,7 +2497,7 @@ def check_rcnn_card_against_cpu(cfg, rik):
     # each loss within 1e-4 of the CPU's (1e-3 in the train steps)
     pairs = [(f"{k}", cpu["losses"][k], card["losses"][k], 1e-4) for k in cpu["losses"]]
     pairs += [(f"step {it} {k}", cpu["steps"][it][k], card["steps"][it][k], 1e-3)
-              for it in range(2) for k in cpu["steps"][it]]
+              for it in range(len(cpu["steps"])) for k in cpu["steps"][it]]
     for what, want, got, tol in pairs:
         check(abs(got - want) <= tol * abs(want),
               f"{what}: card {got} cpu {want} (bound {tol * abs(want)})")
@@ -2476,7 +2527,26 @@ def check_rcnn_card_against_cpu(cfg, rik):
                     0.0 if torch.equal(g, w) else float("inf"))
         return worst
 
-    if redet:
+    if grads:
+        held = []
+        worst = {"grad": {}, "grad_rms": {}}
+        for n, want in cpu["grads"].items():
+            got = card["grads"][n]
+            for what, norm in (("grad", torch.amax), ("grad_rms", torch.linalg.vector_norm)):
+                scale = norm(want.abs()).item()
+                worst[what][n] = norm((got - want).abs()).item() / scale if scale else (
+                    0.0 if torch.equal(got, want) else float("inf"))
+        top = {what: max(errs.items(), key=lambda kv: kv[1]) for what, errs in worst.items()}
+        median = {what: float(np.median(list(errs.values()))) for what, errs in worst.items()}
+        log(f"{family} gradients card vs cpu from one state: {len(worst['grad'])} tensors; "
+            f"error over the CPU's gradient, largest and RMS: worst {top}, median "
+            f"{json.dumps(median)}")
+        check(set(card["grads"]) == set(cpu["grads"]) and len(cpu["grads"]) > 100,
+              "the card and the CPU have gradients for different parameters")
+        for what, tol in GRAD_LIMITS.items():
+            bad = {n: e for n, e in worst[what].items() if not e <= tol}
+            check(not bad, f"{family} gradient {what} off the CPU's by more than {tol}: {bad}")
+    elif redet:
         held = [("step 1", card["after"][0], cpu["after"][0], start, REDET_STEP_LIMITS),
                 ("step 2", card["after"][1], cpu["after"][1], cpu["after"][0],
                  REDET_STEP_LIMITS)]
@@ -2502,14 +2572,17 @@ def check_rcnn_card_against_cpu(cfg, rik):
                             + [v for lv in o["steps"] for v in lv.values()], dtype=torch.float64)
 
     def change(o):
+        if grads:
+            return torch.cat([o["grads"][n].flatten() for n in sorted(cpu["grads"])])
         return torch.cat([(p - start[n]).flatten() for n, p in o["params"].items()])
 
     bc, bp, f = out["bf16_card"], out["bf16_cpu"], out["f32_card"]
-    rows = [("the losses of the loss forward and of 2 train steps",
+    rows = [("the losses" + ("" if grads else " of the loss forward and of 2 train steps"),
              losses(bc) - losses(bp), losses(f) - losses(bp)),
             ("the RPN's outputs", bc["rpn"] - bp["rpn"], f["rpn"] - bp["rpn"]),
             ("the RoI head's outputs", bc["head"] - bp["head"], f["head"] - bp["head"]),
-            ("the 2 steps' parameter change", change(bc) - change(bp), change(f) - change(bp))]
+            ("the gradients" if grads else "the 2 steps' parameter change",
+             change(bc) - change(bp), change(f) - change(bp))]
     fractions = {what: rms(e) / rms(gap) for what, e, gap in rows}
     log(f"{family} bf16 card vs cpu: |card - cpu| over the f32 - bf16 gap: "
         + json.dumps(fractions))
@@ -3359,6 +3432,201 @@ def retina_variant_phases(rik):
     return atss_entry, paths, times
 
 
+def strip_rcnn_cfg():
+    """`configs/strip_rcnn_stripnet_s_fpn_1x_dota.py` with its one
+    override, rpn_head.type="OrientedRPNHead": as committed, its hbb
+    `RPNHead` feeds (B, N, 4) proposals to `StripHead`, which fails in the
+    reference and which the port refuses to build."""
+    from jdet_torch.config import load_cfg_file
+
+    cfg = load_cfg_file(STRIP_CONFIG)
+    cfg["model"]["rpn_head"] = dict(cfg["model"]["rpn_head"], type="OrientedRPNHead")
+    return cfg
+
+
+def lsk_phases(rik, strip_steps=10):
+    """Oriented R-CNN LSKNet-S (from its config file, AdamW) and Strip
+    R-CNN StripNet-S (`strip_rcnn_cfg`) at full width with random weights,
+    each in float32 and under the bf16 policy: card against CPU at 512²
+    (network outputs, proposals and detections as sets, the losses and
+    the gradients from one state, bf16 within the f32 - bf16 gap), the
+    serving path at B=2 and the train step at the config's traffic (20
+    steps for LSKNet-S, `strip_steps` for StripNet-S) with its peak
+    memory and its profile (the depthwise convs named). Returns the
+    launches of each path."""
+    from jdet_torch.config import load_cfg_file
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    paths = {}
+    for key, cfg, name, n_steps in (("lsknet", load_cfg_file(LSKNET_CONFIG), "LSKNet-S", 20),
+                                     ("strip", strip_rcnn_cfg(), "StripNet-S", strip_steps)):
+        if key == "strip":
+            log("Strip R-CNN StripNet-S: configs/strip_rcnn_stripnet_s_fpn_1x_dota.py with one "
+                "override, rpn_head.type='OrientedRPNHead' (the committed hbb RPNHead fails in "
+                "the reference's StripHead and is refused by the port)")
+        model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+        bb, rpn, head = model.backbone, model.rpn_head, model.bbox_head
+        check(type(bb).__name__ == ("LSKNet" if key == "lsknet" else "StripNet")
+              and bb.out_channels == [64, 128, 320, 512]
+              and [len(s) for s in bb.stages] == [2, 2, 4, 2] and model.neck.out_channels == 256
+              and (rpn.nms_pre, rpn.nms_post) == (2000, 2000) and rpn.box_dim == 5
+              and tuple(head.shared_fcs[0].weight.shape) == (1024, 12544)
+              and head.train_cfg["sampler"]["num"] == 512 and cfg["optimizer"]["type"] == "AdamW",
+              f"{name} is not at full width with AdamW")
+        log(f"{name} {type(model).__name__}: {sum(p.numel() for p in model.parameters())} "
+            f"parameters, {sum(p.numel() for p in bb.parameters())} in the backbone")
+        check_rcnn_card_against_cpu(cfg, rik, grads=True)
+        elapsed(f"{name} card vs cpu")
+        paths[f"{key}_serving"] = rcnn_serving_phase(model, rik, f"fp32 {name}")
+        paths[f"{key}_train_{n_steps}_steps"] = train_at_config_traffic(
+            cfg, model, rik, f"fp32 {name}", n_steps=n_steps)
+        del model, bb, rpn, head
+        torch.cuda.empty_cache()
+        with compute_dtype_scope(torch.bfloat16):
+            model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+        paths[f"{key}_bf16_serving"] = rcnn_serving_phase(model, rik, f"bf16 {name}")
+        paths[f"{key}_bf16_train_{n_steps}_steps"] = train_at_config_traffic(
+            cfg, model, rik, f"bf16 {name}", n_steps=n_steps)
+        del model
+        torch.cuda.empty_cache()
+        elapsed(f"the {name} phases")
+    return paths
+
+
+def torchvision_names(state):
+    """A port ResNet's state dict under torchvision's names."""
+    return {k.replace(".downsample.conv.", ".downsample.0.")
+             .replace(".downsample.bn.", ".downsample.1."): v for k, v in state.items()}
+
+
+def jdet_names(model):
+    """A port RetinaNet's state dict under JDet's names: torchvision's in
+    the backbone, the FPN's convs inside ConvModules (`.conv.`) and its
+    extra convs appended to `fpn_convs`."""
+    n_fpn = len(model.neck.fpn_convs)
+    out = {}
+    for k, v in model.state_dict().items():
+        head, rest = k.split(".", 1)
+        if head == "backbone":
+            k = "backbone." + next(iter(torchvision_names({rest: 0})))
+        elif head == "neck":
+            kind, i, leaf = rest.split(".")
+            if kind == "extra_convs":
+                kind, i = "fpn_convs", int(i) + n_fpn
+            k = f"neck.{kind}.{i}.conv.{leaf}"
+        out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def mmcls_names(state):
+    """A port LSKNet's state dict under mmcls's names."""
+    out = {}
+    for k, v in state.items():
+        for ours, theirs in (("patch_embeds.", "patch_embed"), ("stages.", "block"),
+                             ("stage_norms.", "norm")):
+            if k.startswith(ours):
+                i, rest = k[len(ours):].split(".", 1)
+                k = f"{theirs}{int(i) + 1}.{rest}"
+        k = (k.replace(".gate.", ".spatial_gating_unit.")
+             .replace(".mlp.dwconv.", ".mlp.dwconv.dwconv.")
+             .replace(".ls1", ".layer_scale_1").replace(".ls2", ".layer_scale_2"))
+        out[k] = v
+    return out
+
+
+def check_same_state(got, want, what):
+    bad = [k for k, v in want.items() if not torch.equal(got[k].detach().cpu(), v.cpu())]
+    check(set(got) == set(want) and not bad, f"{what}: tensors differ from the file's: {bad[:5]}")
+
+
+def weight_import_phase(full_cfg, rik):
+    """Weight import on the card, from files written here from a seed (no
+    download): a torchvision-named ResNet-50 `.pth` (torch.save) as the
+    main RetinaNet's `backbone.pretrained`; a JDet payload ({"meta":
+    {"jdet_version"}, "model"}) of the whole detector through
+    `Runner.load`, then its loss forward and `predict` on the card against
+    the CPU (K1's fused and matrix routes); `python -m
+    jdet_torch.tools.convert_weights --family lsknet_s` on an mmcls-named
+    LSKNet-S state dict, its output as the LSKNet-S config's
+    `backbone.pretrained`. Each import is held tensor for tensor to the
+    file. Returns the launches of the loss forward and `predict`."""
+    import copy
+
+    from jdet_torch.config import load_cfg_file
+    from jdet_torch.models.backbones import LSKNet
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.runner import Runner
+
+    root = rik.BUILD_DIR / "weight_import"
+    root.mkdir(parents=True, exist_ok=True)
+    mcfg = copy.deepcopy(full_cfg["model"])
+    mcfg["backbone"]["pretrained"] = None
+    src = build_detector(mcfg, device="cpu", seed=3, load_pretrained=False)
+    randomize_constants(src)
+    gen = torch.Generator().manual_seed(3)
+    tv = {k: v.clone() for k, v in torchvision_names(src.backbone.state_dict()).items()}
+    tv["fc.weight"] = torch.randn(1000, 2048, generator=gen) * 0.01
+    tv["fc.bias"] = torch.zeros(1000)
+    pth = root / "resnet50_torchvision.pth"
+    torch.save(tv, pth)
+    t0 = time.perf_counter()
+    model = build_detector(dict(mcfg, backbone=dict(mcfg["backbone"], pretrained=str(pth))),
+                           device="cuda", seed=0)
+    check_same_state(model.backbone.state_dict(), src.backbone.state_dict(),
+                     "backbone.pretrained from a torchvision .pth")
+    log(f"weight import: torchvision ResNet-50 .pth ({pth.stat().st_size} bytes) as "
+        f"backbone.pretrained, build and load {time.perf_counter() - t0:.2f} s")
+    del model
+
+    payload = root / "jdet_retinanet_ckpt_12.pkl"
+    with open(payload, "wb") as f:
+        pickle.dump({"meta": {"jdet_version": "0.2.0", "epoch": 12}, "model": jdet_names(src)}, f)
+    rcfg = dict(full_cfg, model=mcfg, dataset={}, work_dir=str(root / "runner"),
+                pretrained_weights=None, resume=None, resume_path=None)
+    runner = Runner(rcfg, device="cuda")
+    t0 = time.perf_counter()
+    meta = runner.load(str(payload))
+    check(meta.get("epoch") == 12 and runner.epoch == 12, f"the payload's meta: {meta}")
+    check_same_state(runner.model.state_dict(), src.state_dict(), "Runner.load of a JDet payload")
+    log(f"weight import: JDet payload ({payload.stat().st_size} bytes) through Runner.load "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    check_card_against_cpu(runner.model, src)
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+    check(launches == {"rotated_iou_rect": 1, "max_iou_assign_rect": 1,
+                       "max_iou_assign_rect_per_image": 0,
+                       "max_iou_assign_rect_per_image_masked": 0, "rotated_iou_generic": 0},
+          f"the imported detector's loss forward and predict: launches {launches}")
+    del runner, src
+
+    lsk = LSKNet(arch="s", generator=torch.Generator().manual_seed(5))
+    randomize_constants(lsk)
+    mm = {k: v.clone() for k, v in mmcls_names(lsk.state_dict()).items()}
+    mm["head.weight"] = torch.randn(1000, 512, generator=gen) * 0.01
+    mm["head.bias"] = torch.zeros(1000)
+    mm_path, out = root / "lsknet_s_mmcls.pth", root / "lsknet_s.jtorch.pkl"
+    torch.save({"state_dict": mm}, mm_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "jdet_torch.tools.convert_weights", "--src",
+                           str(mm_path), "--family", "lsknet_s", "--out", str(out), "--strict"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parent)
+    check(proc.returncode == 0, f"convert_weights failed: {proc.stderr[-2000:]}")
+    log(f"weight import: convert_weights --family lsknet_s {time.perf_counter() - t0:.2f} s: "
+        f"{proc.stdout.strip()}")
+    lcfg = load_cfg_file(LSKNET_CONFIG)["model"]
+    lcfg["backbone"]["pretrained"] = str(out)
+    model = build_detector(lcfg, device="cuda", seed=0)
+    check_same_state(model.backbone.state_dict(), lsk.state_dict(),
+                     "backbone.pretrained from the converted LSKNet-S")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import argparse
 
@@ -3535,6 +3803,12 @@ def main():
     atss_entry, variant_paths_, variant_times = retina_variant_phases(rik)
     log(f"Rotated RetinaNet variants, serving and train times: {json.dumps(variant_times)}")
 
+    # LSKNet-S and StripNet-S on the two-stage heads with AdamW, and weight
+    # import from torchvision, JDet and mmcls files
+    lsk_paths = lsk_phases(rik)
+    import_launches = weight_import_phase(full_cfg, rik)
+    elapsed("the weight import phase")
+
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
     elapsed('runner_phase')
     tiling_launches, tiling_eval_launches = tiling_phase(full_cfg, rik,
@@ -3561,22 +3835,25 @@ def main():
              "orcnn_bf16_serving": orcnn_bf16_serving_launches,
              "orcnn_bf16_train_20_steps": orcnn_bf16_train_launches,
              "orcnn_bf16_train_b16_5_steps": orcnn_bf16_b16_launches,
-             "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_}
+             "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_,
+             **lsk_paths, "weight_import_loss_predict": import_launches}
     kernels = [entry, assign_entry, per_image_entry, roi_entry, redet_entry, atss_entry,
                generic_entry]
     for e in kernels:
         # the RoI route has an entry per model and shape: each counts its
         # own model's paths; K1's matrix launches inside ATSS's assigner
         # are counted apart, as rotated_iou_rect_atss
-        own = {"OrientedRCNN": "orcnn", "ReDet": "redet"}.get(e.get("model"), "")
+        own = {"OrientedRCNN": ("orcnn", "lsknet", "strip"),
+               "ReDet": ("redet",)}.get(e.get("model"), "")
         e["launches_by_path"] = {p: route_launches(n).get(e["name"], 0)
                                  for p, n in paths.items() if p.startswith(own)}
         e["launches"] = sum(e["launches_by_path"].values())
     check(all(n["max_iou_assign_rect_per_image"] == 0 for p, n in paths.items()
-              if not p.startswith(("orcnn", "s2anet", "redet"))),
-          "a per-image fused launch outside S2ANet's, Oriented R-CNN's and ReDet's paths")
+              if not p.startswith(("orcnn", "s2anet", "redet", "lsknet", "strip"))),
+          "a per-image fused launch outside S2ANet's, the two-stage models' paths")
     check(all(n["max_iou_assign_rect_per_image_masked"] == (
-        n["max_iou_assign_rect_per_image"] if p.startswith(("orcnn", "redet")) else 0)
+        n["max_iou_assign_rect_per_image"]
+        if p.startswith(("orcnn", "redet", "lsknet", "strip")) else 0)
         for p, n in paths.items()),
           "a per-image launch without per-image masks on an Oriented R-CNN or ReDet path, "
           "or one with them elsewhere")

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.registry import BACKBONES, HEADS, MODELS, NECKS, build_from_cfg
-from .convert import load_pretrained_backbone
+from .pretrained import load_pretrained_backbone
 
 # imports for registration side effects
 from . import backbones as _backbones  # noqa: F401

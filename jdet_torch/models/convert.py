@@ -9,7 +9,9 @@ mirror those paths, so the mapping is mechanical:
   <p>.kernel (I, O)         -> <p>.weight (O, I)         (Linear)
   <p>.bias                  -> <p>.bias
   <p>.scale / .mean / .var  -> <p>.weight / .running_mean / .running_var
-                               (+ <p>.num_batches_tracked = 0)
+                               (+ <p>.num_batches_tracked = 0 where <p> is a
+                               BatchNorm; a LayerNorm's scale is its weight)
+  <p>.ls1 / <p>.ls2         -> as they are (LSKNet's layer scales)
   <p>.weight (H, W, I, O)   -> <p>.weight (O, I, H, W)   (DeformConv)
   <p>.weight (O, I, k, k)   -> <p>.weight as it is        (REConv2dLift)
   <p>.weight (O, I, nOr, k, k) -> <p>.weight as it is      (ORConv2d, REConv2d)
@@ -22,16 +24,16 @@ mirror those paths, so the mapping is mechanical:
                                (`ops/orn.py::arf_gather_indices`)
 
 A 4-D `weight` is a DeformConv's HWIO kernel or a lifting conv's OIHW
-one: the rule is the module's, so `params_from_jax(flat, model)` takes
-`model`, the module the parameters are for.
+one, and a `scale` a BatchNorm's or a LayerNorm's: the rule is the
+module's, so `params_from_jax(flat, model)` takes `model`, the module the
+parameters are for. Weight files of torchvision, jittor and JDet are
+imported by `models/pretrained.py`.
 """
 from __future__ import annotations
 
-import os
-import pickle
-
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops.deform_conv import DeformConv
 from .equivariant.econv import REConv2dLift
@@ -65,9 +67,9 @@ def params_from_jax(flat, model):
                 arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)))
         elif leaf in _BN_RENAMES:
             sd[f"{prefix}.{_BN_RENAMES[leaf]}"] = torch.from_numpy(arr.copy())
-            if leaf == "scale":
+            if leaf == "scale" and isinstance(model.get_submodule(prefix), nn.BatchNorm2d):
                 sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-        elif leaf == "bias":
+        elif leaf in ("bias", "ls1", "ls2"):
             sd[path] = torch.from_numpy(arr.copy())
         elif leaf == "weight" and arr.ndim == 4:
             sd[path] = torch.from_numpy(np.array(_weight_4d(model, path, prefix, arr)))
@@ -85,22 +87,3 @@ def load_from_jax(module, flat):
     missing or unexpected key, or a shape mismatch."""
     module.load_state_dict(params_from_jax(flat, module), strict=True)
     return module
-
-
-def load_pretrained_backbone(backbone, path):
-    """Load a backbone checkpoint converted by `tools/convert_weights.py`
-    (a pickle of {"meta", "model": {path: array}}, '/' or '.' separated).
-    Only files this repository's tools wrote may be passed: unpickling
-    can run code."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"backbone.pretrained={path!r} not found. Convert ImageNet "
-            "weights with `python tools/convert_weights.py --family "
-            f"<fam> --src <weights> --out {path}`, or build with "
-            "load_pretrained=False."
-        )
-    with open(path, "rb") as f:
-        blob = pickle.load(f)
-    state = blob.get("model", blob) if isinstance(blob, dict) else blob
-    flat = {k.replace("/", "."): v for k, v in state.items()}
-    return load_from_jax(backbone, flat)

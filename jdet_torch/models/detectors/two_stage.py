@@ -1,7 +1,7 @@
 """Two-stage detectors: backbone -> neck -> RPN -> RoI head.
 
 Port of `jdet_tpu/models/detectors/two_stage.py` (`RCNN` :20,
-`OrientedRCNN` :67, `RoITransformer` :83, `ReDet` :93). Images come in as (B, H, W, 3) NHWC float32 and are
+`OrientedRCNN` :67, `RoITransformer` :83, `StripRCNN` :88, `ReDet` :93). Images come in as (B, H, W, 3) NHWC float32 and are
 permuted to NCHW once. `loss` adds the RPN's losses to the RoI head's,
 the RoI head working on the RPN's proposals without their gradient.
 
@@ -75,3 +75,25 @@ class RoITransformer(RCNN):
 @MODELS.register_module()
 class ReDet(RCNN):
     """RCNN on `ReResNet` and `ReFPN` with `RPNHead` and `ReDetHead`."""
+
+
+@MODELS.register_module()
+class StripRCNN(RCNN):
+    """RCNN on `StripNet` with an RPN and `StripHead`. The head works on
+    rotated proposals: the reference's committed
+    `configs/strip_rcnn_stripnet_s_fpn_1x_dota.py` gives it the hbb
+    `RPNHead`, whose (B, N, 4) proposals its loss cannot prepend the
+    (B, K, 5) gts to (the reference fails there with a TypeError,
+    `jdet_tpu/models/heads/oriented_head.py:121`); this refuses that
+    composition when it is built. With `OrientedRPNHead` it runs, in
+    both packages."""
+
+    def __init__(self, backbone, neck=None, rpn_head=None, bbox_head=None):
+        if rpn_head is not None and rpn_head.box_dim != 5:
+            raise ValueError(
+                f"StripRCNN: {type(rpn_head).__name__} proposes {rpn_head.box_dim}-d boxes "
+                f"but {type(bbox_head).__name__} takes rotated (5-d) proposals; the "
+                "reference fails on this composition at jdet_tpu/models/heads/"
+                "oriented_head.py:121 (concatenating the (B, K, 5) gts with (B, N, 4) "
+                "proposals). Use rpn_head=dict(type='OrientedRPNHead', ...).")
+        super().__init__(backbone, neck, rpn_head, bbox_head)

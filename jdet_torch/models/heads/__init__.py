@@ -1,7 +1,7 @@
 """Detection heads."""
 from .csl_retina_head import CSLRRetinaHead
 from .ld_retina_head import LDRotatedRetinaHead, RotatedRetinaDistributionHead
-from .obb_roi_heads import ReDetHead, RoITransHead
+from .obb_roi_heads import ReDetHead, RoITransHead, StripHead
 from .oriented_head import OrientedHead
 from .rotated_retina_head import (
     GWDRetinaHead,

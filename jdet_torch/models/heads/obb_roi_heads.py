@@ -1,7 +1,11 @@
-"""The RoI-Transformer cascade and ReDet's head.
+"""The RoI-Transformer cascade, Strip R-CNN's head and ReDet's head.
 
 Port of `jdet_tpu/models/heads/obb_roi_heads.py` (`RoITransHead` :224,
-`_RiRoIExtractor` :446, `ReDetHead` :469), on `roi_head_base.py`:
+`StripHead` :415, `_RiRoIExtractor` :446, `ReDetHead` :469), on
+`roi_head_base.py`. `StripHead` is `OrientedHead` with two depthwise
+strip convs, 1 x k then k x 1 (k = 7, padded (0, 3) then (3, 0)), added
+as a residual to each RoI's (P, P, C) features before the FCs, which
+still flatten them in (y, x, c) order. The cascades:
 
 - stage 1: the hbb proposals, each image's gt hbbs prepended, assigned by
   `max_iou_assign_hbb` and sampled; hbb RoI align (`SingleRoIExtractor`),
@@ -32,11 +36,33 @@ import torch
 from ...ops.box_convert import delta2rbox, hbox_to_rbox, rbox2delta
 from ...ops.riroi_align import riroi_align_multilevel
 from ...utils.registry import HEADS
-from ..layers import Linear, normal_init
+from ..layers import Conv2d, Linear, normal_init
 from ..losses import cross_entropy_loss, smooth_l1_loss
 from ..roi_extractors import OrientedSingleRoIExtractor
 from ..roi_extractors.single_level import _map_levels
+from .oriented_head import OrientedHead
 from .roi_head_base import RoIHeadBase, shared_fcs
+
+
+@HEADS.register_module()
+class StripHead(OrientedHead):
+    def __init__(self, *args, strip_k=7, in_channels=256, generator=None, **kw):
+        super().__init__(*args, in_channels=in_channels, generator=generator, **kw)
+        pad = strip_k // 2
+        self.strip_h = Conv2d(in_channels, in_channels, (1, strip_k), padding=(0, pad),
+                              groups=in_channels, generator=generator)
+        self.strip_v = Conv2d(in_channels, in_channels, (strip_k, 1), padding=(pad, 0),
+                              groups=in_channels, generator=generator)
+
+    def _forward_rois(self, feats, rois, valid):
+        x = self.roi_extractor(feats, rois, valid)  # (B, S, P, P, C)
+        B, S, P, _, C = x.shape
+        xs = x.reshape(B * S, P, P, C).permute(0, 3, 1, 2)
+        xs = xs + self.strip_v(self.strip_h(xs))
+        x = xs.permute(0, 2, 3, 1).reshape(B, S, -1)
+        for fc in self.shared_fcs:
+            x = torch.relu(fc(x))
+        return self.fc_cls(x).float(), self.fc_reg(x).float()
 
 
 class RiRoIExtractor:

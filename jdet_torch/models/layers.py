@@ -2,19 +2,23 @@
 
 Port of `jdet_tpu/models/layers.py` (`bias_init_with_prob` :20,
 `normal_init` :26, `ConvModule` :30 with norm None or 'bn', `max_pool`
-:101, `resize_nearest` :112) plus the `Conv2d`, `BatchNorm2d` and
-`Linear` that stand in for flax's `nnx.Conv`, `nnx.BatchNorm` and
-`nnx.Linear` (`jdet_tpu/models/nn.py` :53-58).
+:101, `resize_nearest` :112) plus the `Conv2d`, `BatchNorm2d`, `Linear`
+and `LayerNorm2d` that stand in for flax's `nnx.Conv`, `nnx.BatchNorm`,
+`nnx.Linear` and `nnx.LayerNorm` (`jdet_tpu/models/nn.py` :53-74), and
+`gelu` (`jax.nn.gelu`'s default tanh form) and `sigmoid`.
 
-All three bind the compute dtype of `models/nn.py` when they are built and
+All four bind the compute dtype of `models/nn.py` when they are built and
 follow flax's arithmetic under it (flax 0.12, `promote_dtype` of every
 operand to the layer's dtype): the conv casts its input, its float32
 weight and its bias to that dtype, convolves, and adds the bias as an
 operation of its own in that dtype (a bias fused into the conv rounds
 once where flax rounds twice); the BN with running statistics casts the
 input and its four float32 vectors to that dtype and normalizes step by
-step in it. `ConvModule`, `max_pool` and `resize_nearest` keep their
-input's dtype.
+step in it; the LayerNorm casts its input, scale and bias to that dtype,
+then takes the statistics and normalizes in float32 and rounds once.
+`ConvModule`, `max_pool` and `resize_nearest` keep their input's dtype.
+`gelu` and `sigmoid` follow XLA's expansion under a lower dtype, each
+step rounded to it.
 
 Flax's SAME padding is asymmetric under stride 2 (3x3/s2 on an even size
 pads (0, 1), 7x7/s2 on 1024 pads (2, 3)), while torch's `padding=k//2` is
@@ -67,8 +71,11 @@ def same_pads(size, kernel, stride, dilation=1):
 
 
 class Conv2d(nn.Module):
-    """NCHW conv with flax 'SAME' padding; weight OIHW, float32; computes
-    in the compute dtype bound when it is built."""
+    """NCHW conv, weight OIHW (O, I / groups, kh, kw), float32; computes in
+    the compute dtype bound when it is built. `kernel_size` is an int or
+    (kh, kw). Padding is flax's 'SAME' unless `padding` gives flax's
+    explicit symmetric pads, an int or (ph, pw); `groups` is flax's
+    `feature_group_count` (depthwise: groups = channels)."""
 
     def __init__(
         self,
@@ -80,15 +87,20 @@ class Conv2d(nn.Module):
         kernel_init=lecun_normal_init,
         bias_value=0.0,
         *,
+        padding=None,
+        dilation=1,
+        groups=1,
         generator=None,
     ):
         super().__init__()
-        self.kernel_size = kernel_size
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.kernel_size = (kh, kw)
         self.stride = stride
+        self.padding = (padding, padding) if isinstance(padding, int) else padding
+        self.dilation = dilation
+        self.groups = groups
         self.dtype = compute_dtype()
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
-        )
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
         with torch.no_grad():
             kernel_init(self.weight, generator)
@@ -99,13 +111,18 @@ class Conv2d(nn.Module):
         weight, bias = self.weight, self.bias
         if self.dtype is not None:
             x, weight = x.to(self.dtype), weight.to(self.dtype)
-        ph = same_pads(x.shape[-2], self.kernel_size, self.stride)
-        pw = same_pads(x.shape[-1], self.kernel_size, self.stride)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            y = F.conv2d(x, weight, None, self.stride, padding=(ph[0], pw[0]))
+        conv = dict(stride=self.stride, dilation=self.dilation, groups=self.groups)
+        if self.padding is not None:
+            y = F.conv2d(x, weight, None, padding=self.padding, **conv)
         else:
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-            y = F.conv2d(x, weight, None, self.stride)
+            (kh, kw), d = self.kernel_size, self.dilation
+            ph = same_pads(x.shape[-2], kh, self.stride, d)
+            pw = same_pads(x.shape[-1], kw, self.stride, d)
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                y = F.conv2d(x, weight, None, padding=(ph[0], pw[0]), **conv)
+            else:
+                x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+                y = F.conv2d(x, weight, None, **conv)
         if bias is None:
             return y
         return y + bias.to(y.dtype)[:, None, None]
@@ -135,8 +152,10 @@ class Linear(nn.Module):
 class BatchNorm2d(nn.BatchNorm2d):
     """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1);
     float32 parameters and statistics, computing in the compute dtype
-    bound when it is built. Under a compute dtype, training mode takes
-    the batch statistics in float32 and rounds the output, as flax does;
+    bound when it is built. Training mode takes the batch statistics in
+    float32 as flax does (E[x^2] - E[x]^2, clamped at 0) and moves the
+    running ones towards them, biased variance included (torch's own
+    keeps the unbiased one), rounding the output to the compute dtype;
     the main path's BNs all run on their running statistics."""
 
     def __init__(self, channels):
@@ -145,23 +164,82 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         d = self.dtype
-        if d is None:
-            return super().forward(x)
         if self.training:
-            # flax's `_compute_stats` (float32, E[x^2] - E[x]^2) and its
-            # running averages, which keep the biased variance
-            x = x.float()
-            mean = x.mean((0, 2, 3))
-            var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+            # flax's `_compute_stats` and its running averages
+            y = x.float()
+            mean = y.mean((0, 2, 3))
+            var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
-            scale = torch.rsqrt(var + self.eps) * self.weight.to(d)
-            y = (x - mean[:, None, None]) * scale[:, None, None]
-            return (y + self.bias.to(d)[:, None, None]).to(d)
+            weight, bias = self.weight, self.bias
+            if d is not None:
+                weight, bias = weight.to(d), bias.to(d)
+            scale = torch.rsqrt(var + self.eps) * weight
+            y = (y - mean[:, None, None]) * scale[:, None, None] + bias[:, None, None]
+            return y if d is None else y.to(d)
+        if d is None:
+            return super().forward(x)
         mean, var, scale, bias = (t.to(d)[:, None, None] for t in (
             self.running_mean, self.running_var, self.weight, self.bias))
-        return (x.to(d) - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
+        # rsqrt of the bf16 (var + eps) in float32, rounded once, as XLA
+        # computes it (torch's CPU kernel rounds 1/sqrt twice on the short
+        # per-channel vectors it does not vectorize)
+        inv = torch.rsqrt((var + self.eps).float()).to(d)
+        return (x.to(d) - mean) * (inv * scale) + bias
+
+
+class LayerNorm2d(nn.Module):
+    """flax's `nnx.LayerNorm` over the channels of an NCHW tensor: epsilon
+    1e-6 (flax's default; torch's is 1e-5), float32 scale and bias.
+    Statistics in float32 as flax's `use_fast_variance` takes them,
+    E[x^2] - E[x]^2 clamped at 0; then (x - mean) * (rsqrt(var + eps) *
+    scale) + bias in float32, rounded once to the compute dtype bound when
+    it is built (into which input, scale and bias are cast first)."""
+
+    def __init__(self, channels, eps=1e-6):
+        super().__init__()
+        self.eps = eps
+        self.dtype = compute_dtype()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            x, weight, bias = x.to(self.dtype), weight.to(self.dtype), bias.to(self.dtype)
+        y = x.float()
+        mean = y.mean(1, keepdim=True)
+        var = ((y * y).mean(1, keepdim=True) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * weight.float()[:, None, None]
+        y = (y - mean) * mul + bias.float()[:, None, None]
+        return y if self.dtype is None else y.to(self.dtype)
+
+
+def _rounded(value, dtype):
+    """`value` rounded to `dtype`, as a Python float."""
+    return float(torch.tensor(value, dtype=torch.float32).to(dtype))
+
+
+def gelu(x):
+    """`jax.nn.gelu` as the reference calls it: its default
+    `approximate=True`, the tanh form (torch's default is the erf form).
+    In float32 at once; in a lower dtype (the bf16 policy) step by step in
+    that dtype with its constants rounded to it, as XLA computes it: x * (0.5
+    * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * (x * x * x)))))."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = _rounded(0.044715, x.dtype)
+    s = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(s * (x + c * (x * x * x)))))
+
+
+def sigmoid(x):
+    """`jax.nn.sigmoid`: in float32 at once; in a lower dtype as XLA
+    expands it, 1 / (1 + exp(-x)) with each step rounded to that dtype."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 class ConvModule(nn.Module):

@@ -1,8 +1,9 @@
-"""SGD in the form of the reference's optax chain.
+"""SGD, Adam and AdamW in the form of the reference's optax chains.
 
-Port of `jdet_tpu/optim/optimizer.py` for SGD (`frozen_stages_predicate`
-:37, `build_optimizer` :59, `param_groups` lr multipliers :106, the
-teacher mask :121). The reference chains
+Port of `jdet_tpu/optim/optimizer.py` (`frozen_stages_predicate` :37,
+`build_optimizer` :59 with SGD :84, Adam :89 and AdamW :91,
+`param_groups` lr multipliers :106, the teacher mask :121). For SGD the
+reference chains
 
     clip_by_global_norm(max_norm) -> add_decayed_weights(wd)
         -> sgd(lr_schedule, momentum) -> per-parameter multipliers
@@ -24,13 +25,29 @@ and `Optimizer.step` does the same in that order:
   `requires_grad_(False)`, the reference stops the gradient), so they add
   nothing to the clip's norm in either package.
 
-Adam, AdamW and per-group schedules are not ported yet.
+For AdamW the chain is clip -> `optax.adamw(lr_schedule, b1, b2, eps,
+weight_decay)` -> multipliers: Adam's moments of the clipped gradient,
+bias-corrected by the count of Adam's own updates, u = m^ / (sqrt(v^) +
+eps), plus wd * p for every parameter (no mask), times -lr, times the
+parameter's multiplier. `OptaxAdam` computes that update as optax does.
+`torch.optim.AdamW` with a group lr of lr * mult is the same formula, but
+it takes the bias corrections 1 - b^t in float64, where optax takes them
+in float32, where 1 - 0.999 rounds 1.3e-5 off its value, which moves the
+first updates by ~7e-6 of themselves (`OptaxAdam` meets the reference's
+within 1e-6, `tests/test_torch_pretrained.py`). Adam is the
+same without the decay: the reference's `optax.adam` ignores
+`weight_decay`, and so does the port. Parameters of multiplier 0 are left
+out, as for SGD; the reference keeps moments for them that it never
+applies.
+
+Per-group schedules are not ported yet.
 """
 from __future__ import annotations
 
 import fnmatch
 import math
 
+import numpy as np
 import torch
 
 
@@ -65,19 +82,114 @@ def clip_by_global_norm_(grads, max_norm):
     return norm
 
 
-class Optimizer:
-    """Clip, weight decay, momentum SGD at the scheduled lr, per-parameter
-    multipliers: one `step()` per update, after `backward()`."""
+class OptaxAdam(torch.optim.Optimizer):
+    """`optax.adamw` (`optax.adam` with weight_decay 0) in optax's float32
+    arithmetic, on float32 parameters; the state keeps torch's names
+    (`exp_avg` = optax's mu, `exp_avg_sq` = nu, `step` = Adam's count).
+    Per parameter, at step t:
 
-    def __init__(self, params, groups, lr_schedule, momentum, weight_decay, max_norm):
+        m = (1 - b1) g + b1 m;  v = (1 - b2) g^2 + b2 v
+        u = (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps) + wd p
+        p = p + (-lr) u
+
+    with 1 - b^t computed in float32, as optax's `bias_correction` does.
+    A group's lr carries its multiplier, applied to the update as the
+    reference's multiplier transform does (the decay term included)."""
+
+    def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            b1, b2 = group["betas"]
+            for p in ps:
+                if not self.state[p]:
+                    self.state[p] = {"exp_avg": torch.zeros_like(p),
+                                     "exp_avg_sq": torch.zeros_like(p),
+                                     "step": torch.zeros((), dtype=torch.float32)}
+            states = [self.state[p] for p in ps]
+            grads = [p.grad for p in ps]
+            mu = [st["exp_avg"] for st in states]
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+            for st in states:
+                st["step"] += 1
+            steps = torch.stack([st["step"] for st in states])
+            if (steps != steps[0]).any():
+                # optax keeps one count for every parameter
+                raise RuntimeError("OptaxAdam: a group's parameters are at different steps")
+            t = steps[0]
+            one = torch.ones((), dtype=torch.float32)
+            bc1 = float(one - torch.tensor(b1, dtype=torch.float32) ** t)
+            bc2 = float(one - torch.tensor(b2, dtype=torch.float32) ** t)
+            denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(upd, torch._foreach_mul(ps, group["weight_decay"]))
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(ps, upd)
+
+
+class Optimizer:
+    """Clip, then the torch optimizer `inner` (SGD with weight decay and
+    momentum, or `OptaxAdam`) at the scheduled lr times each group's
+    multiplier: one `step()` per update, after `backward()`. `count` is
+    the number of updates made, at which the schedule is read."""
+
+    # what each kind keeps per parameter, by torch's state names
+    STATE_KEYS = {"sgd": ("momentum_buffer",), "adam": ("exp_avg", "exp_avg_sq", "step"),
+                  "adamw": ("exp_avg", "exp_avg_sq", "step")}
+
+    def __init__(self, params, kind, inner, lr_schedule, max_norm):
         # every trainable parameter: its gradient enters the clip's norm
         self.params = params
+        self.kind = kind
+        self.inner = inner
         self.lr_schedule = lr_schedule
         self.max_norm = max_norm
         self.count = 0
-        self.sgd = torch.optim.SGD(
-            groups, lr=lr_schedule(0), momentum=momentum, weight_decay=weight_decay
-        )
+
+    @property
+    def sgd(self):
+        """The inner `torch.optim.SGD` (an SGD optimizer only)."""
+        if self.kind != "sgd":
+            raise AttributeError(f"a {self.kind} optimizer has no SGD")
+        return self.inner
+
+    def updated(self):
+        """The parameters that `step` updates (multiplier not 0)."""
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
+    def state_by_name(self, model):
+        """{parameter name: {state name: CPU tensor}} of each parameter of
+        `model` that has optimizer state yet."""
+        out = {}
+        for name, p in model.named_parameters():
+            st = self.inner.state.get(p)
+            if st:
+                out[name] = {k: st[k].detach().cpu().clone() for k in self.STATE_KEYS[self.kind]
+                             if st.get(k) is not None}
+        return out
+
+    def load_state_by_name(self, model, state):
+        """Set the state of each parameter that `step` updates from
+        `state` ({parameter name: {state name: array}}); parameters that
+        `state` lacks keep theirs."""
+        updated = set(self.updated())
+        for name, p in model.named_parameters():
+            if p in updated and name in state:
+                self.inner.state[p] = {k: torch.as_tensor(np.asarray(v)).to(
+                    p.device if k != "step" else "cpu", torch.float32).clone()
+                    for k, v in state[name].items()}
 
     def zero_grad(self):
         for p in self.params:
@@ -88,9 +200,9 @@ class Optimizer:
         if self.max_norm is not None and grads:
             clip_by_global_norm_(grads, self.max_norm)
         lr = self.lr_schedule(self.count)
-        for group in self.sgd.param_groups:
+        for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_mult"]
-        self.sgd.step()
+        self.inner.step()
         self.count += 1
 
 
@@ -101,17 +213,21 @@ def build_optimizer(
     lr_schedule,
     momentum=0.9,
     weight_decay=0.0001,
+    betas=(0.9, 0.999),
+    eps=1e-8,
     grad_clip=None,
     frozen_stages=None,
     param_groups=None,
 ):
     """Build the `Optimizer` over `model`'s trainable parameters.
 
-    grad_clip: None, a max norm, or dict(max_norm=...). param_groups: list
-    of dicts {"pattern": glob over parameter names, "lr_mult": float}; the
-    multipliers of every matching group multiply."""
-    if opt_type.upper() != "SGD":
-        raise NotImplementedError(f"optimizer {opt_type!r} is not ported")
+    opt_type: "SGD", "Adam" or "AdamW" (any case). grad_clip: None, a max
+    norm, or dict(max_norm=...). param_groups: list of dicts {"pattern":
+    glob over parameter names, "lr_mult": float}; the multipliers of every
+    matching group multiply."""
+    kind = opt_type.lower()
+    if kind not in Optimizer.STATE_KEYS:
+        raise ValueError(f"optimizer {opt_type!r}: SGD, Adam or AdamW")
     max_norm = None
     if grad_clip is not None:
         max_norm = grad_clip.get("max_norm", 10.0) if isinstance(grad_clip, dict) else grad_clip
@@ -141,4 +257,10 @@ def build_optimizer(
         if mult != 0.0:
             by_mult.setdefault(mult, []).append(p)
     groups = [{"params": ps, "lr_mult": m} for m, ps in by_mult.items()]
-    return Optimizer(params, groups, lr_schedule, momentum, weight_decay, max_norm)
+    lr = lr_schedule(0)
+    if kind == "sgd":
+        inner = torch.optim.SGD(groups, lr=lr, momentum=momentum, weight_decay=weight_decay)
+    else:
+        inner = OptaxAdam(groups, lr=lr, betas=betas, eps=eps,
+                          weight_decay=weight_decay if kind == "adamw" else 0.0)
+    return Optimizer(params, kind, inner, lr_schedule, max_norm)

@@ -57,8 +57,54 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
                  "jdet_torch.models.losses.kf_iou_loss",
                  "jdet_torch.models.losses.misc_losses",
                  "jdet_torch.models.losses.smooth_focal_loss",
-                 "jdet_torch.models.losses.iou_loss"):
+                 "jdet_torch.models.losses.iou_loss",
+                 "jdet_torch.models.pretrained", "jdet_torch.models.equivariant.c8_basis",
+                 "jdet_torch.models.backbones.lsknet", "jdet_torch.tools.convert_weights"):
         assert name in walked, name
+
+
+_NO_JAX = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "jdet_tpu"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import runpy
+sys.argv = ["convert_weights"] + sys.argv[1:]
+runpy.run_module("jdet_torch.tools.convert_weights", run_name="__main__")
+"""
+
+
+def test_convert_weights_runs_with_jax_unimportable(tmp_path):
+    """`python -m jdet_torch.tools.convert_weights` with JAX, flax, optax
+    and jdet_tpu made unimportable: a torchvision `.pth` by family, and a
+    JDet payload by config."""
+    import pickle
+
+    from jdet_torch.models.builder import build_detector
+
+    cfg = dict(type="RotatedRetinaNet", backbone=dict(type="ResNet", depth=18),
+               neck=dict(type="FPN", out_channels=16, num_outs=5, start_level=1),
+               bbox_head=dict(type="RotatedRetinaHead", num_classes=3, in_channels=16,
+                              feat_channels=16, stacked_convs=1))
+    model = build_detector(cfg, device="cpu", seed=2, load_pretrained=False)
+    state = model.state_dict()
+    backbone = {k.split(".", 1)[1].replace(".downsample.conv.", ".downsample.0.")
+                .replace(".downsample.bn.", ".downsample.1."): v
+                for k, v in state.items() if k.startswith("backbone.")}
+    torch.save(backbone, tmp_path / "r18.pth")
+    cfg_path = tmp_path / "small.py"
+    cfg_path.write_text(f"model = {cfg!r}\n")
+    with open(tmp_path / "jdet.pkl", "wb") as f:
+        pickle.dump({"meta": {"jdet_version": "0.2"},
+                     "model": {k: v.numpy() for k, v in state.items()}}, f)
+    for args in (["--src", "r18.pth", "--family", "resnet18", "--out", "r18.jtorch.pkl"],
+                 ["--src", "jdet.pkl", "--config-file", str(cfg_path), "--out", "det.pkl",
+                  "--strict"]):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = ROOT
+        proc = subprocess.run([sys.executable, "-c", _NO_JAX, *args], cwd=tmp_path, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert "loaded" in proc.stdout and "0 source keys unused" in proc.stdout, proc.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

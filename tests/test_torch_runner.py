@@ -132,15 +132,22 @@ def test_jax_checkpoint_loads_and_predicts_like_the_jax_model(tmp_path):
 
 
 def test_checkpoint_payloads_the_port_cannot_take(tmp_path):
+    """An EMA payload (until EMA is ported) and one of no known package;
+    a JDet payload ("jdet_version") is imported, as the reference imports
+    it (tests/test_torch_pretrained.py holds the import)."""
     model = build_detector(CFG, device="cpu", load_pretrained=False)
     for name, payload, error in (
             ("ema.pkl", {"meta": {"jdet_tpu_version": "0.1.0"}, "model": {}, "ema": {}},
              NotImplementedError),
-            ("other.pkl", {"meta": {"jdet_version": "0.2"}, "model": {}}, ValueError)):
+            ("other.pkl", {"meta": {"other_version": "0.2"}, "model": {"conv.kernel": 0}},
+             ValueError)):
         with open(tmp_path / name, "wb") as f:
             pickle.dump(payload, f)
         with pytest.raises(error, match=name):
             load_checkpoint(str(tmp_path / name), model)
+    with open(tmp_path / "jdet.pkl", "wb") as f:
+        pickle.dump({"meta": {"jdet_version": "0.2", "epoch": 3}, "model": {}}, f)
+    assert load_checkpoint(str(tmp_path / "jdet.pkl"), model)["epoch"] == 3
 
 
 def test_resume_from_a_jax_checkpoint_takes_the_reference_next_step(tmp_path):
