@@ -1,10 +1,12 @@
 """Dataset class-name tables.
 
 Copy of `jdet_tpu/config/constants.py` (the DOTA, FAIR1M, SSDD, VOC, COCO
-and Cityscapes vocabularies and `get_classes_by_name` :86), kept in the
-port so that it imports nothing of the JAX package.
+and Cityscapes vocabularies, `get_classes_by_name` :86 and `class_palette`
+:93), kept in the port so that it imports nothing of the JAX package.
 """
 from __future__ import annotations
+
+import numpy as np
 
 DOTA1_CLASSES = [
     "plane", "baseball-diamond", "bridge", "ground-track-field",
@@ -85,3 +87,11 @@ def get_classes_by_name(name):
     if name not in _NAME_TABLE:
         raise KeyError(f"unknown dataset class table: {name}")
     return _NAME_TABLE[name]
+
+
+def class_palette(n):
+    """n visualization colours, (n, 3) floats in [76.5, 255): the same
+    draws as the reference's `RandomState(42)`; callers truncate them with
+    `int()`."""
+    rng = np.random.RandomState(42)
+    return (rng.rand(n, 3) * 0.7 + 0.3) * 255

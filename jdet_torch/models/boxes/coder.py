@@ -1,13 +1,16 @@
-"""The midpoint-offset coder of Oriented R-CNN's RPN, and CSL's angle
-coder.
+"""The midpoint-offset coder of Oriented R-CNN's RPN, the gliding-vertex
+coder, and CSL's angle coder.
 
 Port of `jdet_tpu/models/boxes/coder.py` (`midpoint_offset_encode` :23,
-`midpoint_offset_decode` :60, `CSLCoder` :176). Midpoint offset: an
+`midpoint_offset_decode` :60, `gv_fix_encode` :112, `gv_fix_decode` :131,
+`gv_ratio_encode` :159, `CSLCoder` :176). Midpoint offset: an
 oriented box is coded against a horizontal proposal (x1, y1, x2, y2) as
 the hbb deltas (dx, dy, dw, dh) of its enclosing box, plus the offsets of
 its topmost vertex's x and its rightmost vertex's y from that box's
-center, over its width and height. Every function takes arbitrary
-leading batch dimensions.
+center, over its width and height. Gliding vertex: a quad against its
+hbb as the glide ratios of the vertices that touch the top, right,
+bottom and left edges along them, and the quad's area over the hbb's.
+Every function takes arbitrary leading batch dimensions.
 """
 from __future__ import annotations
 
@@ -85,6 +88,58 @@ def midpoint_offset_decode(hbb_proposals, deltas, means=(0.0,) * 6, stds=(1.0,) 
     rect = cp * scale.repeat_interleave(2, -1) + center
     out = poly_to_rbox(rect)
     return out.reshape(*deltas.shape[:-1], k * 5) if k > 1 else out[..., 0, :]
+
+
+def gv_fix_encode(hbbs, polys):
+    """(..., 4) hbbs and (..., 8) quads (vertices in any cyclic order) ->
+    (..., 4) glide ratios: the x of the vertex on the top edge from x1,
+    the y of the one on the right edge from y1, the x of the one on the
+    bottom edge from x2 and the y of the one on the left edge from y2,
+    over the width or height. A vertex is picked by exact equality with
+    the extreme coordinate (the largest x at the top, the largest y on
+    the right, the smallest x at the bottom, the smallest y on the
+    left), as the reference picks it."""
+    xs = polys[..., 0::2]
+    ys = polys[..., 1::2]
+    x1, y1, x2, y2 = hbbs.unbind(-1)
+    w = (x2 - x1).clamp(min=1e-6)
+    h = (y2 - y1).clamp(min=1e-6)
+    t_x = torch.where(ys == ys.amin(-1, keepdim=True), xs, -1e9).amax(-1)
+    r_y = torch.where(xs == xs.amax(-1, keepdim=True), ys, -1e9).amax(-1)
+    d_x = torch.where(ys == ys.amax(-1, keepdim=True), xs, 1e9).amin(-1)
+    l_y = torch.where(xs == xs.amin(-1, keepdim=True), ys, 1e9).amin(-1)
+    return torch.stack([(t_x - x1) / w, (r_y - y1) / h, (x2 - d_x) / w, (y2 - l_y) / h], -1)
+
+
+def gv_fix_decode(hbbs, fix_deltas):
+    """(..., 4) hbbs and (..., k * 4) glide ratios, each clipped to
+    [0, 1] -> (..., k * 8) quads: the top, right, bottom and left
+    vertices, in that order."""
+    k = fix_deltas.shape[-1] // 4
+    d = fix_deltas.reshape(*fix_deltas.shape[:-1], k, 4).clamp(0, 1)
+    x1, y1, x2, y2 = (hbbs[..., i][..., None] for i in range(4))
+    w = x2 - x1
+    h = y2 - y1
+    t_x = x1 + w * d[..., 0]
+    r_y = y1 + h * d[..., 1]
+    d_x = x2 - w * d[..., 2]
+    l_y = y2 - h * d[..., 3]
+    polys = torch.stack([t_x, y1.expand_as(t_x), x2.expand_as(r_y), r_y,
+                         d_x, y2.expand_as(d_x), x1.expand_as(l_y), l_y], -1)
+    return polys.reshape(*fix_deltas.shape[:-1], k * 8) if k > 1 else polys[..., 0, :]
+
+
+def gv_ratio_encode(hbbs, polys):
+    """(..., 4) hbbs and (..., 8) quads -> (..., 1): the quad's area (the
+    shoelace formula) over the hbb's (at least 1e-6)."""
+    x1, y1, x2, y2 = hbbs.unbind(-1)
+    h_area = ((x2 - x1) * (y2 - y1)).clamp(min=1e-6)
+    xs = polys[..., 0::2]
+    ys = polys[..., 1::2]
+    xs_n = torch.roll(xs, -1, -1)
+    ys_n = torch.roll(ys, -1, -1)
+    p_area = 0.5 * (xs * ys_n - xs_n * ys).sum(-1).abs()
+    return (p_area / h_area)[..., None]
 
 
 class CSLCoder:

@@ -1,9 +1,11 @@
 """Two-stage detectors: backbone -> neck -> RPN -> RoI head.
 
 Port of `jdet_tpu/models/detectors/two_stage.py` (`RCNN` :20,
-`OrientedRCNN` :67, `RoITransformer` :83, `StripRCNN` :88, `ReDet` :93). Images come in as (B, H, W, 3) NHWC float32 and are
-permuted to NCHW once. `loss` adds the RPN's losses to the RoI head's,
-the RoI head working on the RPN's proposals without their gradient.
+`OrientedRCNN` :67, `FasterRCNNOBB` :73, `GlidingVertex` :78,
+`RoITransformer` :83, `StripRCNN` :88, `ReDet` :93). Images come in as
+(B, H, W, 3) NHWC float32 and are permuted to NCHW once. `loss` adds the
+RPN's losses to the RoI head's, the RoI head working on the RPN's
+proposals without their gradient.
 
 Randomness: both samplers (the RPN's anchors, the RoI head's proposals)
 draw uniforms from `generator` (a `torch.Generator` on the images'
@@ -65,6 +67,17 @@ class RCNN(nn.Module):
 @MODELS.register_module()
 class OrientedRCNN(RCNN):
     """RCNN with `OrientedRPNHead` and `OrientedHead`."""
+
+
+@MODELS.register_module()
+class FasterRCNNOBB(RCNN):
+    """RCNN with `RPNHead` and `FasterrcnnHead` (hbb proposals, rotated
+    boxes out)."""
+
+
+@MODELS.register_module()
+class GlidingVertex(RCNN):
+    """RCNN with `GlidingRPNHead` and `GlidingHead`."""
 
 
 @MODELS.register_module()

@@ -74,7 +74,7 @@ class OrientedHead(RoIHeadBase):
     def loss(self, feats, proposals, targets, rand=None, generator=None):
         """The RoI losses on the RPN's (detached) proposals. The sampler
         draws from `rand` or `generator`."""
-        rois, valid, labels, lw, bt, bw = self._sample_rois(
+        rois, valid, labels, lw, bt, bw, _ = self._sample_rois(
             proposals["boxes"], proposals["valid"], targets["gt_bboxes"].float(),
             targets["gt_mask"].bool(), targets["gt_labels"], rand=rand, generator=generator)
         cls_score, bbox_pred = self._forward_rois(feats, rois, valid)

@@ -95,7 +95,10 @@ class RoIHeadBase(nn.Module):
         positives regress `gt_reg` (default gt_assign) through `encode`
         (default `self._encode`). The sampler draws from `rand` or
         `generator`. Returns rois (B, S, d), their validity, labels,
-        label weights, box targets and box weights."""
+        label weights, box targets, box weights, and each RoI's matched gt
+        in `gt_reg`'s space (zero where it is not a positive; the
+        reference's `matched_gt`, which Gliding Vertex's glide and ratio
+        targets read)."""
         cfg = self.train_cfg
         scfg = cfg["sampler"]
         rotated = self.start_bbox_type == "obb" if rotated is None else rotated
@@ -128,7 +131,8 @@ class RoIHeadBase(nn.Module):
         labels = torch.where(is_pos, (torch.gather(assign["labels"], 1, order) - 1).clamp(min=0),
                              self.num_classes)
         label_weights = sel_valid.to(enc.dtype)
-        return rois, sel_valid, labels, label_weights, bbox_targets, bbox_weights
+        return (rois, sel_valid, labels, label_weights, bbox_targets, bbox_weights,
+                torch.where(is_pos[..., None], matched, 0.0))
 
     def _final_nms(self, boxes, scores, targets=None):
         """Detections in the fixed-size dict of `RotatedRetinaHead.predict`,

@@ -8,11 +8,11 @@ Port of `jdet_tpu/models/heads/rotated_retina_head.py::RotatedRetinaHead`
 predicting (dx, dy, dw, dh, da) deltas and C = num_classes - 1 sigmoid
 class scores; max-IoU (or ATSS) assignment on rotated IoU; focal loss
 plus the regression loss of `loss_bbox["type"]` (smooth-L1 on deltas;
-GWD / KLD / BCD / IoU on decoded boxes against the gts themselves;
-KFIoU on both; RSDet's modulated loss), averaged by the total
+GWD / KLD / BCD / IoU / RIDet on decoded boxes against the gts
+themselves; KFIoU on both; RSDet's modulated loss), averaged by the total
 positives; test-time per-level top-k -> decode -> multiclass rotated
-NMS, fixed output size. `poly_iou`, `poly_giou` (with `ops/convex.py`)
-and `ridet` (with S2ANet's RIDet config) are not ported and raise.
+NMS, fixed output size. `poly_iou` and `poly_giou` (with
+`ops/convex.py`) are not ported and raise.
 
 Head outputs are NCHW. Anchors run (H, W, A), so `_flatten_outs`
 permutes to NHWC before the reshape: channel a*C + c lands at anchor a,
@@ -33,16 +33,15 @@ from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorRotated
 from ..boxes.anchor_target import anchor_target_batch
 from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init
-from ..losses import (gaussian_dist_loss, kf_iou_loss, rotated_iou_loss, rsdet_loss,
-                      sigmoid_focal_loss, smooth_l1_loss)
+from ..losses import (gaussian_dist_loss, kf_iou_loss, ridet_loss, rotated_iou_loss,
+                      rsdet_loss, sigmoid_focal_loss, smooth_l1_loss)
 
 # regression losses on decoded boxes, against the matched gts themselves
 # (the reference's reg_decoded_bbox, rotated_retina_head.py:198-201)
 REG_DECODED = ("gwd", "kld", "bcd", "iou", "poly_iou", "poly_giou", "ridet")
 # the losses of the reference's dispatch that wait for a module of their own
 NOT_PORTED = {"poly_iou": "ops/convex.py (ROADMAP queue 1 item 11)",
-              "poly_giou": "ops/convex.py (ROADMAP queue 1 item 11)",
-              "ridet": "losses/ridet_loss.py (ROADMAP queue 1 item 6b)"}
+              "poly_giou": "ops/convex.py (ROADMAP queue 1 item 11)"}
 
 DEFAULT_TRAIN_CFG = dict(
     assigner=dict(
@@ -98,7 +97,7 @@ class RotatedRetinaHead(nn.Module):
         if kind in NOT_PORTED:
             raise NotImplementedError(
                 f"loss_bbox {kind!r} is not ported: it needs {NOT_PORTED[kind]}")
-        if kind not in ("smooth_l1", "gwd", "kld", "bcd", "kfiou", "rsdet", "iou"):
+        if kind not in ("smooth_l1", "gwd", "kld", "bcd", "kfiou", "rsdet", "iou", "ridet"):
             raise ValueError(f"unknown loss_bbox {kind!r}")
         self.train_cfg = {**DEFAULT_TRAIN_CFG, **(train_cfg or {})}
         self.test_cfg = {**DEFAULT_TEST_CFG, **(test_cfg or {})}
@@ -265,6 +264,10 @@ class RotatedRetinaHead(nn.Module):
                 bbox_preds.reshape(-1, 5), targets.reshape(-1, 5),
                 anchors.expand(bbox_preds.shape[0], -1, -1).reshape(-1, 5),
                 weight=w1, sigma=cfg.get("sigma", 3.0), avg_factor=num_total)
+        if kind == "ridet":
+            return ridet_loss(
+                self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),
+                weight=w1, beta=cfg.get("beta", 1.0), avg_factor=num_total)
         # "iou"
         return rotated_iou_loss(
             self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),

@@ -1,13 +1,14 @@
-"""Region proposal heads: the classic hbb RPN (ReDet, RoI-Transformer)
-and the oriented RPN of Oriented R-CNN.
+"""Region proposal heads: the classic hbb RPN (ReDet, RoI-Transformer,
+FasterRCNN-OBB), Gliding Vertex's RPN and the oriented RPN of Oriented
+R-CNN.
 
 Port of `jdet_tpu/models/heads/rpn_heads.py` (`_RPNBase` :46, `RPNHead`
-:272, `OrientedRPNHead` :290): a shared 3x3 conv, then 1x1 objectness and
-regression convs over horizontal anchors (3 ratios x 1 scale per
-location, `AnchorGeneratorHBB`). `RPNHead` regresses the 4 hbb deltas
-(`hbox2delta` against the gts' enclosing hbbs) and proposes hbbs;
-`OrientedRPNHead` regresses the 6 midpoint offsets of the rotated gts and
-proposes rotated boxes.
+:272, `GlidingRPNHead` :277, `OrientedRPNHead` :290): a shared 3x3 conv,
+then 1x1 objectness and regression convs over horizontal anchors (3
+ratios x 1 scale per location, `AnchorGeneratorHBB`). `RPNHead` and
+`GlidingRPNHead` regress the 4 hbb deltas (`hbox2delta` against the gts'
+enclosing hbbs) and propose hbbs; `OrientedRPNHead` regresses the 6
+midpoint offsets of the rotated gts and proposes rotated boxes.
 
 - `loss`: the anchors are assigned to the gts' enclosing hbbs by
   `max_iou_assign_hbb`, sampled at random (256 per image, half
@@ -15,14 +16,16 @@ proposes rotated boxes.
   BCE + smooth-L1 (beta 1/9), both over the sampled count.
 - `get_proposals`: per level the `nms_pre` best anchors (a stable sort:
   ties go to the lower index, as `jax.lax.top_k` breaks them), decoded,
-  the size filter, hbb NMS at `nms_thresh` within each level, then the
-  `nms_post` best kept boxes per image. Levels never suppress each other,
-  so the levels are padded with invalid slots to one (B, L, nms_pre)
-  batch and one NMS sweep runs for all of them.
+  the size filter, hbb NMS at `nms_thresh`, then the `nms_post` best
+  kept boxes per image. `RPNHead` and `OrientedRPNHead` run the NMS
+  within each level: levels never suppress each other, so the levels are
+  padded with invalid slots to one (B, L, nms_pre) batch and one NMS
+  sweep runs for all of them. `GlidingRPNHead` (`cross_level_nms`, NMS
+  threshold 0.7 by default) runs one NMS per image over all levels'
+  candidates together, a (B, sum of the levels' sizes) problem.
 
 Head outputs per level: cls (B, A, H, W), reg (B, A * reg_dim, H, W), in
 the compute dtype; `loss` and `get_proposals` cast them to float32.
-`GlidingRPNHead` (one NMS over all levels) is not ported.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ class _RPNBase(nn.Module):
 
     reg_dim = 4
     box_dim = 4
+    cross_level_nms = False
 
     def __init__(
         self,
@@ -186,12 +190,18 @@ class _RPNBase(nn.Module):
             level_boxes.append(self._decode(anchors, deltas))
             level_scores.append(scores)
             sizes.append(scores.shape[1])
-        # levels padded to one (B, L, m) batch with invalid slots
-        m = max(sizes)
-        boxes = torch.stack([F.pad(b, (0, 0, 0, m - b.shape[1])) for b in level_boxes], 1)
-        scores = torch.stack([F.pad(s, (0, m - s.shape[1])) for s in level_scores], 1)
-        real = torch.arange(m, device=boxes.device) < torch.tensor(
-            sizes, device=boxes.device)[:, None]
+        if self.cross_level_nms:
+            # one (B, sum of sizes) problem: every level's candidates
+            boxes = torch.cat(level_boxes, 1)
+            scores = torch.cat(level_scores, 1)
+            real = torch.ones_like(scores, dtype=torch.bool)
+        else:
+            # levels padded to one (B, L, m) batch with invalid slots
+            m = max(sizes)
+            boxes = torch.stack([F.pad(b, (0, 0, 0, m - b.shape[1])) for b in level_boxes], 1)
+            scores = torch.stack([F.pad(s, (0, m - s.shape[1])) for s in level_scores], 1)
+            real = torch.arange(m, device=boxes.device) < torch.tensor(
+                sizes, device=boxes.device)[:, None]
         hbb = self._proposal_hbb(boxes)
         if self.min_bbox_size >= 0:
             w, h = self._proposal_wh(boxes, hbb)
@@ -222,6 +232,17 @@ class _RPNBase(nn.Module):
 @HEADS.register_module()
 class RPNHead(_RPNBase):
     """The classic hbb RPN: hbb deltas, hbb proposals (B, nms_post, 4)."""
+
+
+@HEADS.register_module()
+class GlidingRPNHead(_RPNBase):
+    """Gliding Vertex's RPN: `RPNHead`'s hbb deltas and proposals, with one
+    NMS per image over all levels (threshold 0.7 by default)."""
+
+    cross_level_nms = True
+
+    def __init__(self, *args, nms_thresh=0.7, **kw):
+        super().__init__(*args, nms_thresh=nms_thresh, **kw)
 
 
 @HEADS.register_module()

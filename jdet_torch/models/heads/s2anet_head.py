@@ -3,7 +3,7 @@ Module.
 
 Port of `jdet_tpu/models/heads/s2anet_head.py` (`AlignConv` :61 with
 `get_offset` :74, `S2ANetHead` :114, `forward_single` :224, `loss` :289
-with the smooth-L1 branch, `predict` :377):
+with the smooth-L1 and the RIDet branch, `predict` :377):
 
 - FAM: conv towers -> fam_cls / fam_reg over one square anchor per
   location (`AnchorGeneratorRotatedS2ANet`); the detached FAM deltas
@@ -15,7 +15,11 @@ with the smooth-L1 branch, `predict` :377):
   rotation-invariant pooling; then towers -> odm_cls / odm_reg.
 - Losses: targets twice, FAM on the shared init anchors and ODM on the
   per-image refined anchors (the fused assigner's two launches per step),
-  each focal + smooth-L1 averaged by its own positive count.
+  each focal + smooth-L1 averaged by its own positive count. A stage
+  whose box loss is `ridet` (`s2anet_r50_fpn_1x_dota_ridet.py`'s ODM)
+  takes the gts themselves as targets (`reg_decoded_bbox`, from the
+  stage's cfg, true by default under `ridet`) and scores its deltas
+  decoded on its anchors with `ridet_loss`.
 - `predict` decodes the ODM outputs from the refined anchors and runs the
   rotated NMS, whose per-class IoU runs on K1's matrix on the card.
 
@@ -42,7 +46,7 @@ from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorRotatedS2ANet
 from ..boxes.anchor_target import anchor_target_batch
 from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init
-from ..losses import sigmoid_focal_loss, smooth_l1_loss
+from ..losses import ridet_loss, sigmoid_focal_loss, smooth_l1_loss
 
 DEFAULT_TRAIN_CFG = dict(
     fam_cfg=dict(assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0),
@@ -126,10 +130,9 @@ class S2ANetHead(nn.Module):
                               odm_cls=dict(loss_odm_cls), odm_bbox=dict(loss_odm_bbox))
         for name in ("fam_bbox", "odm_bbox"):
             kind = self.loss_cfgs[name].get("type", "smooth_l1")
-            if kind != "smooth_l1":
+            if kind not in ("smooth_l1", "ridet"):
                 raise NotImplementedError(
-                    f"loss_{name} {kind!r} is not ported: it waits for "
-                    "jdet_tpu/models/losses/ridet_loss.py")
+                    f"loss_{name} {kind!r}: S2ANet's box losses are smooth_l1 and ridet")
         self.train_cfg = {**DEFAULT_TRAIN_CFG, **(train_cfg or {})}
         self.test_cfg = {**DEFAULT_TEST_CFG, **(test_cfg or {})}
 
@@ -230,10 +233,13 @@ class S2ANetHead(nn.Module):
         for name, anchors, cls_p, reg_p in (("fam", init_anchors, fam_cls, fam_reg),
                                             ("odm", refine, odm_cls, odm_reg)):
             cfg = self.train_cfg[f"{name}_cfg"]
+            bcfg = self.loss_cfgs[f"{name}_bbox"]
+            bkind = bcfg.get("type", "smooth_l1")
             tgt, num_pos, _ = anchor_target_batch(
                 anchors, valid, gt_bboxes, gt_mask, targets["gt_labels"],
                 target_means=self.target_means, target_stds=self.target_stds,
                 assigner_cfg=dict(cfg["assigner"]), pos_weight=cfg.get("pos_weight", -1),
+                reg_decoded_bbox=bool(cfg.get("reg_decoded_bbox", bkind == "ridet")),
             )
             num_total = num_pos.clamp(min=1).to(cls_p.dtype)
             ccfg = self.loss_cfgs[f"{name}_cls"]
@@ -242,11 +248,20 @@ class S2ANetHead(nn.Module):
                 gamma=ccfg.get("gamma", 2.0), alpha=ccfg.get("alpha", 0.25),
                 avg_factor=num_total,
             ) * ccfg.get("loss_weight", 1.0)
-            bcfg = self.loss_cfgs[f"{name}_bbox"]
-            losses[f"loss_{name}_bbox"] = smooth_l1_loss(
-                reg_p, tgt["bbox_targets"], weight=tgt["bbox_weights"],
-                beta=bcfg.get("beta", 1.0 / 9.0), avg_factor=num_total,
-            ) * bcfg.get("loss_weight", 1.0)
+            if bkind == "ridet":
+                # the deltas decoded on the anchors (the ODM's refined
+                # anchors carry no gradient), against the gts themselves
+                decoded = delta2rbox(anchors if anchors.dim() == 3 else anchors[None], reg_p,
+                                     self.target_means, self.target_stds)
+                loss_bbox = ridet_loss(
+                    decoded.reshape(-1, 5), tgt["bbox_targets"].reshape(-1, 5),
+                    weight=tgt["bbox_weights"][..., 0].reshape(-1),
+                    beta=bcfg.get("beta", 1.0), avg_factor=num_total)
+            else:
+                loss_bbox = smooth_l1_loss(
+                    reg_p, tgt["bbox_targets"], weight=tgt["bbox_weights"],
+                    beta=bcfg.get("beta", 1.0 / 9.0), avg_factor=num_total)
+            losses[f"loss_{name}_bbox"] = loss_bbox * bcfg.get("loss_weight", 1.0)
         return losses
 
     # ------------------------------------------------------------------

@@ -5,8 +5,7 @@ functions: `LOSSES` maps the reference's class names to them, and
 `build_from_cfg(dict(type="FocalLoss", gamma=2.0), LOSSES)` returns the
 function with those keywords bound. The names whose losses are not ported
 yet (`PolyIoULoss`, `PolyGIoULoss` and `ConvexGIoULoss` with
-`ops/convex.py`, `RIDetLoss` with S2ANet's RIDet config) are not
-registered.
+`ops/convex.py`) are not registered.
 """
 from functools import partial as _partial
 
@@ -30,6 +29,7 @@ from .misc_losses import (
     knowledge_distillation_kl_div_loss,
     rsdet_loss,
 )
+from .ridet_loss import ridet_loss
 from .smooth_focal_loss import smooth_focal_loss
 
 
@@ -52,5 +52,6 @@ for _name, _fn in {
     "KnowledgeDistillationKLDivLoss": knowledge_distillation_kl_div_loss,
     "IMLoss": im_loss,
     "RSDetLoss": rsdet_loss,
+    "RIDetLoss": ridet_loss,
 }.items():
     _register_fn(_name, _fn)

@@ -42,6 +42,13 @@ def _greedy_sweep(overlap, valid):
         keep = new
 
 
+def _top(x, k):
+    """The k largest along the last axis, descending, ties to the lower
+    index."""
+    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
 def nms_rotated(boxes, scores, iou_threshold, valid=None):
     """Greedy rotated NMS over (n, 5) boxes.
 
@@ -80,7 +87,11 @@ def multiclass_nms_rotated(
 
     valid = multi_scores > score_thr
     sT = torch.where(valid, multi_scores, float("-inf")).transpose(1, 2)
-    top_s, top_i = torch.topk(sT, K, dim=-1)  # (B, C, K), sorted desc
+    # stable sorts: equal scores keep the lower index first, as
+    # `jax.lax.top_k` orders them, on either device (`torch.topk` breaks
+    # ties one way on the CPU and another on the card, and the order
+    # decides which of two tied boxes suppresses the other)
+    top_s, top_i = _top(sT, K)  # (B, C, K), sorted desc
     b = torch.gather(
         multi_bboxes[:, None].expand(B, num_classes, n, 5),
         2, top_i[..., None].expand(B, num_classes, K, 5),
@@ -96,7 +107,7 @@ def multiclass_nms_rotated(
 
     flat_s = torch.where(keep, top_s, float("-inf")).reshape(B, -1)
     m = min(max_per_img, flat_s.shape[1])
-    sel_s, sel = torch.topk(flat_s, m, dim=-1)
+    sel_s, sel = _top(flat_s, m)
     valid_out = torch.isfinite(sel_s)
     boxes = torch.gather(
         b.reshape(B, -1, 5), 1, sel[..., None].expand(B, m, 5)

@@ -3,7 +3,8 @@ one device.
 
 Port of `jdet_tpu/runner/runner.py` (constructor :47-199, `run` :283,
 `train_epoch` :296, `_run_inference` :340, `val` :418, `test` :429,
-`profile` :465, `test_time` :494, `save`/`load`/`resume` :526-572,
+`run_on_images` :450, `profile` :465, `test_time` :494,
+`save`/`load`/`resume` :526-572,
 `_unflip_dets` :574, `_meta_light` :600). The config is a plain dict
 (`jdet_torch.config`).
 
@@ -15,7 +16,6 @@ them only when it logs.
 
 Keys the port cannot honour raise instead of being ignored:
 `scheduler.groups` (per-group schedules) and `ema`.
-`run_on_images`/`vis_test` are not ported.
 """
 from __future__ import annotations
 
@@ -245,6 +245,25 @@ class Runner:
         if hasattr(self.test_dataset, "save_submission"):
             self.test_dataset.save_submission(results, os.path.join(self.work_dir, "submission"))
         return path
+
+    def run_on_images(self, images_dir, save_dir=None):
+        """Predict over the images of `images_dir` (an `ImageDataset` of
+        `dataset_type`, with the test split's transforms and canvas) and,
+        where `save_dir` is given, write them with their detections drawn
+        (`utils/visualization.py::visualize_results`). Returns the
+        results."""
+        from ..data.dota import ImageDataset
+        from ..utils.visualization import visualize_results
+
+        test_cfg = dict((self.cfg.get("dataset") or {}).get("test") or {})
+        ds = ImageDataset(images_dir=images_dir,
+                          dataset_type=self.cfg.get("dataset_type") or "DOTA",
+                          transforms=test_cfg.get("transforms"),
+                          image_size=test_cfg.get("image_size", (1024, 1024)))
+        results = self._run_inference(ds)
+        if save_dir:
+            visualize_results(results, ds.CLASSES, images_dir, save_dir)
+        return results
 
     def profile(self, n_steps=10, out_dir=None):
         """Record `n_steps` train steps on one batch under `torch.profiler`

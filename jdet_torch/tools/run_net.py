@@ -1,15 +1,17 @@
 """Train, validate or test a model from a config file.
 
     python -m jdet_torch.tools.run_net --config-file <cfg> \
-        --task {train,val,test,test_time} [--save_dir DIR] [--cpu]
+        --task {train,val,test,test_time,vis_test} [--save_dir DIR] [--cpu]
 
 The port of `tools/run_net.py`, with the same arguments. It runs on the
 CUDA card, and raises where there is none, unless `--cpu` is given.
-`--task vis_test` needs the visualizer, which is not ported yet.
+`--task vis_test` predicts over the config's `images_dir` and writes the
+images with their detections drawn to `work_dir/vis`.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None):
@@ -22,9 +24,6 @@ def main(argv=None):
     parser.add_argument("--save_dir", default=None)
     parser.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
     args = parser.parse_args(argv)
-    if args.task == "vis_test":
-        parser.error("--task vis_test needs the result visualizer, which jdet_torch "
-                     "has not ported yet")
 
     from jdet_torch.config import init_cfg
     from jdet_torch.runner import Runner
@@ -40,8 +39,10 @@ def main(argv=None):
             print(runner.val())
         elif args.task == "test":
             print(runner.test())
-        else:
+        elif args.task == "test_time":
             print(runner.test_time())
+        else:
+            runner.run_on_images(cfg.get("images_dir"), os.path.join(runner.work_dir, "vis"))
     finally:
         runner.close()
 

@@ -1,7 +1,8 @@
-"""Boundaries of the PyTorch port: it imports nothing of JAX or jdet_tpu
-(and its data pipeline neither cv2 nor PIL), its smoke script refuses to
-run without a card, and `build_detector`, the Runner and the CLI default
-to the card."""
+"""Boundaries of the PyTorch port: it imports nothing of JAX or jdet_tpu,
+nor cv2 or PIL (the GPU machine has neither: the port decodes, draws and
+writes images itself), its smoke script refuses to run without a card,
+and `build_detector`, the Runner and the CLI default to the card."""
+import ast
 import os
 import subprocess
 import sys
@@ -59,8 +60,36 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
                  "jdet_torch.models.losses.smooth_focal_loss",
                  "jdet_torch.models.losses.iou_loss",
                  "jdet_torch.models.pretrained", "jdet_torch.models.equivariant.c8_basis",
-                 "jdet_torch.models.backbones.lsknet", "jdet_torch.tools.convert_weights"):
+                 "jdet_torch.models.backbones.lsknet", "jdet_torch.tools.convert_weights",
+                 "jdet_torch.models.losses.ridet_loss", "jdet_torch.utils.draw",
+                 "jdet_torch.utils.visualization"):
         assert name in walked, name
+
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "jdet_tpu", "cv2", "PIL")
+
+
+def test_no_source_file_of_the_port_names_a_banned_import():
+    """Every import statement of `jdet_torch/` and `chip_smoke.py`, lazy
+    ones inside functions included, which the import test above cannot
+    see run."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "jdet_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), m) for m in mods
+                    if m.split(".")[0] in BANNED]
+    assert len(files) > 60 and not bad, bad
 
 
 _NO_JAX = """

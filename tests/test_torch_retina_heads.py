@@ -144,7 +144,10 @@ def test_head_shapes_and_unported_losses():
     assert tuple(csl.retina_angle_cls.weight.shape) == (9 * 45, 32, 1, 1)
     atss = _thead("atss")
     assert atss.num_anchors == 1 and atss.train_cfg["assigner"] == dict(type="atss", topk=9)
-    for kind, item in (("poly_iou", "item 11"), ("poly_giou", "item 11"), ("ridet", "item 6b")):
+    for kind, item in (("poly_iou", "item 11"), ("poly_giou", "item 11")):
         cfg = dict(_head_cfg("gwd"), type="RotatedRetinaHead", loss_bbox=dict(type=kind))
         with pytest.raises(NotImplementedError, match=item):
             build_from_cfg(cfg, HEADS)
+    # ridet is ported (tests/test_torch_ridet.py holds it to the reference)
+    cfg = dict(_head_cfg("gwd"), type="RotatedRetinaHead", loss_bbox=dict(type="ridet"))
+    assert build_from_cfg(cfg, HEADS).loss_bbox_cfg["type"] == "ridet"

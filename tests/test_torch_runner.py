@@ -34,6 +34,7 @@ from jdet_tpu.models.pretrained import flat_paths
 from jdet_tpu.runner.checkpoint import save_checkpoint as j_save_checkpoint
 from jdet_tpu.runner.runner import _unflip_dets as j_unflip_dets
 from jdet_torch.data.dota import DOTADataset
+from jdet_torch.data.image_io import imread
 from jdet_torch.data.synthetic import make_synthetic_dota
 from jdet_torch.models.builder import build_detector
 from jdet_torch.models.convert import params_from_jax
@@ -592,8 +593,19 @@ def test_runner_refuses_what_it_cannot_honour(mini_tree):
     cfg["scheduler"] = dict(cfg["scheduler"], groups=[dict(pattern="*", lr_mult=1.0)])
     with pytest.raises(NotImplementedError, match="groups"):
         Runner(cfg, device="cpu")
-    with pytest.raises(SystemExit):
-        run_net.main(["--config-file", "any.py", "--task", "vis_test"])
+    # vis_test, refused before the visualizer was ported, writes the images
+    work = os.path.join(root, "vis_work")
+    cfg_file = os.path.join(root, "vis_cfg.py")
+    vis_cfg = _mini_cfg(root, img_dir, ann, work_dir=work, images_dir=img_dir,
+                        dataset_type="DOTA")
+    with open(cfg_file, "w") as f:
+        f.write("\n".join(f"{k} = {v!r}" for k, v in vis_cfg.items()) + "\n")
+    run_net.main(["--config-file", cfg_file, "--task", "vis_test", "--cpu"])
+    tiles = sorted(f for f in os.listdir(img_dir) if f.endswith(".png"))
+    assert sorted(os.listdir(os.path.join(work, "vis"))) == tiles
+    for f in tiles:
+        assert imread(os.path.join(work, "vis", f)).shape == imread(
+            os.path.join(img_dir, f)).shape
 
 
 def test_tensorboard_logger_writes_scalars(tmp_path, monkeypatch):
