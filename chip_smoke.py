@@ -54,10 +54,8 @@
    route; AlignConv's deformable conv and the ORConv against the CPU at
    the P3 shape and timed at the step's shapes; card against CPU at 512²
    (head outputs, losses, 2 train steps, and in bf16 within the f32 -
-   bf16 gap); the serving path at B=2 and 20 train steps at B=4, 1024²,
-   K=512, in float32 and bf16, with the deformable conv's sampling and
-   scatter-add, the ORConv's ARF expansion and the fused assigner named in
-   the step's profile; and one epoch of 2 iterations, a val and a test
+   bf16 gap); the serving path at B=2 and 5 train steps at B=4, 1024²,
+   K=512, in float32 and bf16; and one epoch of 2 iterations, a val and a test
    through `python -m jdet_torch.tools.run_net` on 8 synthetic tiles.
 8b. Oriented R-CNN R50-FPN from `configs/oriented_rcnn_r50_fpn_1x_dota.py`
    at full width with random weights: the fused assigner on the RoI
@@ -68,11 +66,12 @@
    plain version's gt_inds and labels, timed against the unfused route;
    card against CPU at 512² (network outputs, proposals and detections as
    sets, the four losses and 2 train steps on the same sampler draws, and
-   in bf16 within the f32 - bf16 gap); the serving path at B=2, 20 train
-   steps at B=4 and 5 at B=16 (the reference's bench batch), in float32
-   and bf16, with the step's parts (the RPN's hbb assignment and its peak
-   memory, its targets, the proposals, the RoI sampling, the RoI align
-   forward and backward, the FCs); and `run_net` on 8 synthetic tiles.
+   in bf16 within the f32 - bf16 gap); the serving path at B=2, 5 train
+   steps at B=4 and 3 at B=16 (the reference's bench batch), in float32
+   and bf16, with the step's parts in float32 (the RPN's hbb assignment
+   and its peak memory, its targets, the proposals, the RoI sampling, the
+   RoI align forward and backward, the FCs); and `run_net` on 8
+   synthetic tiles.
 8c. ReDet ReResNet50-ReFPN from `configs/redet_re50_refpn_1x_dota.py` at
    full width with random weights: the fused assigner on its stage-2 route
    at (4, 512, 1024) (each image's 512 gt slots, 64 real, prepended to the
@@ -84,8 +83,8 @@
    losses and 2 train steps on the same sampler draws, each step from the
    same parameters and momentum on both devices, and in bf16 within the
    f32 - bf16 gap); the serving path at B=2 (its predicts with every
-   expanded weight cached, as the Runner's inference runs) and 20 train
-   steps at B=4, in float32 and bf16, with the step's parts (the C8
+   expanded weight cached, as the Runner's inference runs) and 5 train
+   steps at B=4, in float32 and bf16, with the step's parts in float32 (the C8
    weight expansions, stage-1 and stage-2 sampling, RiRoIAlign forward and
    backward, the FCs); and `run_net` on 8 synthetic tiles, which fills
    and drops the expansion cache around its val and test.
@@ -109,25 +108,24 @@
    RPN fails in the reference), each at full width (dims 64-128-320-512,
    depths 2-2-4-2) with random weights and the config's AdamW: card
    against CPU at 512² (network outputs, proposals and detections as
-   sets, the losses and every gradient from one state, and in bf16
-   within the f32 - bf16 gap); the serving path at B=2 and the train step
-   at B=4, 1024², K=512 (20 steps for LSKNet-S, 10 for StripNet-S) with
-   peak memory and the depthwise convs' share of the profile, in float32
-   and bf16.
+   sets, the losses and every gradient from one state; LSKNet-S's also
+   under the bf16 policy within the f32 - bf16 gap); the serving path
+   at B=2 and 5 train steps at B=4, 1024², K=512 with peak memory, in
+   float32 and bf16.
 8g. FasterRCNN-OBB and Gliding Vertex R50-FPN
    (`configs/faster_rcnn_obb_r50_fpn_1x_dota.py`, `gliding_r50_fpn_1x_dota.py`),
    each at full width with random weights: card against CPU at 512²
    (network outputs, proposals and detections as sets, the losses and 2
-   train steps on the same sampler draws, bf16 within the f32 - bf16
-   gap), the serving path at B=2 and 5 train steps at B=4, 1024², K=512,
-   in float32 and bf16; Gliding's step parts in float32 (its one hbb NMS
+   train steps on the same sampler draws; FasterRCNN-OBB's bf16 within
+   the f32 - bf16 gap), the serving path at B=2 and 5 train steps at
+   B=4, 1024², K=512, in float32 and bf16; Gliding's step parts in float32 (its one hbb NMS
    over all levels, with its fixpoint rounds, and the RoI sampling). Both assign
    horizontal boxes only: no fused launch, one K1 matrix launch per
    `predict`. Then `gliding_r50_fpn_1x_dota_ra90_balance.py` from its file:
    2 steps with its device flip and rot90.
 8h. S2ANet with the RIDet loss (`s2anet_r50_fpn_1x_dota_ridet.py`): card
-   against CPU at 512² (head outputs, losses, 2 train steps, bf16 within
-   the gap), then 5 train steps at the config's traffic in float32 and
+   against CPU at 512² (head outputs, losses, 2 train steps), then 5
+   train steps at the config's traffic in float32 and
    bf16. S2ANet R101 (`s2anet_r101_fpn_1x_dota.py`): the serving path in
    float32 and 5 train steps in float32 and bf16. Both: one shared and one
    per-image fused launch per loss forward and train step.
@@ -136,6 +134,16 @@
    `pretrained_weights` so that untrained scores pass the visualizer's
    0.3): the PNGs it writes to work_dir/vis, the pixels drawn, one K1
    matrix launch per predict batch.
+8j. R3Det, Rotated FCOS and H2RBox R50-FPN, each from its config file
+   (`r3det_r50_fpn_1x_dota.py`, `fcos_obb_r50_fpn_1x_dota.py`,
+   `h2rbox_r50_fpn_1x_dota.py` with its AdamW) at full width with random
+   weights: R3Det's per-image fused route on its refine stage's refined
+   boxes at (4, 512, 21824), against K1's matrix + the PyTorch assigner,
+   the CPU plain version and its bound; card against CPU at 512², B=1
+   (the loss forward in float32; R3Det's and FCOS's 2 SGD train steps in
+   float32; for H2RBox's AdamW every gradient from one state under the
+   float64 policy, both devices on one theta); the serving path at B=2
+   and 5 train steps at B=4, 1024², K=512, in float32 and bf16.
 8f. Weight import, from files written from a seed: a torchvision-named
    ResNet-50 `.pth` as the main config's `backbone.pretrained`; a JDet
    payload of the whole RetinaNet through `Runner.load`, then its loss
@@ -170,9 +178,10 @@ Each path (serving, K2's entry point, training, the same in bf16, the
 S2ANet, Oriented R-CNN, ReDet and RetinaNet variants' paths and their
 `run_net`, LSKNet-S's and StripNet-S's paths, the imported detector's
 loss forward and `predict`, FasterRCNN-OBB's, Gliding Vertex's, S2ANet
-RIDet's and R101's paths, `vis_test`, the Runner's `run()`, the epoch on
-the preprocessed tiles and its val and test) runs with the launch
-counters set to 0 just before it and read just after:
+RIDet's and R101's paths, R3Det's, FCOS's and H2RBox's paths,
+`vis_test`, the Runner's `run()`, the epoch on the preprocessed tiles
+and its val and test) runs with the launch counters set to 0 just
+before it and read just after:
 one fused assigner launch per loss forward and per train step
 (RetinaNet), two for S2ANet (FAM on shared anchors, ODM on per-image
 anchors), one per-image launch for Oriented R-CNN (its RoI head) and for
@@ -180,8 +189,16 @@ ReDet (its stage 2) and for LSKNet-S and StripNet-S (their RoI heads),
 and for the RetinaNet variants one fused launch
 (GWD, KLD, KFIoU, RSDet, CSL, LD, v1d, DOTA-1.5), one K1 matrix launch
 inside the assigner (ATSS) or none (hbb); none for FasterRCNN-OBB and
-Gliding Vertex; one K1 matrix launch per `predict` (per predict batch in
-`val`, `test` and `vis_test`), no K2 launch.
+Gliding Vertex; one shared and one per-image (no mask) for R3Det; none
+for FCOS and H2RBox; one K1 matrix launch per `predict` (per predict
+batch in `val`, `test` and `vis_test`), no K2 launch.
+
+The families whose times `PERF.md` already holds (all but the main
+RetinaNet) are timed briefly (`brief=True`) and run 5 train steps
+(Oriented R-CNN 3 at B=16), and the bf16 card-against-CPU check runs
+once per head family (RetinaNet, S2ANet, Oriented R-CNN R50, ReDet,
+FasterRCNN-OBB) and once for the LSKNet/StripNet backbones (LSKNet-S):
+the script stays well inside its 1200 s.
 
 Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off throughout, so float32 means float32.
@@ -210,8 +227,8 @@ IOU_FLOPS_PER_TOUCHING_PAIR = 300
 # reference's cost estimate for kernel="generic", same line)
 IOU_FLOPS_PER_PAIR_GENERIC = 700
 # The schedule's epoch length comes from the dataset, which the checkout
-# does not hold: take 1000 steps per epoch. The 20 steps here see only the
-# warmup (500 iterations); the milestones (epochs 8, 11) lie far beyond.
+# does not hold: take 1000 steps per epoch. The 5-20 steps here see only
+# the warmup (500 iterations); the milestones (epochs 8, 11) lie far beyond.
 STEPS_PER_EPOCH = 1000
 # how far the bf16 model on the card may sit from the bf16 model on the
 # CPU, in units of the f32 - bf16 gap (check_bf16_card_against_cpu)
@@ -233,6 +250,9 @@ GLIDING_RA90_CONFIG = (Path(__file__).resolve().parent
                        / "configs/gliding_r50_fpn_1x_dota_ra90_balance.py")
 RIDET_CONFIG = Path(__file__).resolve().parent / "configs/s2anet_r50_fpn_1x_dota_ridet.py"
 S2ANET_R101_CONFIG = Path(__file__).resolve().parent / "configs/s2anet_r101_fpn_1x_dota.py"
+R3DET_CONFIG = Path(__file__).resolve().parent / "configs/r3det_r50_fpn_1x_dota.py"
+FCOS_CONFIG = Path(__file__).resolve().parent / "configs/fcos_obb_r50_fpn_1x_dota.py"
+H2RBOX_CONFIG = Path(__file__).resolve().parent / "configs/h2rbox_r50_fpn_1x_dota.py"
 # the card-vs-CPU gradients of LSKNet-S / StripNet-S from one state: each
 # trainable tensor's largest error over its largest CPU gradient, and the
 # error's RMS over the gradient's RMS (a probe run read StripNet-S's worst
@@ -288,6 +308,16 @@ def is_redet(model):
     return type(model).__name__ == "ReDet"
 
 
+def is_r3det(model):
+    return type(model).__name__ == "R3Det"
+
+
+def is_point_head(model):
+    """Rotated FCOS and H2RBox: anchor-free heads whose targets come from
+    points inside the gts, with no rotated IoU assigner."""
+    return type(model).__name__ in ("FCOS", "H2RBox")
+
+
 def is_hbb_rcnn(model):
     """FasterRCNN-OBB and Gliding Vertex: RoI heads on hbb proposals, which
     assign with `max_iou_assign_hbb` (no kernel)."""
@@ -300,16 +330,18 @@ def fused_per_loss(model):
     ODM on per-image refined anchors; Oriented R-CNN's RoI head once on
     its per-image proposals, and ReDet's cascade once on its stage-2
     candidates (their RPNs, and ReDet's stage 1, assign horizontal boxes
-    in plain PyTorch); FasterRCNN-OBB's and Gliding Vertex's never (their
-    RPNs and RoI heads assign horizontal boxes)."""
-    if is_hbb_rcnn(model):
+    in plain PyTorch); R3Det's stage 1 on shared anchors and its refine
+    stage on per-image refined boxes; FasterRCNN-OBB's and Gliding
+    Vertex's never (their RPNs and RoI heads assign horizontal boxes), nor
+    Rotated FCOS's and H2RBox's (point targets)."""
+    if is_hbb_rcnn(model) or is_point_head(model):
         return {"max_iou_assign_rect": 0, "max_iou_assign_rect_per_image": 0,
                 "max_iou_assign_rect_per_image_masked": 0}
     if is_orcnn(model) or is_redet(model):
         return {"max_iou_assign_rect": 0, "max_iou_assign_rect_per_image": 1,
                 "max_iou_assign_rect_per_image_masked": 1}
     return {"max_iou_assign_rect": 1,
-            "max_iou_assign_rect_per_image": 1 if is_s2anet(model) else 0,
+            "max_iou_assign_rect_per_image": 1 if is_s2anet(model) or is_r3det(model) else 0,
             "max_iou_assign_rect_per_image_masked": 0}
 
 
@@ -338,6 +370,14 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+# Brief timing (`brief=True`), for the families whose times PERF.md
+# already holds: medians of 3 after 1 call, and no step parts or profiler
+# window in `train_at_config_traffic`. Launch counts and checks are the same.
+def timing(brief, warmup=2, iters=10):
+    """(warmup, iters) of `median_ms`: (1, 3) if `brief`."""
+    return (1, 3) if brief else (warmup, iters)
 
 
 def median_ms(fn, warmup=3, iters=10):
@@ -592,15 +632,15 @@ def check_iou_kernel(rik, head):
     }
 
 
-def decisive_anchors(ov, gt_mask):
+def decisive_anchors(ov, gt_mask, pos_thr=0.5, neg_thr=0.4):
     """(B, N) mask of the anchors whose assignment no change below 1e-5 in
-    an IoU can flip: the max IoU off 0.4 and 0.5, no second gt within 1e-5
-    of a positive's best, and no IoU within 1e-5 of its gt's max."""
+    an IoU can flip: the max IoU off both thresholds, no second gt within
+    1e-5 of a positive's best, and no IoU within 1e-5 of its gt's max."""
     ov = ov.masked_fill(~gt_mask[..., None], float("-inf"))
     top2 = ov.topk(2, dim=1).values
     mo = top2[:, 0]
-    ok = ((mo - 0.4).abs() >= 1e-5) & ((mo - 0.5).abs() >= 1e-5)
-    ok &= ~((mo >= 0.5 - 1e-5) & (top2[:, 0] - top2[:, 1] < 1e-5))
+    ok = ((mo - neg_thr).abs() >= 1e-5) & ((mo - pos_thr).abs() >= 1e-5)
+    ok &= ~((mo >= pos_thr - 1e-5) & (top2[:, 0] - top2[:, 1] < 1e-5))
     return ok & ~((ov - ov.amax(-1, keepdim=True)).abs() < 1e-5).any(1)
 
 
@@ -750,12 +790,13 @@ def refined_anchors_of(model, images):
     return torch.cat([o[2].reshape(images.shape[0], -1, 5) for o in outs], 1).float()
 
 
-def check_assign_per_image_kernel(rik, model, cfg):
-    """The fused assigner on per-image anchors (S2ANet's ODM route): the
-    edge cases of the CPU tests fed as per-image anchors (image 1's refined
-    like the ODM's, some stretched to the decoder's clip), then the train
-    step's (4, 512, 21824) on the refined anchors of a real FAM forward of
-    `model` at 1024². Each identical to K1's matrix on the same anchors
+def check_assign_per_image_kernel(rik, model, cfg, thr=None, edge_cases=True):
+    """The fused assigner on per-image anchors (S2ANet's ODM route, and
+    R3Det's refine stage at its `thr`): the edge cases of the CPU tests
+    fed as per-image anchors (image 1's refined like the ODM's, some
+    stretched to the decoder's clip), then the train step's (4, 512,
+    21824) on the refined anchors of a real FAM (or R3Det stage-1) forward
+    of `model` at 1024². Each identical to K1's matrix on the same anchors
     plus the PyTorch assigner (max_overlaps to the bit), and gt_inds and
     labels identical to the CPU plain version (at the train shape on the
     64 real gt slots, on the anchors no 1e-5 change of an IoU can flip).
@@ -766,7 +807,7 @@ def check_assign_per_image_kernel(rik, model, cfg):
     from jdet_torch.parallel import make_device_normalizer
     from jdet_torch.utils.edge_cases import ASSIGN_CASES, per_image_assign_edge_case
 
-    thr = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+    thr = thr or dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
 
     def assign(gts, mask, labels, an, am):
         return max_iou_assign_rotated(an, gts, mask, labels, anchor_mask=am, **thr)
@@ -786,7 +827,7 @@ def check_assign_per_image_kernel(rik, model, cfg):
                   "the PyTorch assigner")
 
     err = 0.0
-    for name in ASSIGN_CASES:
+    for name in ASSIGN_CASES if edge_cases else ():
         gts, mask, labels, an, am, about = per_image_assign_edge_case(name)
         args = [torch.as_tensor(x, device="cuda") for x in (gts, mask, labels, an)]
         am = None if am is None else torch.as_tensor(am, device="cuda")
@@ -827,7 +868,8 @@ def check_assign_per_image_kernel(rik, model, cfg):
     cpu = plain(*(x.cpu() for x in sub), anchors.cpu(), am.cpu(), iou_chunk=16)
     cpu_s = time.perf_counter() - t0
     fused_sub = assign(*sub, anchors, am)
-    ok = decisive_anchors(rik.box_iou_rotated_rect(sub[0], anchors), sub[1]).cpu()
+    ok = decisive_anchors(rik.box_iou_rotated_rect(sub[0], anchors), sub[1],
+                          thr["pos_iou_thr"], thr["neg_iou_thr"]).cpu()
     agree = {k: int((fused_sub[k].cpu()[ok] != cpu[k][ok]).sum()) for k in ("gt_inds", "labels")}
     fin = torch.isfinite(cpu["max_overlaps"])
     e = (fused_sub["max_overlaps"].cpu()[fin] - cpu["max_overlaps"][fin]).abs().max().item()
@@ -883,6 +925,7 @@ def check_assign_per_image_kernel(rik, model, cfg):
         "back_to_back_ms": b2b_ms,
         "old_route_ms": old_ms,
         "old_route_matrix_ms": matrix_ms,
+        "model": type(model).__name__,
     }, (images, t, anchors)
 
 
@@ -1284,32 +1327,64 @@ def assignment_margin(model, targets, size, images=None):
     from jdet_torch.ops import box_iou_rotated
 
     head = model.bbox_head
+    if is_point_head(model):
+        return point_margin(model, targets, size)
     sizes = [(size // s, size // s) for s in head.anchor_strides]
     B = len(targets["gt_bboxes"])
-    if is_s2anet(model):
+    if is_s2anet(model) or is_r3det(model):
         was_training = model.training
         model.eval()
         with torch.no_grad():
             outs = head(model.extract_feat(images))
         model.train(was_training)
         refined = torch.cat([o[2].reshape(B, -1, 5) for o in outs], 1).float()
-        anchor_sets = [[head._flat_init_anchors(sizes, "cpu")] * B, list(refined)]
+        first = head._flat_anchors if is_r3det(model) else head._flat_init_anchors
+        # R3Det's refine stage assigns at IoU 0.6 / 0.5
+        thr = ((0.6, 0.5) if is_r3det(model) else (0.5, 0.4))
+        anchor_sets = [([first(sizes, "cpu")] * B, (0.5, 0.4)), (list(refined), thr)]
     else:
-        anchor_sets = [[head._flat_anchors(sizes, "cpu")] * B]
-    return min(iou_margin(box_iou_rotated(torch.as_tensor(gt[m]), anchors))
-               for per_image in anchor_sets
+        anchor_sets = [([head._flat_anchors(sizes, "cpu")] * B, (0.5, 0.4))]
+    return min(iou_margin(box_iou_rotated(torch.as_tensor(gt[m]), anchors), thr)
+               for per_image, thr in anchor_sets
                for gt, m, anchors in zip(targets["gt_bboxes"], targets["gt_mask"], per_image))
 
 
-def iou_margin(iou):
+def point_margin(model, targets, size):
+    """Rotated FCOS's and H2RBox's targets (H2RBox's on the gts'
+    circumscribed boxes): the smallest distance, in pixels, from a point
+    to a side of a gt's box and from a gt's largest side distance to a
+    bound of the point's regress range, where a 1e-5 change of the
+    rounding could move a point in or out."""
+    from jdet_torch.ops.box_convert import hbox_to_rbox, mintheta_obb, rbox_to_hbox
+
+    head = model.bbox_head
+    points, rr, _ = head._point_table([(size // s, size // s) for s in head.strides], "cpu")
+    points, rr = points.double(), rr.double()
+    margin = float("inf")
+    for gt, m in zip(targets["gt_bboxes"], targets["gt_mask"]):
+        gt = torch.as_tensor(gt[m])
+        if type(model).__name__ == "H2RBox":
+            gt = hbox_to_rbox(rbox_to_hbox(gt))
+        cx, cy, w, h, a = mintheta_obb(gt).double().unbind(-1)
+        ox, oy = points[:, 0] - cx[:, None], points[:, 1] - cy[:, None]
+        dx = torch.cos(a)[:, None] * ox + torch.sin(a)[:, None] * oy
+        dy = -torch.sin(a)[:, None] * ox + torch.cos(a)[:, None] * oy
+        ltrb = torch.stack([w[:, None] / 2 + dx, h[:, None] / 2 + dy,
+                            w[:, None] / 2 - dx, h[:, None] / 2 - dy], -1)
+        margin = min(margin, ltrb.amin(-1).abs().min().item(),
+                     (ltrb.amax(-1)[..., None] - rr).abs().min().item())
+    return margin
+
+
+def iou_margin(iou, thr=(0.5, 0.4)):
     """Of a (K, N) IoU matrix of real gts: the smallest gap between a gt's
     best IoU and its second best, and between an anchor's best IoU and
-    the 0.4 / 0.5 thresholds."""
+    the thresholds `thr`."""
     iou = iou.double()
     top2 = iou.topk(2, dim=1).values
     best = iou.max(0).values
-    return min((top2[:, 0] - top2[:, 1]).min().item(), (best - 0.5).abs().min().item(),
-               (best - 0.4).abs().min().item())
+    return min((top2[:, 0] - top2[:, 1]).min().item(),
+               *((best - t).abs().min().item() for t in thr))
 
 
 def build_trainer(cfg, model, augment=True):
@@ -1372,33 +1447,144 @@ def untied_batch_seed(model, cfg, size=512):
     return next(s for s in range(5, 100) if margin(s) > 1e-5)
 
 
-def check_train_card_against_cpu(cfg, rik):
-    """Two train steps of the full-width model with the same random
-    weights on the card and on the CPU, B=1 at 512² (the card's assigner
-    takes the fused kernel, the CPU's the plain version), augmentation
-    off."""
-    from jdet_torch.models.builder import build_detector
+def aug_map_margin(model, targets, size, theta):
+    """H2RBox: over the positive points of the batch's (weak) targets, the
+    smallest distance, in cells, from a point's rotated position in the
+    rotated view's grid to a rounding boundary of `_aug_index_map` (half
+    a cell), in float64. The devices' float32 cosine and sine of theta may
+    differ by an ulp, which moves a position by up to ~1e-5 cells."""
+    from jdet_torch.ops.box_convert import hbox_to_rbox, rbox_to_hbox
 
+    head = model.bbox_head
+    sizes = [(size // s, size // s) for s in head.strides]
+    points, rr, strides = head._point_table(sizes, "cpu")
+    gts = hbox_to_rbox(rbox_to_hbox(torch.as_tensor(targets["gt_bboxes"]).float()))
+    _, _, pos = head._targets(points, rr, strides, gts,
+                              torch.as_tensor(targets["gt_mask"]).bool(),
+                              torch.as_tensor(targets["gt_labels"]))
+    (h0, w0), s0 = sizes[0], head.strides[0]
+    cx, cy = (w0 * s0 - 1) / 2.0, (h0 * s0 - 1) / 2.0
+    th = float(theta)
+    p, st = points.double(), strides.double()
+    rx = np.cos(th) * (p[:, 0] - cx) - np.sin(th) * (p[:, 1] - cy) + cx
+    ry = np.sin(th) * (p[:, 0] - cx) + np.cos(th) * (p[:, 1] - cy) + cy
+    cells = torch.stack([(rx - st / 2) / st, (ry - st / 2) / st], -1)
+    dist = (cells - cells.floor() - 0.5).abs().amin(-1)
+    return dist[pos.any(0)].min().item()
+
+
+def check_train_card_against_cpu(cfg, rik, loss_forward=False):
+    """The full-width model with the same random weights on the card and
+    on the CPU, B=1 at 512² (the card's assigner takes the fused kernel,
+    the CPU's the plain version), augmentation off, on a batch without
+    near ties in its targets; with `loss_forward`, a float32 loss forward
+    first (rtol 1e-4). Then, with the config's SGD, two float32 train
+    steps; with Adam (H2RBox's AdamW), the gradients of the loss from the
+    one state instead, held to `GRAD_LIMITS` as
+    `check_rcnn_card_against_cpu(grads=True)` holds them: an Adam step
+    divides each gradient by its own size, so a gradient near 0 takes a
+    full step in either direction and two devices' steps are not
+    comparable. H2RBox's gradients are held under the float64 policy and
+    its float32 ones logged beside them: a ReLU pre-activation within the
+    devices' float32 rounding of zero takes the gradient through on one
+    device and not on the other, and among the backbone's millions of
+    ReLUs (two passes, randomized BN statistics) some always do, on every
+    batch seed tried, which puts many of its float32 tensors ~1e-3 of
+    their largest apart; in float64 none lies that near. Both devices
+    take one theta, drawn from the CPU's generator, whose rotated view
+    maps no positive point within 1e-4 of a cell boundary
+    (`aug_map_margin`)."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+    from jdet_torch.utils.general import parse_losses
+
+    adam = cfg["optimizer"]["type"].startswith("Adam")
     models = {dev: build_detector(cfg["model"], device=dev, seed=1, load_pretrained=False)
-              for dev in ("cuda", "cpu")}
+              for dev in ("cpu", "cuda")}
     randomize_constants(models["cpu"])
     models["cuda"].load_state_dict(models["cpu"].state_dict())
     start = {n: p.detach().clone() for n, p in models["cpu"].named_parameters()}
     seed = untied_batch_seed(models["cpu"], cfg)
     images, targets = synth_batch(1, 512, seed=seed, uint8=True)
-    losses = {}
-    for dev, m in models.items():
-        step = build_trainer(cfg, m, augment=False)[0]
+    name = cfg["model"]["type"]
+    kw = {}
+    if hasattr(models["cpu"], "draw_theta"):
+        draws = (models["cpu"].draw_theta(torch.Generator().manual_seed(g), "cpu")
+                 for g in range(100))
+        kw["theta"] = next(th for th in draws
+                           if aug_map_margin(models["cpu"], targets, 512, th) > 1e-4)
+        log(f"{name} card vs cpu: theta {kw['theta'].item()!r}, aug map margin "
+            f"{aug_map_margin(models['cpu'], targets, 512, kw['theta']):.3e} cells")
+    if adam:
+        with compute_dtype_scope(torch.float64):
+            for dev in ("cpu", "cuda"):
+                models[f"f64_{dev}"] = build_detector(cfg["model"], device=dev, seed=1,
+                                                      load_pretrained=False)
+                models[f"f64_{dev}"].load_state_dict(models["cpu"].state_dict())
+    losses, forward, grads = {}, {}, {}
+    for key, m in models.items():
+        dev = "cuda" if key.endswith("cuda") else "cpu"
+        step, _, normalize, _ = build_trainer(cfg, m, augment=False)
         x, t = to_device(images, targets, dev)
+        x = normalize(x)
         launches = launch_counts(rik)
-        losses[dev] = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
+        if key.startswith("f64"):
+            x = x.double()
+        if loss_forward or adam:
+            m.train()
+            m.zero_grad(set_to_none=True)
+            out = m.loss(x, t, **kw)
+            forward[key] = {k: v.item() for k, v in out.items()}
+            if adam:
+                parse_losses(out)[0].backward()
+                grads[key] = {n: p.grad.detach().cpu().clone()
+                              for n, p in m.named_parameters() if p.grad is not None}
+                m.zero_grad(set_to_none=True)
+            del out
+        if not adam:
+            losses[key] = [{k: v.item() for k, v in step(*to_device(images, targets, dev),
+                                                         it).items()} for it in range(2)]
         if dev == "cuda":
+            n_losses = 1 if adam else 2 + loss_forward
             got = {k: v - launches[k] for k, v in launch_counts(rik).items()}
-            want = {k: 2 * n for k, n in fused_per_loss(m).items()}
+            want = {k: n_losses * n for k, n in fused_per_loss(m).items()}
             check(all(got[k] == n for k, n in want.items()),
-                  f"the card's train steps did not launch the fused assigner as "
-                  f"{want}: {got}")
-    log(f"{cfg['model']['type']} train card vs cpu at 512², B=1, batch seed {seed}: losses "
+                  f"the card's loss forward and train steps did not launch the fused "
+                  f"assigner as {want}: {got}")
+    if loss_forward:
+        log(f"{name} loss forward card vs cpu at 512², B=1, batch seed "
+            f"{seed}: {forward['cuda']} vs {forward['cpu']}")
+        for k, want in forward["cpu"].items():
+            got = forward["cuda"][k]
+            check(abs(got - want) <= 1e-4 * abs(want), f"loss forward {k}: card {got} cpu {want}")
+    if adam:
+        for prec, card, cpu in (("float32", "cuda", "cpu"), ("float64", "f64_cuda", "f64_cpu")):
+            worst = {"grad": {}, "grad_rms": {}}
+            for n, want in grads[cpu].items():
+                got = grads[card][n]
+                for what, norm in (("grad", torch.amax), ("grad_rms", torch.linalg.vector_norm)):
+                    scale = norm(want.abs()).item()
+                    worst[what][n] = norm((got - want).abs()).item() / scale if scale else (
+                        0.0 if torch.equal(got, want) else float("inf"))
+            top = {what: max(errs.items(), key=lambda kv: kv[1]) for what, errs in worst.items()}
+            median = {what: float(np.median(list(errs.values())))
+                      for what, errs in worst.items()}
+            over = {what: sum(e > GRAD_LIMITS[what] for e in errs.values())
+                    for what, errs in worst.items()}
+            log(f"{name} gradients card vs cpu from one state in {prec}, batch seed {seed}: "
+                f"{len(worst['grad'])} tensors; error over the CPU's gradient, largest and "
+                f"RMS: worst {top}, median {json.dumps(median)}, tensors over "
+                f"{json.dumps(GRAD_LIMITS)}: {json.dumps(over)}")
+            if prec == "float32":
+                continue
+            check(set(grads[card]) == set(grads[cpu]) and len(grads[cpu]) > 100,
+                  "the card and the CPU have gradients for different parameters")
+            for what, tol in GRAD_LIMITS.items():
+                bad = {n: e for n, e in worst[what].items() if not e <= tol}
+                check(not bad, f"{name} gradient {what} in {prec} off the CPU's by more "
+                      f"than {tol}: {bad}")
+        return
+    log(f"{name} train card vs cpu at 512², B=1, batch seed {seed}: losses "
         f"{losses['cuda']} vs {losses['cpu']}")
     for it in range(2):
         for k, want in losses["cpu"][it].items():
@@ -1406,14 +1592,14 @@ def check_train_card_against_cpu(cfg, rik):
             check(abs(got - want) <= 1e-3 * abs(want), f"step {it} {k}: card {got} cpu {want}")
     cpu_params = dict(models["cpu"].named_parameters())
     worst, worst_update, n = 0.0, 0.0, 0
-    for name, p in models["cuda"].named_parameters():
+    for pname, p in models["cuda"].named_parameters():
         if not p.requires_grad:
             continue
-        want = cpu_params[name].detach()
+        want = cpu_params[pname].detach()
         err = (p.detach().cpu() - want).abs().max().item()
         scale = want.abs().max().item()
-        check(err <= 1e-3 * scale, f"parameter {name} after 2 steps: err {err}, max {scale}")
-        update = (want - start[name]).abs().max().item()
+        check(err <= 1e-3 * scale, f"parameter {pname} after 2 steps: err {err}, max {scale}")
+        update = (want - start[pname]).abs().max().item()
         worst, n = max(worst, err / scale), n + 1
         worst_update = max(worst_update, err / max(update, 1e-30))
     log(f"train card vs cpu: {n} trainable parameters agree after 2 steps, worst "
@@ -1515,7 +1701,7 @@ def check_bf16_card_against_cpu(cfg, rik):
               f"bf16 card vs cpu, {what}: {frac:.3f} of the f32 - bf16 gap apart")
 
 
-def train_at_config_traffic(cfg, model, rik, label, n_steps=20):
+def train_at_config_traffic(cfg, model, rik, label, n_steps=20, brief=False):
     """The train step at the config's batch (B=4) at 1024², 512 gt slots
     with 64 real gts per image: `n_steps` steps on one batch, then the step
     timed whole and in parts, and its busiest kernels under the profiler:
@@ -1555,7 +1741,13 @@ def train_at_config_traffic(cfg, model, rik, label, n_steps=20):
           f"{per_step}, {launches}")
 
     counter = iter(range(n_steps, 10**6))
-    times = {"train_step_ms": median_ms(lambda: step(images, targets, next(counter)))}
+    times = {"train_step_ms": median_ms(lambda: step(images, targets, next(counter)),
+                                        *timing(brief, 3, 10)),
+             "peak_memory_bytes": peak}
+    if brief:
+        log(f"{label} {cfg['model']['type']} train step at 1024², B=4, K=512 (median of 3 "
+            f"after 1): {json.dumps(times)}")
+        return launches
 
     # the step's parts, timed apart on the same objects as the step
     from jdet_torch.utils.general import parse_losses
@@ -1580,7 +1772,6 @@ def train_at_config_traffic(cfg, model, rik, label, n_steps=20):
             for k, (a, b) in zip(parts, ((0, 1), (1, 2), (2, 3))):
                 parts[k].append(ev[a].elapsed_time(ev[b]))
     times.update({k: float(np.median(v)) for k, v in parts.items()})
-    times["peak_memory_bytes"] = peak
     # device time and wall time of the same 3 profiled steps, and the
     # kernel families by full name: bf16 tensor-core kernels (cuDNN's and
     # CUTLASS's name their bf16 operands), NCHW <-> NHWC layout transposes
@@ -1649,7 +1840,7 @@ def check_card_against_cpu(model, cpu_model):
     check(score_err <= 1e-4, f"scores differ by {score_err}")
 
 
-def serving_phase(model, rik, label):
+def serving_phase(model, rik, label, brief=False):
     """The serving path of `model` at B=2, 1024², once, with the launch
     counts read around it: the loss forward, `predict` at the config's
     test_cfg and `predict` with score_thr=0.0; then each phase and its
@@ -1703,7 +1894,11 @@ def serving_phase(model, rik, label):
               f"{name}: non-finite detections")
     v = det0["valid"]
     check(v.sum().item() > 0, "no valid detections at score_thr=0.0")
-    check((det0["boxes"][v][:, 2:4] > 0).all().item(), "degenerate valid boxes")
+    # untrained FCOS and H2RBox heads put ReLU'd distances of exactly 0
+    # (a zero side) beside positive ones; decoded anchors never do
+    sides = det0["boxes"][v][:, 2:4]
+    check(((sides >= 0) if is_point_head(model) else (sides > 0)).all().item(),
+          "degenerate valid boxes")
     check(((det0["labels"][v] >= 0) & (det0["labels"][v] < 15)).all().item(), "bad labels")
 
     # each phase, and its parts: the network forward, and the head's loss
@@ -1719,7 +1914,7 @@ def serving_phase(model, rik, label):
     cand = nms_candidates()
 
     thr = test_cfg["score_thr"]
-    times = {"loss_forward_ms": median_ms(loss_fwd, warmup=2, iters=10)}
+    times = {"loss_forward_ms": median_ms(loss_fwd, *timing(brief))}
     with torch.no_grad():
         for name, fn in (
             ("predict_ms", lambda: predict(thr)),
@@ -1730,10 +1925,11 @@ def serving_phase(model, rik, label):
             ("head_predict_score_thr0_ms", lambda: head_predict(0.0)),
             ("nms_class_iou_ms", lambda: rik.box_iou_rotated_rect(cand, cand)),
         ):
-            times[name] = median_ms(fn, warmup=2, iters=10)
-    log(f"{label} phases at 1024², B=2 (median of 10): {json.dumps(times)}")
-    check({lvl[0].dtype for lvl in outs} == {model_dtype(model)},
-          f"{label}: head outputs are not {model_dtype(model)}")
+            times[name] = median_ms(fn, *timing(brief))
+    log(f"{label} phases at 1024², B=2 (median of {timing(brief)[1]}): {json.dumps(times)}")
+    # the first class output of each level (R3Det's: stage 1's)
+    check({(lvl[0][0] if is_r3det(model) else lvl[0]).dtype for lvl in outs}
+          == {model_dtype(model)}, f"{label}: head outputs are not {model_dtype(model)}")
     head.test_cfg = test_cfg
     return serving_launches
 
@@ -2421,7 +2617,7 @@ def as_sets(got, want, rel=0.0, matched_scores=False):
     return matched.double().mean().item(), (len(gb), len(wb)), score_err
 
 
-def check_rcnn_card_against_cpu(cfg, rik, grads=False):
+def check_rcnn_card_against_cpu(cfg, rik, grads=False, bf16=True):
     """The full-width Oriented R-CNN or ReDet with the same random weights
     on the card and on the CPU, B=1 at 512², on a batch without near ties
     in any assignment, the samplers fed the same draws (`Draws`): the
@@ -2429,9 +2625,10 @@ def check_rcnn_card_against_cpu(cfg, rik, grads=False):
     train steps (with `grads`, instead, the gradients of the loss forward
     from the one state, held to `GRAD_LIMITS`: an Adam step divides each
     gradient by its own size, so a gradient near 0 takes a full step in
-    either direction and two devices' steps are not comparable); and the
-    model under the bf16 policy within this run's f32 - bf16 gap. The RPN's class conv is drawn with std 0.05 (0.01 at
-    init), and the proposals are compared as sets: each card box within
+    either direction and two devices' steps are not comparable); and, with
+    `bf16` (one config per head family takes it), the model under the
+    bf16 policy within this run's f32 - bf16 gap. The RPN's class conv is
+    drawn with std 0.05 (0.01 at init), and the proposals are compared as sets: each card box within
     1e-2 px of one of the CPU's, the sorted scores within 1e-4. Scores a
     few ulps apart still trade places between the devices, and a
     proposal's place decides which sampler draw it takes, so past the
@@ -2456,8 +2653,9 @@ def check_rcnn_card_against_cpu(cfg, rik, grads=False):
 
     normalize = make_device_normalizer(**cfg["device_normalize"])
     # each CPU model before the models it feeds its proposals to
-    runs = {"f32_cpu": ("cpu", None), "f32_card": ("cuda", None),
-            "bf16_cpu": ("cpu", torch.bfloat16), "bf16_card": ("cuda", torch.bfloat16)}
+    runs = {"f32_cpu": ("cpu", None), "f32_card": ("cuda", None)}
+    if bf16:
+        runs.update(bf16_cpu=("cpu", torch.bfloat16), bf16_card=("cuda", torch.bfloat16))
     redet = cfg["model"]["type"] == "ReDet"
     recorders = ("f32_cpu", "bf16_cpu")
     models = {}
@@ -2683,6 +2881,9 @@ def check_rcnn_card_against_cpu(cfg, rik, grads=False):
             bad = {n: e for n, e in worst[what].items() if not e <= tol}
             check(not bad, f"parameter {what} {when} off the CPU's by more than {tol}: {bad}")
 
+    if not bf16:
+        return
+
     def rms(a):
         return float(torch.sqrt(torch.mean(torch.as_tensor(a, dtype=torch.float64) ** 2)))
 
@@ -2710,7 +2911,7 @@ def check_rcnn_card_against_cpu(cfg, rik, grads=False):
               f"bf16 card vs cpu, {what}: {frac:.3f} of the f32 - bf16 gap apart")
 
 
-def rcnn_serving_phase(model, rik, label):
+def rcnn_serving_phase(model, rik, label, brief=False):
     """A two-stage model's serving path at B=2, 1024², once, with the launch
     counts read around it: the loss forward, `predict` at the config's
     test_cfg and with score_thr=0.0; then each phase and its parts timed.
@@ -2792,10 +2993,10 @@ def rcnn_serving_phase(model, rik, label):
             ("roi_head_predict_ms", lambda: head.predict(feats, props)),
             ("nms_class_iou_ms", lambda: rik.box_iou_rotated_rect(cand, cand)),
         ):
-            times[name] = median_ms(fn, warmup=2, iters=10)
+            times[name] = median_ms(fn, *timing(brief))
     cache_expanded_weights(model, enable=False)
-    times["loss_forward_ms"] = median_ms(loss_fwd, warmup=2, iters=10)
-    log(f"{label} phases at 1024², B=2 (median of 10): {json.dumps(times)}")
+    times["loss_forward_ms"] = median_ms(loss_fwd, *timing(brief))
+    log(f"{label} phases at 1024², B=2 (median of {timing(brief)[1]}): {json.dumps(times)}")
     head.test_cfg = test_cfg
     return launches
 
@@ -3033,8 +3234,9 @@ def redet_phases(rik):
     elapsed("check_assign_roi_kernel on ReDet")
     check_rcnn_card_against_cpu(redet_cfg, rik)
     elapsed("ReDet check_rcnn_card_against_cpu")
-    paths = {"redet_serving": rcnn_serving_phase(redet, rik, "fp32"),
-             "redet_train_20_steps": train_at_config_traffic(redet_cfg, redet, rik, "fp32")}
+    paths = {"redet_serving": rcnn_serving_phase(redet, rik, "fp32", brief=True),
+             "redet_train_5_steps": train_at_config_traffic(redet_cfg, redet, rik, "fp32",
+                                                            n_steps=5, brief=True)}
     redet_step_parts(redet_cfg, redet, "fp32")
     elapsed("the ReDet fp32 paths")
     del redet, bb, rpn, head
@@ -3044,10 +3246,9 @@ def redet_phases(rik):
                                     load_pretrained=False)
     redet_bf16.load_state_dict(redet_state)
     del redet_state
-    paths["redet_bf16_serving"] = rcnn_serving_phase(redet_bf16, rik, "bf16")
-    paths["redet_bf16_train_20_steps"] = train_at_config_traffic(redet_cfg, redet_bf16, rik,
-                                                                 "bf16")
-    redet_step_parts(redet_cfg, redet_bf16, "bf16")
+    paths["redet_bf16_serving"] = rcnn_serving_phase(redet_bf16, rik, "bf16", brief=True)
+    paths["redet_bf16_train_5_steps"] = train_at_config_traffic(
+        redet_cfg, redet_bf16, rik, "bf16", n_steps=5, brief=True)
     elapsed("the ReDet bf16 paths")
     del redet_bf16
     torch.cuda.empty_cache()
@@ -3080,12 +3281,12 @@ RETINA_VARIANTS = {
     "rotated_retinanet_obb_r50_fpn_1x_dota1_5": "fused",
 }
 CONFIG_DIR = Path(__file__).resolve().parent / "configs"
-# the variants whose head is checked card against CPU (v1d and DOTA-1.5
-# have the main path's head), and of those, in bf16 too
+# the variants whose head is checked card against CPU in float32 (v1d and
+# DOTA-1.5 have the main path's head; the family's bf16 check is the main
+# RetinaNet's)
 RETINA_HEAD_CHECKS = ("gwd_r50_fpn_1x_dota", "kld_r50_fpn_1x_dota", "kfiou_r50_fpn_1x_dota",
                       "rsdet_r50_fpn_1x_dota", "atss_obb_r50_fpn_1x_dota", "csl_r50_fpn_1x_dota",
                       "ld_r50_fpn_1x_dota", "rotated_retinanet_hbb_r50_fpn_1x_dota")
-RETINA_BF16_HEAD_CHECKS = ("kld_r50_fpn_1x_dota", "csl_r50_fpn_1x_dota")
 
 
 def variant_label(name):
@@ -3184,28 +3385,6 @@ def atss_decisive(anchors, gts, num_level, tol=1e-5):
     return per_anchor >= 1, per_anchor.min().item() * tol
 
 
-def topk_score_ties(head, outs, dev):
-    """`predict`'s per-level cut to its `nms_pre` best anchors, on `dev`:
-    over the levels it cuts, the kept scores (sorted, per image), and per
-    level and image the candidates whose score equals the k-th kept one
-    and how many of those the cut keeps. Where it keeps some of them and
-    not all, which ones follows the order in which the device breaks the
-    tie."""
-    k = head.test_cfg["nms_pre"]
-    kept, ties = [], []
-    for out in outs:
-        cls = out[0].to(dev)
-        b = cls.shape[0]
-        s = torch.sigmoid(head._nhwc(cls.float(), b, head.cls_out_channels)).amax(-1)
-        if not 0 < k < s.shape[1]:
-            continue
-        top = s.topk(k, dim=-1).values
-        kth = top[:, -1:]
-        kept.append(top.cpu())
-        ties.append(list(zip((s == kth).sum(-1).tolist(), (top == kth).sum(-1).tolist())))
-    return torch.cat(kept, 1), ties
-
-
 def ld_kd_witness(head, outs, t_outs):
     """LD's KD term on the model's own outputs, whose student and teacher
     distributions are nearly equal with random weights: the term on the
@@ -3225,18 +3404,13 @@ def ld_kd_witness(head, outs, t_outs):
     return got
 
 
-def variant_head_card_against_cpu(name, model, route, cfg, label="fp32"):
+def variant_head_card_against_cpu(name, model, route, cfg):
     """The head of `model` on the card and a CPU copy of it, fed the same
     head outputs (the card's network forward at 512², B=2, taken to the
     CPU) and the same targets, from a batch without near ties in the
     assignment: each loss, and the gradients of their total with respect
-    to each head output at each level. CSL's `predict` is compared as sets
-    in float32; in bf16 the logits take few distinct values, the scores
-    tie by the thousand at `predict`'s per-level top-k cut, and each device
-    keeps the tied candidates of its own order (as
-    `check_bf16_card_against_cpu` finds for RetinaNet), so there the kept
-    scores are compared, which ties do not move, and the ties are counted.
-    LD's losses are the KD detector's on its teacher's outputs with a
+    to each head output at each level, in float32. CSL's `predict` is
+    compared as sets. LD's losses are the KD detector's on its teacher's outputs with a
     standard normal added to the teacher's distributions' logits: with
     random weights the two are nearly equal, the KD term ~1e-5 is a sum of
     differences of nearly equal log-softmaxes, and the card's float32
@@ -3262,7 +3436,7 @@ def variant_head_card_against_cpu(name, model, route, cfg, label="fp32"):
     model.train()
     if t_outs is not None:
         witness = ld_kd_witness(cpu_head, outs, t_outs)
-        log(f"{label} {name} KD term on the model's own outputs: card {witness['card']!r}, "
+        log(f"fp32 {name} KD term on the model's own outputs: card {witness['card']!r}, "
             f"cpu {witness['cpu']!r}, cpu float64 {witness['cpu_f64']!r}; card - float64 "
             f"{witness['card'] - witness['cpu_f64']:.3e}, cpu - float64 "
             f"{witness['cpu'] - witness['cpu_f64']:.3e}")
@@ -3283,14 +3457,11 @@ def variant_head_card_against_cpu(name, model, route, cfg, label="fp32"):
         res[side] = ({k: v.item() for k, v in losses.items()},
                      [t.grad.float().cpu() for lvl in leaves for t in lvl])
         if name.startswith("csl_"):
-            if label == "fp32":
-                test_cfg = h.test_cfg
-                h.test_cfg = dict(test_cfg, score_thr=0.0)
-                det = h.predict([tuple(t.to(dev) for t in lvl) for lvl in outs])
-                res[side] += ({k: v.cpu() for k, v in det.items()},)
-                h.test_cfg = test_cfg
-            else:
-                res[side] += (topk_score_ties(h, outs, dev),)
+            test_cfg = h.test_cfg
+            h.test_cfg = dict(test_cfg, score_thr=0.0)
+            det = h.predict([tuple(t.to(dev) for t in lvl) for lvl in outs])
+            res[side] += ({k: v.cpu() for k, v in det.items()},)
+            h.test_cfg = test_cfg
     (lc, gc, *dc), (lp, gp, *dp) = res["card"], res["cpu"]
     # each loss's error over itself
     loss_err = max(abs(lc[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
@@ -3299,11 +3470,9 @@ def variant_head_card_against_cpu(name, model, route, cfg, label="fp32"):
     # and (LD) the KD term's
     grad_err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                    for a, b in zip(gc, gp))
-    # float32: transcendentals a few ulp apart on the two devices; bf16:
-    # the float32 gradient rounded to bf16 on each side, one ulp (2^-8)
-    # apart at most
-    grad_bound = 1e-4 if label == "fp32" else 1e-2
-    log(f"{label} {name} head card vs cpu at 512², B=2, batch seed {seed}: losses {lc} vs "
+    # transcendentals a few ulp apart on the two devices
+    grad_bound = 1e-4
+    log(f"fp32 {name} head card vs cpu at 512², B=2, batch seed {seed}: losses {lc} vs "
         f"{lp}, max loss error over itself {loss_err:.3e}, gradient error over each "
         f"output's largest at each level {grad_err:.3e}")
     check(all(np.isfinite(v) for v in lc.values()), f"{name}: a non-finite loss")
@@ -3311,23 +3480,15 @@ def variant_head_card_against_cpu(name, model, route, cfg, label="fp32"):
     check(grad_err <= grad_bound, f"{name}: gradients off the CPU by {grad_err}")
     if t_outs is not None:
         check(lp["loss_ld"] > 1e-2, f"{name}: the KD term {lp['loss_ld']} is not clear of 0")
-    if dc and label == "fp32":
+    if dc:
         share, (n_got, n_want), score_err = as_sets(dc[0], dp[0])
-        log(f"{label} {name} predict card vs cpu as sets: {share} matched, counts "
+        log(f"fp32 {name} predict card vs cpu as sets: {share} matched, counts "
             f"{n_got} vs {n_want}, sorted score err {score_err:.2e}")
         # as check_card_against_cpu holds RetinaNet's: the NMS may decide a
         # pair within rounding of its IoU threshold (K1 against the plain
         # IoU) otherwise, and the sweep carries it on
         check(n_want > 0 and share >= 0.99 and abs(n_got - n_want) <= 0.01 * n_want
               and score_err <= 1e-4, f"{name}: predict differs from the CPU's")
-    elif dc:
-        (kc, tc), (kp, tp) = dc[0], dp[0]
-        kept_err = (kc - kp).abs().max().item()
-        log(f"{label} {name} predict's per-level top-{head.test_cfg['nms_pre']} cut, per level "
-            f"and image (candidates tied at the k-th score, of them kept): card {tc}, cpu {tp}; "
-            f"kept scores card vs cpu max err {kept_err:.3e}")
-        # float32 sigmoids of the same bf16 logits, a few ulp apart
-        check(kept_err <= 1e-6, f"{name}: predict's kept scores off the CPU by {kept_err}")
     return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
 
 
@@ -3521,8 +3682,6 @@ def retina_variant_phases(rik):
         bf16.load_state_dict(state)
         del state
         check(model_dtype(bf16) == torch.bfloat16, f"{name}: the bf16 model is not bf16")
-        if name in RETINA_BF16_HEAD_CHECKS:
-            variant_head_card_against_cpu(name, bf16, route, cfg, label="bf16")
         p, times[f"{name} bf16"] = variant_paths(name, cfg, bf16, rik, route, "bf16")
         paths.update(p)
         del bf16
@@ -3568,23 +3727,21 @@ def strip_rcnn_cfg():
     return cfg
 
 
-def lsk_phases(rik, strip_steps=10):
+def lsk_phases(rik, n_steps=5):
     """Oriented R-CNN LSKNet-S (from its config file, AdamW) and Strip
     R-CNN StripNet-S (`strip_rcnn_cfg`) at full width with random weights,
     each in float32 and under the bf16 policy: card against CPU at 512²
     (network outputs, proposals and detections as sets, the losses and
-    the gradients from one state, bf16 within the f32 - bf16 gap), the
-    serving path at B=2 and the train step at the config's traffic (20
-    steps for LSKNet-S, `strip_steps` for StripNet-S) with its peak
-    memory and its profile (the depthwise convs named). Returns the
-    launches of each path."""
+    the gradients from one state), the serving path at B=2 and `n_steps`
+    train steps at the config's traffic with its peak memory, timed
+    briefly. Returns the launches of each path."""
     from jdet_torch.config import load_cfg_file
     from jdet_torch.models.builder import build_detector
     from jdet_torch.models.nn import compute_dtype_scope
 
     paths = {}
-    for key, cfg, name, n_steps in (("lsknet", load_cfg_file(LSKNET_CONFIG), "LSKNet-S", 20),
-                                     ("strip", strip_rcnn_cfg(), "StripNet-S", strip_steps)):
+    for key, cfg, name in (("lsknet", load_cfg_file(LSKNET_CONFIG), "LSKNet-S"),
+                           ("strip", strip_rcnn_cfg(), "StripNet-S")):
         if key == "strip":
             log("Strip R-CNN StripNet-S: configs/strip_rcnn_stripnet_s_fpn_1x_dota.py with one "
                 "override, rpn_head.type='OrientedRPNHead' (the committed hbb RPNHead fails in "
@@ -3600,18 +3757,21 @@ def lsk_phases(rik, strip_steps=10):
               f"{name} is not at full width with AdamW")
         log(f"{name} {type(model).__name__}: {sum(p.numel() for p in model.parameters())} "
             f"parameters, {sum(p.numel() for p in bb.parameters())} in the backbone")
-        check_rcnn_card_against_cpu(cfg, rik, grads=True)
+        # bf16 card against CPU on the LSKNet/StripNet backbones' own bf16
+        # arithmetic (GELU and sigmoid step by step, LayerNorm2d, the BN's
+        # rsqrt): LSKNet-S's; on the two-stage head: Oriented R-CNN R50's
+        check_rcnn_card_against_cpu(cfg, rik, grads=True, bf16=key == "lsknet")
         elapsed(f"{name} card vs cpu")
-        paths[f"{key}_serving"] = rcnn_serving_phase(model, rik, f"fp32 {name}")
+        paths[f"{key}_serving"] = rcnn_serving_phase(model, rik, f"fp32 {name}", brief=True)
         paths[f"{key}_train_{n_steps}_steps"] = train_at_config_traffic(
-            cfg, model, rik, f"fp32 {name}", n_steps=n_steps)
+            cfg, model, rik, f"fp32 {name}", n_steps=n_steps, brief=True)
         del model, bb, rpn, head
         torch.cuda.empty_cache()
         with compute_dtype_scope(torch.bfloat16):
             model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
-        paths[f"{key}_bf16_serving"] = rcnn_serving_phase(model, rik, f"bf16 {name}")
+        paths[f"{key}_bf16_serving"] = rcnn_serving_phase(model, rik, f"bf16 {name}", brief=True)
         paths[f"{key}_bf16_train_{n_steps}_steps"] = train_at_config_traffic(
-            cfg, model, rik, f"bf16 {name}", n_steps=n_steps)
+            cfg, model, rik, f"bf16 {name}", n_steps=n_steps, brief=True)
         del model
         torch.cuda.empty_cache()
         elapsed(f"the {name} phases")
@@ -3726,8 +3886,9 @@ def hbb_rcnn_phases(rik, n_steps=5):
     at full width with random weights, in float32 and under the bf16
     policy: card against CPU at 512² (network outputs, proposals and
     detections as sets, the losses and 2 train steps on the same sampler
-    draws, bf16 within the f32 - bf16 gap), the serving path at B=2, and
-    `n_steps` train steps at the config's traffic; Gliding's step parts in
+    draws; FasterRCNN-OBB's bf16 within the f32 - bf16 gap), the serving
+    path at B=2, and `n_steps` train steps at the config's traffic, timed
+    briefly; Gliding's step parts in
     float32 (the cross-level NMS with its rounds, the RoI sampling). Then
     Gliding's ra90_balance config from its file: 2 steps with its device
     flip and rot90. Returns the launches of each path."""
@@ -3751,20 +3912,21 @@ def hbb_rcnn_phases(rik, n_steps=5):
               f"{det} is not R50-FPN at full width")
         log(f"{det} model: {sum(p.numel() for p in model.parameters())} parameters, RPN NMS "
             f"{'across levels' if rpn.cross_level_nms else 'per level'} at {rpn.nms_thresh}")
-        check_rcnn_card_against_cpu(cfg, rik)
+        # bf16 card against CPU on the hbb heads: FasterRCNN-OBB's
+        check_rcnn_card_against_cpu(cfg, rik, bf16=key == "faster")
         elapsed(f"{det} card vs cpu")
-        paths[f"{key}_serving"] = rcnn_serving_phase(model, rik, "fp32")
+        paths[f"{key}_serving"] = rcnn_serving_phase(model, rik, "fp32", brief=True)
         paths[f"{key}_train_{n_steps}_steps"] = train_at_config_traffic(
-            cfg, model, rik, "fp32", n_steps=n_steps)
+            cfg, model, rik, "fp32", n_steps=n_steps, brief=True)
         if key == "gliding":
             hbb_rcnn_step_parts(cfg, model, "fp32")
         del model, rpn, head
         torch.cuda.empty_cache()
         with compute_dtype_scope(torch.bfloat16):
             model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
-        paths[f"{key}_bf16_serving"] = rcnn_serving_phase(model, rik, "bf16")
+        paths[f"{key}_bf16_serving"] = rcnn_serving_phase(model, rik, "bf16", brief=True)
         paths[f"{key}_bf16_train_{n_steps}_steps"] = train_at_config_traffic(
-            cfg, model, rik, "bf16", n_steps=n_steps)
+            cfg, model, rik, "bf16", n_steps=n_steps, brief=True)
         del model
         torch.cuda.empty_cache()
         elapsed(f"the {det} phases")
@@ -3796,9 +3958,8 @@ def hbb_rcnn_phases(rik, n_steps=5):
 
 def s2anet_ridet_r101_phases(rik, ridet_steps=5, r101_steps=5):
     """S2ANet with the RIDet ODM loss (`s2anet_r50_fpn_1x_dota_ridet.py`):
-    card against CPU at 512² (head outputs, losses and 2 train steps; in
-    bf16 within the f32 - bf16 gap), then `ridet_steps` train steps at the
-    config's traffic in float32 and bf16. S2ANet R101
+    card against CPU at 512² (head outputs, losses and 2 train steps), then
+    `ridet_steps` train steps at the config's traffic in float32 and bf16. S2ANet R101
     (`s2anet_r101_fpn_1x_dota.py`): the serving path in float32, and
     `r101_steps` train steps in float32 and bf16. Returns the launches of
     each path."""
@@ -3814,17 +3975,17 @@ def s2anet_ridet_r101_phases(rik, ridet_steps=5, r101_steps=5):
           and head.loss_cfgs["odm_bbox"]["type"] == "ridet"
           and head.train_cfg["odm_cfg"]["reg_decoded_bbox"] is True,
           "the RIDet config lost its loss")
+    # bf16 card against CPU on S2ANet's head: S2ANet R50's
     check_s2anet_card_against_cpu(ridet_cfg, rik)
-    check_bf16_card_against_cpu(ridet_cfg, rik)
     elapsed("S2ANet RIDet card vs cpu")
     paths[f"s2anet_ridet_train_{ridet_steps}_steps"] = train_at_config_traffic(
-        ridet_cfg, model, rik, "fp32 RIDet", n_steps=ridet_steps)
+        ridet_cfg, model, rik, "fp32 RIDet", n_steps=ridet_steps, brief=True)
     del model, head
     torch.cuda.empty_cache()
     with compute_dtype_scope(torch.bfloat16):
         model = build_detector(ridet_cfg["model"], device="cuda", seed=0, load_pretrained=False)
     paths[f"s2anet_ridet_bf16_train_{ridet_steps}_steps"] = train_at_config_traffic(
-        ridet_cfg, model, rik, "bf16 RIDet", n_steps=ridet_steps)
+        ridet_cfg, model, rik, "bf16 RIDet", n_steps=ridet_steps, brief=True)
     del model
     torch.cuda.empty_cache()
     elapsed("the S2ANet RIDet phases")
@@ -3840,13 +4001,78 @@ def s2anet_ridet_r101_phases(rik, ridet_steps=5, r101_steps=5):
             log(f"S2ANet R101 model: {sum(p.numel() for p in model.parameters())} parameters")
         tag = "s2anet_r101" + ("_bf16" if dtype else "")
         if dtype is None:
-            paths[f"{tag}_serving"] = serving_phase(model, rik, label)
+            paths[f"{tag}_serving"] = serving_phase(model, rik, label, brief=True)
         paths[f"{tag}_train_{r101_steps}_steps"] = train_at_config_traffic(
-            r101_cfg, model, rik, label, n_steps=r101_steps)
+            r101_cfg, model, rik, label, n_steps=r101_steps, brief=True)
         del model
         torch.cuda.empty_cache()
     elapsed("the S2ANet R101 phases")
     return paths
+
+
+def single_stage_phases(rik, n_steps=5):
+    """R3Det, Rotated FCOS and H2RBox R50-FPN, each from its config file
+    at full width with random weights: R3Det's per-image fused route on
+    its refine stage's candidates (the refined boxes of a real stage-1
+    forward, IoU 0.6 / 0.5); card against CPU at 512², B=1 (the loss
+    forward in float32, then 2 SGD steps or, for H2RBox's AdamW, the
+    gradients from one state, on a batch without near ties in any
+    assignment or point target; `check_train_card_against_cpu`); the
+    serving path at B=2 and `n_steps` train steps
+    at the config's traffic with the config's optimizer, in float32 and
+    bf16, timed briefly (PERF.md holds their step parts and profiles).
+    Returns R3Det's entry of the kernels line and the launches of each
+    path."""
+    from jdet_torch.config import load_cfg_file
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    paths, entry = {}, None
+    for key, path, det, head_type in (("r3det", R3DET_CONFIG, "R3Det", "R3DetHead"),
+                                      ("fcos", FCOS_CONFIG, "FCOS", "FCOSHead"),
+                                      ("h2rbox", H2RBOX_CONFIG, "H2RBox", "H2RBoxHead")):
+        cfg = load_cfg_file(path)
+        model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+        head = model.bbox_head
+        tower = head.cls_convs[0].conv.weight.shape
+        if key == "r3det":
+            width = (head.cls_out_channels == 15 and head.num_anchors == 9
+                     and len(head.refine_cls_convs) == len(head.refine_reg_convs) == 2
+                     and tuple(head.frm.conv_5_1.weight.shape) == (256, 256, 5, 1))
+        else:
+            width = (head.num_classes == 15 and head.cls_convs[0].norm.num_groups == 32
+                     and len(head.scales) == 5)
+        check(type(model).__name__ == det and type(head).__name__ == head_type
+              and model.backbone.depth == 50 and model.neck.out_channels == 256
+              and len(head.cls_convs) == len(head.reg_convs) == 4
+              and tuple(tower) == (256, 256, 3, 3) and width,
+              f"{det} is not R50-FPN at full width")
+        log(f"{det} model: {sum(p.numel() for p in model.parameters())} parameters, optimizer "
+            f"{cfg['optimizer']['type']}")
+        if key == "r3det":
+            entry, (images, _, _) = check_assign_per_image_kernel(
+                rik, model, cfg, thr=dict(head.refine_train_cfg["assigner"]), edge_cases=False)
+            del images
+            elapsed("check_assign_per_image_kernel on R3Det")
+        check_train_card_against_cpu(cfg, rik, loss_forward=True)
+        elapsed(f"{det} card vs cpu")
+        paths[f"{key}_serving"] = serving_phase(model, rik, "fp32", brief=True)
+        paths[f"{key}_train_{n_steps}_steps"] = train_at_config_traffic(
+            cfg, model, rik, "fp32", n_steps=n_steps, brief=True)
+        state = model.state_dict()
+        del model, head
+        torch.cuda.empty_cache()
+        with compute_dtype_scope(torch.bfloat16):
+            model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+        model.load_state_dict(state)
+        del state
+        paths[f"{key}_bf16_serving"] = serving_phase(model, rik, "bf16", brief=True)
+        paths[f"{key}_bf16_train_{n_steps}_steps"] = train_at_config_traffic(
+            cfg, model, rik, "bf16", n_steps=n_steps, brief=True)
+        del model
+        torch.cuda.empty_cache()
+        elapsed(f"the {det} phases")
+    return entry, paths
 
 
 def vis_test_phase(rik, root, n_tiles=8):
@@ -4160,15 +4386,16 @@ def main():
     del images, anchors
     check_s2anet_card_against_cpu(s2a_cfg, rik)
     elapsed('check_s2anet_card_against_cpu')
-    s2a_serving_launches = serving_phase(s2a, rik, "fp32")
-    s2a_train_launches = train_at_config_traffic(s2a_cfg, s2a, rik, "fp32")
+    s2a_serving_launches = serving_phase(s2a, rik, "fp32", brief=True)
+    s2a_train_launches = train_at_config_traffic(s2a_cfg, s2a, rik, "fp32", n_steps=5, brief=True)
     elapsed('train_at_config_traffic')
     del s2a, head
     check_bf16_card_against_cpu(s2a_cfg, rik)
     with compute_dtype_scope(torch.bfloat16):
         s2a_bf16 = build_detector(s2a_cfg["model"], device="cuda", seed=0, load_pretrained=False)
-    s2a_bf16_serving_launches = serving_phase(s2a_bf16, rik, "bf16")
-    s2a_bf16_train_launches = train_at_config_traffic(s2a_cfg, s2a_bf16, rik, "bf16")
+    s2a_bf16_serving_launches = serving_phase(s2a_bf16, rik, "bf16", brief=True)
+    s2a_bf16_train_launches = train_at_config_traffic(s2a_cfg, s2a_bf16, rik, "bf16",
+                                                      n_steps=5, brief=True)
     elapsed('train_at_config_traffic')
     del s2a_bf16
     torch.cuda.empty_cache()
@@ -4192,20 +4419,21 @@ def main():
     elapsed('check_assign_roi_kernel')
     check_rcnn_card_against_cpu(orcnn_cfg, rik)
     elapsed('check_rcnn_card_against_cpu')
-    orcnn_serving_launches = rcnn_serving_phase(orcnn, rik, "fp32")
-    orcnn_train_launches = train_at_config_traffic(orcnn_cfg, orcnn, rik, "fp32")
+    orcnn_serving_launches = rcnn_serving_phase(orcnn, rik, "fp32", brief=True)
+    orcnn_train_launches = train_at_config_traffic(orcnn_cfg, orcnn, rik, "fp32",
+                                                   n_steps=5, brief=True)
     orcnn_step_parts(orcnn_cfg, orcnn, "fp32")
-    orcnn_b16_launches = train_large_batch(orcnn_cfg, orcnn, rik, "fp32")
+    orcnn_b16_launches = train_large_batch(orcnn_cfg, orcnn, rik, "fp32", n_steps=3)
     elapsed('train_large_batch')
     del orcnn, rpn, head
     torch.cuda.empty_cache()
     with compute_dtype_scope(torch.bfloat16):
         orcnn_bf16 = build_detector(orcnn_cfg["model"], device="cuda", seed=0,
                                     load_pretrained=False)
-    orcnn_bf16_serving_launches = rcnn_serving_phase(orcnn_bf16, rik, "bf16")
-    orcnn_bf16_train_launches = train_at_config_traffic(orcnn_cfg, orcnn_bf16, rik, "bf16")
-    orcnn_step_parts(orcnn_cfg, orcnn_bf16, "bf16")
-    orcnn_bf16_b16_launches = train_large_batch(orcnn_cfg, orcnn_bf16, rik, "bf16")
+    orcnn_bf16_serving_launches = rcnn_serving_phase(orcnn_bf16, rik, "bf16", brief=True)
+    orcnn_bf16_train_launches = train_at_config_traffic(orcnn_cfg, orcnn_bf16, rik, "bf16",
+                                                        n_steps=5, brief=True)
+    orcnn_bf16_b16_launches = train_large_batch(orcnn_cfg, orcnn_bf16, rik, "bf16", n_steps=3)
     elapsed('train_large_batch bf16')
     del orcnn_bf16
     torch.cuda.empty_cache()
@@ -4232,6 +4460,8 @@ def main():
     # S2ANet's RIDet loss and ResNet-101, and vis_test
     hbb_paths = hbb_rcnn_phases(rik)
     s2a_more_paths = s2anet_ridet_r101_phases(rik)
+    # R3Det, Rotated FCOS and H2RBox, timed briefly
+    r3det_entry, single_paths = single_stage_phases(rik)
     vis_launches = vis_test_phase(rik, rik.BUILD_DIR / "vis_test")
     elapsed("the vis_test phase")
 
@@ -4250,42 +4480,43 @@ def main():
              "train_20_steps": train_launches, "bf16_serving": bf16_serving_launches,
              "bf16_train_20_steps": bf16_train_launches,
              "s2anet_serving": s2a_serving_launches,
-             "s2anet_train_20_steps": s2a_train_launches,
+             "s2anet_train_5_steps": s2a_train_launches,
              "s2anet_bf16_serving": s2a_bf16_serving_launches,
-             "s2anet_bf16_train_20_steps": s2a_bf16_train_launches,
+             "s2anet_bf16_train_5_steps": s2a_bf16_train_launches,
              "s2anet_run_net": run_net_launches, "runner": runner_launches,
              "tiling_epoch": tiling_launches, "tiling_val_test": tiling_eval_launches,
              "orcnn_serving": orcnn_serving_launches,
-             "orcnn_train_20_steps": orcnn_train_launches,
-             "orcnn_train_b16_5_steps": orcnn_b16_launches,
+             "orcnn_train_5_steps": orcnn_train_launches,
+             "orcnn_train_b16_3_steps": orcnn_b16_launches,
              "orcnn_bf16_serving": orcnn_bf16_serving_launches,
-             "orcnn_bf16_train_20_steps": orcnn_bf16_train_launches,
-             "orcnn_bf16_train_b16_5_steps": orcnn_bf16_b16_launches,
+             "orcnn_bf16_train_5_steps": orcnn_bf16_train_launches,
+             "orcnn_bf16_train_b16_3_steps": orcnn_bf16_b16_launches,
              "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_,
              **lsk_paths, "weight_import_loss_predict": import_launches, **hbb_paths,
-             **s2a_more_paths, "vis_test": vis_launches}
-    kernels = [entry, assign_entry, per_image_entry, roi_entry, redet_entry, atss_entry,
-               generic_entry]
+             **s2a_more_paths, **single_paths, "vis_test": vis_launches}
+    kernels = [entry, assign_entry, per_image_entry, r3det_entry, roi_entry, redet_entry,
+               atss_entry, generic_entry]
     for e in kernels:
         # the RoI route has an entry per model and shape: each counts its
         # own model's paths; K1's matrix launches inside ATSS's assigner
         # are counted apart, as rotated_iou_rect_atss
-        own = {"OrientedRCNN": ("orcnn", "lsknet", "strip"),
-               "ReDet": ("redet",)}.get(e.get("model"), "")
+        own = {"OrientedRCNN": ("orcnn", "lsknet", "strip"), "ReDet": ("redet",),
+               "S2ANet": ("s2anet",), "R3Det": ("r3det",)}.get(e.get("model"), "")
         e["launches_by_path"] = {p: route_launches(n).get(e["name"], 0)
                                  for p, n in paths.items() if p.startswith(own)}
         e["launches"] = sum(e["launches_by_path"].values())
     check(all(n["max_iou_assign_rect_per_image"] == 0 for p, n in paths.items()
-              if not p.startswith(("orcnn", "s2anet", "redet", "lsknet", "strip"))),
-          "a per-image fused launch outside S2ANet's, the two-stage models' paths")
+              if not p.startswith(("orcnn", "s2anet", "redet", "lsknet", "strip", "r3det"))),
+          "a per-image fused launch outside S2ANet's, R3Det's and the two-stage models' paths")
     check(all(n["max_iou_assign_rect_per_image_masked"] == (
         n["max_iou_assign_rect_per_image"]
         if p.startswith(("orcnn", "redet", "lsknet", "strip")) else 0)
         for p, n in paths.items()),
           "a per-image launch without per-image masks on an Oriented R-CNN or ReDet path, "
           "or one with them elsewhere")
-    check(roi_entry["launches"] > 0 and redet_entry["launches"] > 0,
-          "the RoI route was not launched on a main path")
+    check(roi_entry["launches"] > 0 and redet_entry["launches"] > 0
+          and r3det_entry["launches"] > 0, "the RoI route or R3Det's per-image route was not "
+          "launched on a main path")
     check(atss_entry["launches"] == 2 * (1 + 5),
           f"ATSS's route: {atss_entry['launches']} launches, not one per loss forward and "
           f"train step in float32 and bf16")

@@ -5,7 +5,8 @@ Port of `jdet_tpu/data/dota.py`: `DOTADataset` :46 with
 `_balance_category` :59, `evaluate` :72 (keys `eval/<i>_<class>_AP` and
 `eval/0_meanAP`) and `save_submission` :121 (`Task1_<class>.txt`);
 `FAIRDataset`, `FAIR1M_1_5_Dataset` and `SSDDDataset` (:145-170); and
-`ImageDataset` :173, the gt-less folder dataset of `test`.
+`ImageDataset` :173, the gt-less folder dataset of `test`; and
+`DOTAWSOODDataset` :195, H2RBox's weakly supervised view.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from ..config.constants import (
 )
 from ..utils.registry import DATASETS
 from .custom import CustomDataset
+from .transforms import rbox_to_poly_np
 from .devkits.voc_eval import voc_eval_dota
 
 # balance-category repeat table (reference dota.py:43-54): rare classes are
@@ -187,3 +189,21 @@ class ImageDataset(CustomDataset):
                 f for f in os.listdir(images_dir) if f.lower().endswith(exts)
             )
         self.img_infos = [{"filename": f, "ann": {}} for f in files]
+
+
+@DATASETS.register_module()
+class DOTAWSOODDataset(DOTADataset):
+    """H2RBox's weakly supervised DOTA: each sample's rboxes are replaced
+    by their circumscribed horizontal rectangles at angle 0, after the
+    transforms, so that the model never sees a gt angle."""
+
+    def load_sample(self, idx, rng=None):
+        img, target = super().load_sample(idx, rng)
+        rb = target["rboxes"]
+        if len(rb):
+            polys = rbox_to_poly_np(rb)
+            x1, y1 = polys[:, 0::2].min(1), polys[:, 1::2].min(1)
+            x2, y2 = polys[:, 0::2].max(1), polys[:, 1::2].max(1)
+            target["rboxes"] = np.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1,
+                                         np.zeros_like(x1)], 1).astype(np.float32)
+        return img, target

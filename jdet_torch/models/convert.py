@@ -10,7 +10,9 @@ mirror those paths, so the mapping is mechanical:
   <p>.bias                  -> <p>.bias
   <p>.scale / .mean / .var  -> <p>.weight / .running_mean / .running_var
                                (+ <p>.num_batches_tracked = 0 where <p> is a
-                               BatchNorm; a LayerNorm's scale is its weight)
+                               BatchNorm; a LayerNorm's or a GroupNorm's
+                               scale is its weight)
+  <p>.scale (0-d)           -> <p>.scale                 (FCOS's `Scale`)
   <p>.ls1 / <p>.ls2         -> as they are (LSKNet's layer scales)
   <p>.weight (H, W, I, O)   -> <p>.weight (O, I, H, W)   (DeformConv)
   <p>.weight (O, I, k, k)   -> <p>.weight as it is        (REConv2dLift)
@@ -37,6 +39,7 @@ from torch import nn
 
 from ..ops.deform_conv import DeformConv
 from .equivariant.econv import REConv2dLift
+from .layers import Scale
 
 _BN_RENAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
@@ -65,6 +68,8 @@ def params_from_jax(flat, model):
                                  f"kernel, got {arr.shape}")
             sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(
                 arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)))
+        elif leaf == "scale" and isinstance(model.get_submodule(prefix), Scale):
+            sd[path] = torch.from_numpy(np.array(arr))
         elif leaf in _BN_RENAMES:
             sd[f"{prefix}.{_BN_RENAMES[leaf]}"] = torch.from_numpy(arr.copy())
             if leaf == "scale" and isinstance(model.get_submodule(prefix), nn.BatchNorm2d):

@@ -1,4 +1,5 @@
 """Detectors."""
-from .single_stage import (KnowledgeDistillationSingleStageDetector, RotatedRetinaNet, S2ANet,
-                           SingleStageDetector)
+from .h2rbox import H2RBox
+from .single_stage import (FCOS, KnowledgeDistillationSingleStageDetector, R3Det,
+                           RotatedRetinaNet, S2ANet, SingleStageDetector)
 from .two_stage import RCNN, OrientedRCNN, ReDet, RoITransformer, StripRCNN

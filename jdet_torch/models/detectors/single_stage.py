@@ -1,8 +1,8 @@
 """Single-stage detector: backbone -> neck -> head.
 
 Port of `jdet_tpu/models/detectors/single_stage.py`
-(`SingleStageDetector` :16, `RotatedRetinaNet` :51, `S2ANet` :56,
-`KnowledgeDistillationSingleStageDetector` :66). Images come in as
+(`SingleStageDetector` :16, `RotatedRetinaNet` :51, `S2ANet` :56, `FCOS`
+:61, `KnowledgeDistillationSingleStageDetector` :66, `R3Det` :110). Images come in as
 (B, H, W, 3) NHWC float32, the reference's batch contract, and are
 permuted to NCHW once here.
 """
@@ -49,6 +49,16 @@ class RotatedRetinaNet(SingleStageDetector):
 @MODELS.register_module()
 class S2ANet(SingleStageDetector):
     """Thin wrapper; all logic lives in `S2ANetHead`."""
+
+
+@MODELS.register_module()
+class FCOS(SingleStageDetector):
+    """Thin wrapper; all logic lives in `FCOSHead`."""
+
+
+@MODELS.register_module()
+class R3Det(SingleStageDetector):
+    """Thin wrapper; all logic lives in `R3DetHead`."""
 
 
 @MODELS.register_module()

@@ -29,6 +29,7 @@ from torch import nn
 
 from ...ops.box_convert import delta2rbox, rbox_to_poly
 from ...ops.nms_rotated import multiclass_nms_rotated
+from ...ops.topk import stable_topk
 from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorRotated
 from ..boxes.anchor_target import anchor_target_batch
@@ -295,7 +296,7 @@ class RotatedRetinaHead(nn.Module):
             )
             n_lvl = anchors.shape[0]
             if 0 < nms_pre < n_lvl:
-                _, topk = scores.amax(-1).topk(nms_pre, dim=-1)
+                _, topk = stable_topk(scores.amax(-1), nms_pre)
                 scores = torch.gather(
                     scores, 1, topk[..., None].expand(-1, -1, scores.shape[-1])
                 )

@@ -42,6 +42,7 @@ from ...ops.box_convert import delta2rbox, rbox_to_poly
 from ...ops.deform_conv import DeformConv
 from ...ops.nms_rotated import multiclass_nms_rotated
 from ...ops.orn import ORConv2d, rotation_invariant_pooling
+from ...ops.topk import stable_topk
 from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorRotatedS2ANet
 from ..boxes.anchor_target import anchor_target_batch
@@ -280,7 +281,7 @@ class S2ANetHead(nn.Module):
             deltas = reg.float().permute(0, 2, 3, 1).reshape(B, -1, 5)
             anchors = refine.float().reshape(B, -1, 5)
             if 0 < nms_pre < anchors.shape[1]:
-                _, topk = scores.amax(-1).topk(nms_pre, dim=-1)
+                _, topk = stable_topk(scores.amax(-1), nms_pre)
                 scores = torch.gather(scores, 1, topk[..., None].expand(-1, -1, C))
                 deltas = torch.gather(deltas, 1, topk[..., None].expand(-1, -1, 5))
                 anchors = torch.gather(anchors, 1, topk[..., None].expand(-1, -1, 5))

@@ -1,21 +1,23 @@
 """Shared NN building bricks, NCHW.
 
 Port of `jdet_tpu/models/layers.py` (`bias_init_with_prob` :20,
-`normal_init` :26, `ConvModule` :30 with norm None or 'bn', `max_pool`
-:101, `resize_nearest` :112) plus the `Conv2d`, `BatchNorm2d`, `Linear`
-and `LayerNorm2d` that stand in for flax's `nnx.Conv`, `nnx.BatchNorm`,
-`nnx.Linear` and `nnx.LayerNorm` (`jdet_tpu/models/nn.py` :53-74), and
-`gelu` (`jax.nn.gelu`'s default tanh form) and `sigmoid`.
+`normal_init` :26, `ConvModule` :30 with norm None, 'bn' or 'gn',
+`Scale` :91, `max_pool` :101, `resize_nearest` :112) plus the `Conv2d`,
+`BatchNorm2d`, `Linear`, `LayerNorm2d` and `GroupNorm` that stand in for
+flax's `nnx.Conv`, `nnx.BatchNorm`, `nnx.Linear`, `nnx.LayerNorm` and
+`nnx.GroupNorm` (`jdet_tpu/models/nn.py` :53-74), and `gelu`
+(`jax.nn.gelu`'s default tanh form) and `sigmoid`.
 
-All four bind the compute dtype of `models/nn.py` when they are built and
+All five bind the compute dtype of `models/nn.py` when they are built and
 follow flax's arithmetic under it (flax 0.12, `promote_dtype` of every
 operand to the layer's dtype): the conv casts its input, its float32
 weight and its bias to that dtype, convolves, and adds the bias as an
 operation of its own in that dtype (a bias fused into the conv rounds
 once where flax rounds twice); the BN with running statistics casts the
 input and its four float32 vectors to that dtype and normalizes step by
-step in it; the LayerNorm casts its input, scale and bias to that dtype,
-then takes the statistics and normalizes in float32 and rounds once.
+step in it; the LayerNorm and the GroupNorm cast their input, scale and bias to that
+dtype, then take the statistics and normalize in float32 (float64 under
+a float64 policy: flax promotes to at least float32) and round once.
 `ConvModule`, `max_pool` and `resize_nearest` keep their input's dtype.
 `gelu` and `sigmoid` follow XLA's expansion under a lower dtype, each
 step rounded to it.
@@ -149,6 +151,11 @@ class Linear(nn.Module):
         return F.linear(x, weight) + bias
 
 
+def _stats_dtype(dtype):
+    """The dtype flax's norms take statistics in: at least float32."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1);
     float32 parameters and statistics, computing in the compute dtype
@@ -166,7 +173,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         d = self.dtype
         if self.training:
             # flax's `_compute_stats` and its running averages
-            y = x.float()
+            y = x.to(_stats_dtype(x.dtype))
             mean = y.mean((0, 2, 3))
             var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
@@ -185,7 +192,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         # rsqrt of the bf16 (var + eps) in float32, rounded once, as XLA
         # computes it (torch's CPU kernel rounds 1/sqrt twice on the short
         # per-channel vectors it does not vectorize)
-        inv = torch.rsqrt((var + self.eps).float()).to(d)
+        inv = torch.rsqrt((var + self.eps).to(_stats_dtype(d))).to(d)
         return (x.to(d) - mean) * (inv * scale) + bias
 
 
@@ -208,12 +215,65 @@ class LayerNorm2d(nn.Module):
         weight, bias = self.weight, self.bias
         if self.dtype is not None:
             x, weight, bias = x.to(self.dtype), weight.to(self.dtype), bias.to(self.dtype)
-        y = x.float()
+        st = _stats_dtype(x.dtype)
+        y = x.to(st)
         mean = y.mean(1, keepdim=True)
         var = ((y * y).mean(1, keepdim=True) - mean * mean).clamp(min=0.0)
-        mul = torch.rsqrt(var + self.eps) * weight.float()[:, None, None]
-        y = (y - mean) * mul + bias.float()[:, None, None]
+        mul = torch.rsqrt(var + self.eps) * weight.to(st)[:, None, None]
+        y = (y - mean) * mul + bias.to(st)[:, None, None]
         return y if self.dtype is None else y.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """flax 0.12's `nnx.GroupNorm` on an NCHW tensor: `num_groups` groups
+    of channels (32 by default), epsilon 1e-6 (torch's `nn.GroupNorm` takes
+    1e-5), float32 `weight` and `bias` (flax's `scale` and `bias`). Under
+    a compute dtype flax casts the input, scale and bias to it; its
+    statistics are taken in float32 from a bf16 or float32 input
+    (`_compute_stats` promotes to at least float32) as `use_fast_variance`
+    takes them, E[x^2] - E[x]^2 clamped at 0 over each image's group (its
+    channels and all positions); `_normalize` then computes (x - mean) * (rsqrt(var +
+    eps) * scale) + bias in float32, since the float32 statistics promote
+    the bf16 operands, and rounds once to the compute dtype bound when the
+    layer is built."""
+
+    def __init__(self, channels, num_groups=32, eps=1e-6):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{channels} channels do not split into {num_groups} groups")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.dtype = compute_dtype()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            x, weight, bias = x.to(self.dtype), weight.to(self.dtype), bias.to(self.dtype)
+        b, c, h, w = x.shape
+        st = _stats_dtype(x.dtype)
+        y = x.to(st).reshape(b, self.num_groups, -1)
+        mean = y.mean(-1, keepdim=True)
+        var = ((y * y).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        mean = mean.expand(-1, -1, c // self.num_groups).reshape(b, c, 1, 1)
+        var = var.expand(-1, -1, c // self.num_groups).reshape(b, c, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * weight.to(st)[:, None, None]
+        y = (x.to(st) - mean) * mul + bias.to(st)[:, None, None]
+        return y if self.dtype is None else y.to(self.dtype)
+
+
+class Scale(nn.Module):
+    """A learnable scalar multiplier (FCOS's per-level scale): a 0-d
+    float32 `scale`. As in JAX, a bf16 input times the float32 scalar is
+    float32 (torch would keep bf16 for a 0-d operand)."""
+
+    def __init__(self, scale=1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(scale)))
+
+    def forward(self, x):
+        return x.to(torch.promote_types(x.dtype, self.scale.dtype)) * self.scale
 
 
 def _rounded(value, dtype):
@@ -243,7 +303,8 @@ def sigmoid(x):
 
 
 class ConvModule(nn.Module):
-    """conv -> norm -> act. norm in {None, 'bn'}; act in {None, 'relu'}."""
+    """conv -> norm -> act. norm in {None, 'bn', 'gn'} (the conv has a
+    bias only without a norm); act in {None, 'relu'}."""
 
     def __init__(
         self,
@@ -253,17 +314,19 @@ class ConvModule(nn.Module):
         *,
         stride=1,
         norm=None,
+        num_groups=32,
         act="relu",
         kernel_init=lecun_normal_init,
         generator=None,
     ):
         super().__init__()
-        if norm not in (None, "bn"):
+        if norm not in (None, "bn", "gn"):
             raise NotImplementedError(f"norm {norm!r} is not ported")
         self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
                            bias=norm is None, kernel_init=kernel_init,
                            generator=generator)
-        self.norm = BatchNorm2d(out_channels) if norm == "bn" else None
+        self.norm = (BatchNorm2d(out_channels) if norm == "bn"
+                     else GroupNorm(out_channels, num_groups) if norm == "gn" else None)
         self.act = act
 
     def forward(self, x):

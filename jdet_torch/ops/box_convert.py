@@ -1,9 +1,10 @@
 """Rotated-box codecs on tensors.
 
-Port of `jdet_tpu/ops/box_convert.py` (`norm_angle` :28, `rbox_to_poly`
+Port of `jdet_tpu/ops/box_convert.py` (`norm_angle` :28, `regular_theta`
+:36, `regular_obb` :45, `mintheta_obb` :58, `rbox_to_poly`
 :103, `poly_to_rbox` :119, `poly_to_hbox` :140, `rbox_to_hbox` :149,
 `hbox_to_rbox` :157, `rbox2delta` :232, `delta2rbox` :257, `hbox2delta`
-:290, `delta2hbox` :313, `points_in_rbox` :385, `integral` :399,
+:290, `delta2hbox` :313, `distance2obb` :368, `points_in_rbox` :385, `integral` :399,
 `integral_angle` :410). All functions take arbitrary leading batch
 dimensions.
 
@@ -26,6 +27,48 @@ def norm_angle(angle, start=-PI / 4, rng=PI):
     `%` on a float tensor is `torch.remainder`, which takes the sign of the
     divisor like Python's `%` (`torch.fmod` would not)."""
     return (angle - start) % rng + start
+
+
+def regular_theta(theta, mode="180", start=-PI / 2):
+    """Normalize theta into [start, start + pi) ('180') or
+    [start, start + 2 pi) ('360'); `%` is the floor-mod, as in JAX."""
+    cycle = 2 * PI if mode == "360" else PI
+    return (theta - start) % cycle + start
+
+
+def regular_obb(obboxes):
+    """The same box with w >= h and theta in [-pi/2, pi/2): where w <= h
+    the sides swap and theta turns by pi/2."""
+    x, y, w, h, theta = obboxes.split(1, dim=-1)
+    wide = w > h
+    return torch.cat([x, y, torch.where(wide, w, h), torch.where(wide, h, w),
+                      regular_theta(torch.where(wide, theta, theta + PI / 2))], -1)
+
+
+def mintheta_obb(obboxes):
+    """The same box in whichever of its two (w, h, theta) forms has the
+    smaller |theta| (theta in [-pi/2, pi/2); the first form on a tie)."""
+    x, y, w, h, theta = obboxes.split(1, dim=-1)
+    theta1 = regular_theta(theta)
+    theta2 = regular_theta(theta + PI / 2)
+    pick1 = theta1.abs() < theta2.abs()
+    return torch.cat([x, y, torch.where(pick1, w, h), torch.where(pick1, h, w),
+                      torch.where(pick1, theta1, theta2)], -1)
+
+
+def distance2obb(points, distance):
+    """FCOS-OBB decode: a point (..., 2) and its (l, t, r, b, theta)
+    (..., 5), the distances to the box's sides in the box's frame -> the
+    rbox, in `regular_obb`'s form."""
+    dist, theta = distance[..., :4], distance[..., 4]
+    c, s = torch.cos(theta), torch.sin(theta)
+    w = dist[..., 0] + dist[..., 2]
+    h = dist[..., 1] + dist[..., 3]
+    ox = (dist[..., 2] - dist[..., 0]) / 2
+    oy = (dist[..., 3] - dist[..., 1]) / 2
+    cx = points[..., 0] + c * ox - s * oy
+    cy = points[..., 1] + s * ox + c * oy
+    return regular_obb(torch.stack([cx, cy, w, h, theta], -1))
 
 
 def rbox_to_poly(rboxes):

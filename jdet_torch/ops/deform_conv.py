@@ -1,7 +1,9 @@
-"""Deformable convolution (v1), NCHW, in plain PyTorch.
+"""Deformable convolution (v1) and bilinear sampling, NCHW, in plain
+PyTorch.
 
-Port of `jdet_tpu/ops/deform_conv.py` (`deform_conv2d` :131,
-`DeformConv` :202) as AlignConv uses them: stride 1, dilation 1, "same"
+Port of `jdet_tpu/ops/deform_conv.py` (`bilinear_sample_nhwc` :24, as
+R3Det's feature refinement and H2RBox's image rotation call it;
+`deform_conv2d` :131, `DeformConv` :202 as AlignConv uses them): stride 1, dilation 1, "same"
 padding, no bias. Offsets are a (dy, dx) pair per output pixel and
 kernel tap. Each tap samples the input bilinearly at its moved position,
 zero outside (-1, H) x (-1, W) with every out-of-image corner zero; the
@@ -31,6 +33,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _grid(sy, sx, h, w):
+    """Pixel coordinates -> `F.grid_sample`'s [-1, 1] grid
+    (align_corners=False), x first."""
+    return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], -1)
+
+
 def deform_conv2d(x, offsets, weight):
     """Stride 1, dilation 1, padding (k - 1) / 2, no bias (AlignConv's).
     x (B, C, H, W); offsets (B, H, W, k * k, 2) as (dy, dx), taps in
@@ -48,8 +56,7 @@ def deform_conv2d(x, offsets, weight):
     off = offsets.float().permute(0, 3, 4, 1, 2)  # (B, kk, 2, H, W)
     sy = (oy[:, None] + tap_y[:, None, None]) + off[:, :, 0]
     sx = (ox[None, :] + tap_x[:, None, None]) + off[:, :, 1]
-    # pixel coordinates -> grid_sample's [-1, 1] (align_corners=False)
-    grid = torch.stack([(2 * sx + 1) / W - 1, (2 * sy + 1) / H - 1], -1)
+    grid = _grid(sy, sx, H, W)
     cols = F.grid_sample(x.float(), grid.reshape(B, kk, H * W, 2), mode="bilinear",
                          padding_mode="zeros", align_corners=False)
     w2 = weight.to(x.dtype)
@@ -59,6 +66,22 @@ def deform_conv2d(x, offsets, weight):
         w2 = w2.float()
     out = torch.matmul(w2.reshape(cout, C * kk), cols.reshape(B, C * kk, H * W))
     return out.reshape(B, cout, H, W)
+
+
+def bilinear_sample(x, sy, sx):
+    """Sample x (B, C, H, W) at the pixel coordinates sy, sx (B, ...) of
+    each image; returns (B, C, ...) in x's dtype. A sample is zero outside
+    (-1, H) x (-1, W), and each corner outside the image counts zero, as
+    in the reference's corner table (`corner_weights_and_rows` :61-85).
+    Under the bf16 policy the reference forms the corner weights and sums
+    the corners in bf16 (:73-74); here the sampling runs in float32 on the
+    bf16 values and rounds once."""
+    b, c, h, w = x.shape
+    rest = sy.shape[1:]
+    grid = _grid(sy.float(), sx.float(), h, w).reshape(b, 1, -1, 2)
+    out = F.grid_sample(x.float(), grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)
+    return out.reshape(b, c, *rest).to(x.dtype)
 
 
 class DeformConv(nn.Module):

@@ -16,6 +16,7 @@ import torch
 
 from .box_iou_rotated import box_iou_rotated
 from .rotated_iou_kernel import box_iou_rotated_rect
+from .topk import stable_topk
 
 
 def _greedy_sweep(overlap, valid):
@@ -42,13 +43,6 @@ def _greedy_sweep(overlap, valid):
         keep = new
 
 
-def _top(x, k):
-    """The k largest along the last axis, descending, ties to the lower
-    index."""
-    s, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return s[..., :k], i[..., :k]
-
-
 def nms_rotated(boxes, scores, iou_threshold, valid=None):
     """Greedy rotated NMS over (n, 5) boxes.
 
@@ -71,18 +65,23 @@ def multiclass_nms_rotated(
     score_thr,
     nms_iou_thr,
     max_per_img,
+    score_factors=None,
     class_cap=512,
 ):
     """Score-filter -> per-class NMS -> global top-k, fixed output size.
 
     multi_bboxes (B, n, 5) rboxes; multi_scores (B, n, C) class scores (no
-    background column). Classes never suppress each other, so each class
-    NMS-es its top `class_cap` candidates independently.
+    background column); `score_factors` (B, n), where given, multiplies
+    each candidate's scores first (FCOS's centerness). Classes never
+    suppress each other, so each class NMS-es its top `class_cap`
+    candidates independently.
 
     Returns a dict of boxes (B, max_per_img, 5), scores (B, max_per_img),
     labels (B, max_per_img) int64 (-1 where invalid) and valid.
     """
     B, n, num_classes = multi_scores.shape
+    if score_factors is not None:
+        multi_scores = multi_scores * score_factors[..., None]
     K = min(n, class_cap)
 
     valid = multi_scores > score_thr
@@ -91,7 +90,7 @@ def multiclass_nms_rotated(
     # `jax.lax.top_k` orders them, on either device (`torch.topk` breaks
     # ties one way on the CPU and another on the card, and the order
     # decides which of two tied boxes suppresses the other)
-    top_s, top_i = _top(sT, K)  # (B, C, K), sorted desc
+    top_s, top_i = stable_topk(sT, K)  # (B, C, K), sorted desc
     b = torch.gather(
         multi_bboxes[:, None].expand(B, num_classes, n, 5),
         2, top_i[..., None].expand(B, num_classes, K, 5),
@@ -107,7 +106,7 @@ def multiclass_nms_rotated(
 
     flat_s = torch.where(keep, top_s, float("-inf")).reshape(B, -1)
     m = min(max_per_img, flat_s.shape[1])
-    sel_s, sel = _top(flat_s, m)
+    sel_s, sel = stable_topk(flat_s, m)
     valid_out = torch.isfinite(sel_s)
     boxes = torch.gather(
         b.reshape(B, -1, 5), 1, sel[..., None].expand(B, m, 5)

@@ -8,12 +8,14 @@ Prints one JSON line.
 
     python3 -m jdet_torch.tools.time_paths \
         configs/rotated_retinanet_obb_r50_fpn_1x_dota.py [--bf16] \
-        [--against ROOT] [--rounds N]
+        [--against ROOT] [--rounds N] [--paths predict,...]
 
 With `--against ROOT` it also loads the `jdet_torch` package of the
 checkout at ROOT under another name, builds the same model from the same
 seed there, and times the two in one process, round by round, the order
 alternating (A B, B A, ...), so that the host's drift falls on both.
+`--paths` times only the named ones of `loss_forward`, `predict` and
+`train_step` (the 20 steps first only with `train_step`).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 STEPS_PER_EPOCH = 1000
+PATHS = ("loss_forward", "predict", "train_step")
 
 
 def synth_batch(B, size, K=32, real=8, seed=0, uint8=False):
@@ -83,7 +86,7 @@ def load_package(root, name):
 class Paths:
     """One package's model of the config and its three timed paths."""
 
-    def __init__(self, pkg, cfg, bf16):
+    def __init__(self, pkg, cfg, bf16, paths=PATHS):
         mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
         with mod("models.nn").compute_dtype_scope(torch.bfloat16 if bf16 else None):
             self.model = mod("models.builder").build_detector(
@@ -106,7 +109,8 @@ class Paths:
         self.serve_batch = synth_batch(2, 1024)
         self.train_batch = synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True)
         self.it = 0
-        for _ in range(20):
+        self.paths = paths
+        for _ in range(20 if "train_step" in paths else 0):
             self.train_step()
 
     def loss_forward(self):
@@ -124,9 +128,8 @@ class Paths:
         return self.step(*self.train_batch, self.it - 1)
 
     def time(self):
-        return {"loss_forward_ms": median_ms(self.loss_forward, warmup=2),
-                "predict_ms": median_ms(self.predict, warmup=2),
-                "train_step_ms": median_ms(self.train_step, warmup=3)}
+        return {f"{p}_ms": median_ms(getattr(self, p), warmup=3 if p == "train_step" else 2)
+                for p in self.paths}
 
 
 def main(argv=None):
@@ -136,7 +139,12 @@ def main(argv=None):
     parser.add_argument("--against", default=None,
                         help="root of another checkout, timed in turn with this one")
     parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--paths", default=",".join(PATHS),
+                        help="comma-separated paths to time, of " + ", ".join(PATHS))
     args = parser.parse_args(argv)
+    paths = tuple(args.paths.split(","))
+    if not set(paths) <= set(PATHS):
+        parser.error(f"--paths takes {', '.join(PATHS)}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -148,12 +156,12 @@ def main(argv=None):
     if args.against:
         load_package(args.against, "jdet_torch_against")
         roots["against"] = Path(args.against).resolve()
-    paths = {k: Paths("jdet_torch" if k == "this" else "jdet_torch_against", cfg, args.bf16)
-             for k in roots}
+    timed = {k: Paths("jdet_torch" if k == "this" else "jdet_torch_against", cfg, args.bf16,
+                      paths) for k in roots}
     rounds = {k: [] for k in roots}
     for r in range(args.rounds):
         for k in (list(roots) if r % 2 == 0 else list(roots)[::-1]):
-            rounds[k].append(paths[k].time())
+            rounds[k].append(timed[k].time())
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()

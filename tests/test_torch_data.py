@@ -29,6 +29,17 @@ from jdet_torch.data.dota import DOTADataset, ImageDataset
 from jdet_torch.data.synthetic import make_synthetic_dota
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's thread pool made the plain versions'
+    many small ops tens of times slower here than one thread (77 s against
+    0.34 s for four of the early-out cases of test_torch_iou_kernel.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _content(h, w, seed=0):
     """Noise, a flat block and gradients, so that an adaptive encoder
     picks several row filters."""

@@ -16,6 +16,17 @@ from jdet_torch.ops import rotated_iou_kernel as rik
 from jdet_torch.ops.box_iou_rotated import box_iou_rotated
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's thread pool made the plain versions'
+    many small ops tens of times slower here than one thread (77 s against
+    0.34 s for four of the early-out cases of test_torch_iou_kernel.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _case(seed=3, K=10, N=300):
     """The cases of tests/test_box_iou_rotated.py's Pallas parity test:
     identical, crossed and touching anchors beside random ones."""

@@ -6,8 +6,12 @@ are carried into the port through `params_from_jax`. Tolerances: head
 outputs atol 1e-4 and stage outputs rtol 1e-4 (with an atol of 1e-4 of
 the stage's largest value) — convolutions sum in another order; losses
 rtol 1e-4. Predict is fed the JAX head outputs, so that conv rounding
-stays out of the NMS comparison."""
+stays out of the NMS comparison. The reference is built under `nnx.jit`
+and its calls are compiled once each with XLA's fusion passes off
+(`_jitted`), which computes each primitive as eager JAX does: eagerly,
+JAX compiles every one of a model's hundreds of primitives apart."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,6 +26,7 @@ from jdet_torch.models.backbones import ResNet
 from jdet_torch.models.builder import build_detector
 from jdet_torch.models.convert import load_from_jax, params_from_jax
 from test_retinanet_e2e import synthetic_batch
+from test_torch_retina_variants import unfused_jit
 
 CFG = dict(
     type="RotatedRetinaNet",
@@ -69,8 +74,14 @@ def _numpy_params(module):
     return {k: np.asarray(v.get_value()) for k, v in flat.items()}
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _jitted(module, fn, *args):
+    """fn(module, *args), compiled once with XLA's fusion passes off."""
+    graphdef, state = nnx.split(module)
+    return unfused_jit(lambda s, *a: fn(nnx.merge(graphdef, s), *a), state,
+                       *(jax.tree.map(jnp.asarray, a) for a in args))
+
+
+def _jax_model():
     rngs = nnx.Rngs(0)
     backbone = JResNet(depth=18, frozen_stages=1, rngs=rngs)
     neck = JFPN(backbone.out_channels, 64, num_outs=5, start_level=1,
@@ -80,7 +91,13 @@ def pair():
         anchor_strides=(8, 16, 32, 64, 128),
         test_cfg=dict(nms_pre=256, max_per_img=50), rngs=rngs,
     )
-    jmodel = JRotatedRetinaNet(backbone, neck, head)
+    return JRotatedRetinaNet(backbone, neck, head)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    # built under nnx.jit: one compile instead of one per initializer
+    jmodel = nnx.jit(_jax_model)()
     _randomize_bn(jmodel, seed=1)
     tmodel = build_detector(CFG, device="cpu", load_pretrained=False)
     load_from_jax(tmodel, _numpy_params(jmodel))
@@ -104,9 +121,20 @@ def test_params_from_jax_is_strict(pair):
     load_from_jax(tmodel, _numpy_params(jmodel))
 
 
+_JAX_OUTS = {}
+
+
+def _jax_outs(jmodel, images):
+    """The reference's head outputs on `images`, computed once per model."""
+    if id(jmodel) not in _JAX_OUTS:
+        _JAX_OUTS[id(jmodel)] = _jitted(jmodel, lambda m, x: m.bbox_head(m.extract_feat(x)),
+                                        images)
+    return _JAX_OUTS[id(jmodel)]
+
+
 def test_head_outputs_match(pair):
     jmodel, tmodel, images, _ = pair
-    want = jmodel.bbox_head(jmodel.extract_feat(jnp.asarray(images)))
+    want = _jax_outs(jmodel, images)
     tmodel.eval()
     with torch.no_grad():
         got = tmodel.bbox_head(tmodel.extract_feat(torch.from_numpy(images)))
@@ -118,7 +146,7 @@ def test_head_outputs_match(pair):
 
 def test_losses_match(pair):
     jmodel, tmodel, images, targets = pair
-    want = jmodel.loss(jnp.asarray(images), {k: jnp.asarray(v) for k, v in targets.items()})
+    want = _jitted(jmodel, lambda m, x, t: m.loss(x, t), images, targets)
     tmodel.train()
     got = tmodel.loss(torch.from_numpy(images),
                       {k: torch.from_numpy(v) for k, v in targets.items()})
@@ -135,10 +163,11 @@ def test_losses_match(pair):
 
 def test_predict_matches_on_jax_head_outputs(pair):
     jmodel, tmodel, images, _ = pair
-    outs = jmodel.bbox_head(jmodel.extract_feat(jnp.asarray(images)))
+    outs = _jax_outs(jmodel, images)
     jmodel.bbox_head.test_cfg = dict(jmodel.bbox_head.test_cfg, score_thr=0.0)
     tmodel.bbox_head.test_cfg = dict(tmodel.bbox_head.test_cfg, score_thr=0.0)
-    want = {k: np.asarray(v) for k, v in jmodel.bbox_head.predict(outs).items()}
+    want = {k: np.asarray(v) for k, v in
+            _jitted(jmodel, lambda m, o: m.bbox_head.predict(o), outs).items()}
     touts = [(torch.from_numpy(np.array(c)).permute(0, 3, 1, 2),
               torch.from_numpy(np.array(r)).permute(0, 3, 1, 2)) for c, r in outs]
     got = {k: v.numpy() for k, v in tmodel.bbox_head.predict(touts).items()}
@@ -189,13 +218,13 @@ def test_build_detector_loads_a_converted_backbone(tmp_path):
 
 
 def test_resnet50_backbone_matches():
-    jb = JResNet(depth=50, frozen_stages=1, rngs=nnx.Rngs(2))
+    jb = nnx.jit(lambda: JResNet(depth=50, frozen_stages=1, rngs=nnx.Rngs(2)))()
     _randomize_bn(jb, seed=3)
     tb = ResNet(depth=50, frozen_stages=1)
     load_from_jax(tb, _numpy_params(jb))
     tb.eval()
     x = np.random.RandomState(4).rand(1, 64, 64, 3).astype(np.float32)
-    want = jb(jnp.asarray(x))
+    want = _jitted(jb, lambda m, x: m(x), x)
     with torch.no_grad():
         got = tb(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert [tuple(g.shape[-2:]) for g in got] == [(16, 16), (8, 8), (4, 4), (2, 2)]

@@ -22,6 +22,18 @@ from jdet_torch.models.boxes import (AnchorGeneratorRotated, AnchorGeneratorRota
 from jdet_torch.utils.edge_cases import refined_anchors
 from jdet_torch.models.losses import sigmoid_focal_loss, smooth_l1_loss
 from test_retinanet_e2e import synthetic_batch
+from test_torch_retina_variants import unfused_jit
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: torch's thread pool made the plain versions'
+    many small ops tens of times slower here than one thread (77 s against
+    0.34 s for four of the early-out cases of test_torch_iou_kernel.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 STRIDES = (8, 16, 32, 64, 128)
 GEN_KW = dict(octave_base_scale=4, scales_per_octave=3, ratios=(1.0, 0.5, 2.0))
@@ -66,11 +78,7 @@ def targets():
     t = {k: np.array(v) for k, v in t.items()}
     anchors = _anchors_128()
     valid = np.ones(len(anchors), bool)
-    want, want_pos, want_neg = j_targets(
-        jnp.asarray(anchors), jnp.asarray(valid), jnp.asarray(t["gt_bboxes"]),
-        jnp.asarray(t["gt_mask"]), jnp.asarray(t["gt_labels"]),
-        rotated=True, **TARGET_KW,
-    )
+    want, want_pos, want_neg = _j_targets(anchors, valid, t)
     got, got_pos, got_neg = anchor_target_batch(
         torch.from_numpy(anchors), torch.from_numpy(valid),
         torch.from_numpy(t["gt_bboxes"]), torch.from_numpy(t["gt_mask"]),
@@ -81,13 +89,28 @@ def targets():
     return t, anchors, want, (int(want_pos), int(want_neg)), got, (int(got_pos), int(got_neg))
 
 
+def _j_targets(anchors, valid, t):
+    """The reference's targets, compiled once with XLA's fusion off (each
+    primitive as eager JAX computes it; eagerly, JAX compiles each of the
+    assigner's primitives apart)."""
+    return unfused_jit(lambda *a: j_targets(*a, rotated=True, **TARGET_KW),
+                       *(jnp.asarray(x) for x in (anchors, valid, t["gt_bboxes"],
+                                                  t["gt_mask"], t["gt_labels"])))
+
+
+def _j_overlaps(gts, mask, anchors):
+    """The reference's IoU of the parked gts against the anchors, compiled
+    as `_j_targets` is."""
+    return np.asarray(unfused_jit(lambda g, m, a: j_iou(j_park(g, m), a, impl="xla"),
+                                  jnp.asarray(gts), jnp.asarray(mask), jnp.asarray(anchors)))
+
+
 def _decisive(t, anchors):
     """(B, N) mask of anchors whose assignment no last-ulp IoU difference
     can change."""
     out = []
     for b in range(len(t["gt_bboxes"])):
-        parked = j_park(jnp.asarray(t["gt_bboxes"][b]), jnp.asarray(t["gt_mask"][b]))
-        ov = np.asarray(j_iou(parked, jnp.asarray(anchors), impl="xla"))
+        ov = _j_overlaps(t["gt_bboxes"][b], t["gt_mask"][b], anchors)
         ov = ov[t["gt_mask"][b]]  # real gts only
         near_thr = np.zeros(ov.shape[1], bool)
         for thr in (0.4, 0.5):
@@ -152,9 +175,7 @@ def test_anchor_target_per_image_anchors_matches():
         for s in STRIDES])
     anchors = np.stack([refined_anchors(init, seed=b, extreme=2) for b in range(2)])
     valid = np.ones(anchors.shape[1], bool)
-    want, want_pos, want_neg = j_targets(
-        jnp.asarray(anchors), jnp.asarray(valid), jnp.asarray(t["gt_bboxes"]),
-        jnp.asarray(t["gt_mask"]), jnp.asarray(t["gt_labels"]), rotated=True, **TARGET_KW)
+    want, want_pos, want_neg = _j_targets(anchors, valid, t)
     got, got_pos, got_neg = anchor_target_batch(
         torch.from_numpy(anchors), torch.from_numpy(valid),
         torch.from_numpy(t["gt_bboxes"]), torch.from_numpy(t["gt_mask"]),
