@@ -144,6 +144,17 @@
    float32; for H2RBox's AdamW every gradient from one state under the
    float64 policy, both devices on one theta); the serving path at B=2
    and 5 train steps at B=4, 1024², K=512, in float32 and bf16.
+8k. Rotated RepPoints R50-FPN (`rotated_reppoints_r50_fpn_1x_dota.py`) at
+   full width with random weights: its convex ops (plain PyTorch) on the
+   card against the CPU on a real forward at B=4, 1024², K=512 (64 real):
+   the refine assignment's convex IoU (zeros identical, gt_inds identical
+   on a batch without near ties; its ms and peak bytes), `convex_giou`
+   and its gradient at the loss's pairs, `min_area_rect`; card against
+   CPU at 512², B=1 (the float32 loss forward, 2 SGD steps) and once in
+   bf16; the serving path at B=2 and 5 train steps in float32 and bf16
+   with the step's parts and profile. Then the main RetinaNet with
+   `loss_bbox=dict(type="poly_giou")` at the train step's traffic: its
+   loss forward and one step, timed, with peak memory.
 8f. Weight import, from files written from a seed: a torchvision-named
    ResNet-50 `.pth` as the main config's `backbone.pretrained`; a JDet
    payload of the whole RetinaNet through `Runner.load`, then its loss
@@ -169,8 +180,10 @@
    test merges back into the 2 scenes. `DOTADataset.evaluate` and the
    merge are timed on the native polygon library (`csrc/polygon.cpp`,
    g++) and on its numpy plain path, with the same APs and merged
-   detections. `Runner.profile` records 3 steps into a trace that must
-   name the fused assigner's kernels.
+   detections. One more scene is tiled at rates 0.5, 1.0 and 1.5 (the
+   bicubic resize on numpy) and its tiles' objects merged back.
+   `Runner.profile` records 3 steps into a trace that must name the
+   fused assigner's kernels.
 11. Prints a `{"kernels": [...]}` line, the card line again, and as the
    last line `{"ok": true, "device": {...}}`.
 
@@ -178,8 +191,8 @@ Each path (serving, K2's entry point, training, the same in bf16, the
 S2ANet, Oriented R-CNN, ReDet and RetinaNet variants' paths and their
 `run_net`, LSKNet-S's and StripNet-S's paths, the imported detector's
 loss forward and `predict`, FasterRCNN-OBB's, Gliding Vertex's, S2ANet
-RIDet's and R101's paths, R3Det's, FCOS's and H2RBox's paths,
-`vis_test`, the Runner's `run()`, the epoch on the preprocessed tiles
+RIDet's and R101's paths, R3Det's, FCOS's, H2RBox's and RepPoints'
+paths, `vis_test`, the Runner's `run()`, the epoch on the preprocessed tiles
 and its val and test) runs with the launch counters set to 0 just
 before it and read just after:
 one fused assigner launch per loss forward and per train step
@@ -190,14 +203,15 @@ and for the RetinaNet variants one fused launch
 (GWD, KLD, KFIoU, RSDet, CSL, LD, v1d, DOTA-1.5), one K1 matrix launch
 inside the assigner (ATSS) or none (hbb); none for FasterRCNN-OBB and
 Gliding Vertex; one shared and one per-image (no mask) for R3Det; none
-for FCOS and H2RBox; one K1 matrix launch per `predict` (per predict
+for FCOS, H2RBox and RepPoints; one K1 matrix launch per `predict` (per predict
 batch in `val`, `test` and `vis_test`), no K2 launch.
 
 The families whose times `PERF.md` already holds (all but the main
-RetinaNet) are timed briefly (`brief=True`) and run 5 train steps
+RetinaNet, and RepPoints' train steps) are timed briefly (`brief=True`) and run 5 train steps
 (Oriented R-CNN 3 at B=16), and the bf16 card-against-CPU check runs
 once per head family (RetinaNet, S2ANet, Oriented R-CNN R50, ReDet,
-FasterRCNN-OBB) and once for the LSKNet/StripNet backbones (LSKNet-S):
+FasterRCNN-OBB, RepPoints) and once for the LSKNet/StripNet backbones
+(LSKNet-S):
 the script stays well inside its 1200 s.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -253,6 +267,7 @@ S2ANET_R101_CONFIG = Path(__file__).resolve().parent / "configs/s2anet_r101_fpn_
 R3DET_CONFIG = Path(__file__).resolve().parent / "configs/r3det_r50_fpn_1x_dota.py"
 FCOS_CONFIG = Path(__file__).resolve().parent / "configs/fcos_obb_r50_fpn_1x_dota.py"
 H2RBOX_CONFIG = Path(__file__).resolve().parent / "configs/h2rbox_r50_fpn_1x_dota.py"
+REPPOINTS_CONFIG = Path(__file__).resolve().parent / "configs/rotated_reppoints_r50_fpn_1x_dota.py"
 # the card-vs-CPU gradients of LSKNet-S / StripNet-S from one state: each
 # trainable tensor's largest error over its largest CPU gradient, and the
 # error's RMS over the gradient's RMS (a probe run read StripNet-S's worst
@@ -318,6 +333,12 @@ def is_point_head(model):
     return type(model).__name__ in ("FCOS", "H2RBox")
 
 
+def is_reppoints(model):
+    """Rotated RepPoints: convex assigners on point sets, no rotated IoU
+    assigner."""
+    return type(model).__name__ == "RotatedRepPoints"
+
+
 def is_hbb_rcnn(model):
     """FasterRCNN-OBB and Gliding Vertex: RoI heads on hbb proposals, which
     assign with `max_iou_assign_hbb` (no kernel)."""
@@ -333,8 +354,9 @@ def fused_per_loss(model):
     in plain PyTorch); R3Det's stage 1 on shared anchors and its refine
     stage on per-image refined boxes; FasterRCNN-OBB's and Gliding
     Vertex's never (their RPNs and RoI heads assign horizontal boxes), nor
-    Rotated FCOS's and H2RBox's (point targets)."""
-    if is_hbb_rcnn(model) or is_point_head(model):
+    Rotated FCOS's and H2RBox's (point targets), nor RepPoints' (convex
+    assigners on its point sets, plain PyTorch)."""
+    if is_hbb_rcnn(model) or is_point_head(model) or is_reppoints(model):
         return {"max_iou_assign_rect": 0, "max_iou_assign_rect_per_image": 0,
                 "max_iou_assign_rect_per_image_masked": 0}
     if is_orcnn(model) or is_redet(model):
@@ -1329,6 +1351,8 @@ def assignment_margin(model, targets, size, images=None):
     head = model.bbox_head
     if is_point_head(model):
         return point_margin(model, targets, size)
+    if is_reppoints(model):
+        return reppoints_margin(model, targets, images)
     sizes = [(size // s, size // s) for s in head.anchor_strides]
     B = len(targets["gt_bboxes"])
     if is_s2anet(model) or is_r3det(model):
@@ -1473,13 +1497,14 @@ def aug_map_margin(model, targets, size, theta):
     return dist[pos.any(0)].min().item()
 
 
-def check_train_card_against_cpu(cfg, rik, loss_forward=False):
+def check_train_card_against_cpu(cfg, rik, loss_forward=False, param_tol=1e-3):
     """The full-width model with the same random weights on the card and
     on the CPU, B=1 at 512² (the card's assigner takes the fused kernel,
     the CPU's the plain version), augmentation off, on a batch without
     near ties in its targets; with `loss_forward`, a float32 loss forward
     first (rtol 1e-4). Then, with the config's SGD, two float32 train
-    steps; with Adam (H2RBox's AdamW), the gradients of the loss from the
+    steps, each parameter after them within `param_tol` of its tensor's
+    largest value; with Adam (H2RBox's AdamW), the gradients of the loss from the
     one state instead, held to `GRAD_LIMITS` as
     `check_rcnn_card_against_cpu(grads=True)` holds them: an Adam step
     divides each gradient by its own size, so a gradient near 0 takes a
@@ -1598,7 +1623,8 @@ def check_train_card_against_cpu(cfg, rik, loss_forward=False):
         want = cpu_params[pname].detach()
         err = (p.detach().cpu() - want).abs().max().item()
         scale = want.abs().max().item()
-        check(err <= 1e-3 * scale, f"parameter {pname} after 2 steps: err {err}, max {scale}")
+        check(err <= param_tol * scale,
+              f"parameter {pname} after 2 steps: err {err}, max {scale}")
         update = (want - start[pname]).abs().max().item()
         worst, n = max(worst, err / scale), n + 1
         worst_update = max(worst_update, err / max(update, 1e-30))
@@ -1607,7 +1633,7 @@ def check_train_card_against_cpu(cfg, rik, loss_forward=False):
         f"largest 2-step change)")
 
 
-def check_bf16_card_against_cpu(cfg, rik):
+def check_bf16_card_against_cpu(cfg, rik, gap_factor=BF16_GAP_FACTOR):
     """The full-width model built under the bf16 policy, on the card and on
     the CPU with the same weights, B=1 at 512²: the loss forward, the
     head outputs and `predict` (score_thr 0.0), and 2 train steps
@@ -1615,8 +1641,9 @@ def check_bf16_card_against_cpu(cfg, rik):
     distance from the float32 model on the card to the CPU's bf16 result:
     for the 8 losses together, the head's class and box outputs and the 2
     steps' change of all trainable parameters together (root mean
-    squares), the card's bf16 result lies within BF16_GAP_FACTOR of that
-    gap from the CPU's. `predict`'s detections are not compared: bf16
+    squares), the card's bf16 result lies within `gap_factor` of that
+    gap from the CPU's (BF16_GAP_FACTOR by default). `predict`'s
+    detections are not compared: bf16
     logits near the 0.01 prior take few distinct values, so many scores
     tie, and which boxes the greedy NMS keeps follows the order in which
     each device breaks those ties (on the H100, 572 valid detections on
@@ -1697,7 +1724,7 @@ def check_bf16_card_against_cpu(cfg, rik):
         f"card/cpu/f32 {[o[4] for o in (card, cpu, f32)]}; |card - cpu| over the f32 - bf16 "
         f"gap: " + json.dumps(fractions))
     for what, frac in fractions.items():
-        check(frac <= BF16_GAP_FACTOR,
+        check(frac <= gap_factor,
               f"bf16 card vs cpu, {what}: {frac:.3f} of the f32 - bf16 gap apart")
 
 
@@ -1895,10 +1922,11 @@ def serving_phase(model, rik, label, brief=False):
     v = det0["valid"]
     check(v.sum().item() > 0, "no valid detections at score_thr=0.0")
     # untrained FCOS and H2RBox heads put ReLU'd distances of exactly 0
-    # (a zero side) beside positive ones; decoded anchors never do
+    # (a zero side) beside positive ones, and a RepPoints set may be
+    # collinear; decoded anchors never do
     sides = det0["boxes"][v][:, 2:4]
-    check(((sides >= 0) if is_point_head(model) else (sides > 0)).all().item(),
-          "degenerate valid boxes")
+    check(((sides >= 0) if is_point_head(model) or is_reppoints(model) else (sides > 0))
+          .all().item(), "degenerate valid boxes")
     check(((det0["labels"][v] >= 0) & (det0["labels"][v] < 15)).all().item(), "bad labels")
 
     # each phase, and its parts: the network forward, and the head's loss
@@ -2099,6 +2127,54 @@ def runner_phase(cfg, rik, root, n_tiles=16):
     return launches
 
 
+def multi_rate_tiling(root):
+    """One synthetic scene of 1500 x 1100 tiled by `preprocess` at the
+    multi-scale configs' rates [0.5, 1.0, 1.5] (the bicubic resize of
+    `tiling.resize_cubic` on numpy), then its tiles' objects, as
+    detections at tile coordinates, merged back (`merge_results`): every
+    quad inside the scene comes back from the one rate-0.5 tile within
+    1e-3 px. Returns its times."""
+    from jdet_torch.config.constants import get_classes_by_name
+    from jdet_torch.data.devkits import result_merge, tiling
+    from jdet_torch.data.synthetic import make_synthetic_raw_dota
+    from jdet_torch.tools import preprocess
+
+    img_dir, label_dir = make_synthetic_raw_dota(str(root / "raw"), sizes=((1500, 1100),),
+                                                 corner_only=(False,), seed=2)
+    out = root / "tiles"
+    cfg_file = root / "ms_cfg.py"
+    cfg_file.write_text(
+        f"preprocess = dict(dataset_type='DOTA', subsize=1024, gap=200, rates=[0.5, 1.0, 1.5], "
+        f"tasks=[dict(image_dir={img_dir!r}, label_dir={label_dir!r}, out_dir={str(out)!r})])\n")
+    t0 = time.perf_counter()
+    tiles = preprocess.main(["--config-file", str(cfg_file), "--clear"])[0]
+    seconds = time.perf_counter() - t0
+    per_rate = Counter(result_merge.parse_tile_name(n)[1] for n in tiles)
+    check(per_rate == {0.5: 1, 1.0: 4, 1.5: 6}, f"multi-rate tiling: tiles per rate {per_rate}")
+    classes = get_classes_by_name("DOTA")
+    results, back = [], []
+    for n in tiles:
+        polys, names, _ = tiling.parse_dota_label(str(out / "labelTxt" / (n + ".txt")))
+        results.append(({"polys": polys, "scores": np.ones(len(polys), np.float32),
+                         "labels": np.array([classes.index(c) for c in names], np.int64),
+                         "valid": np.ones(len(polys), bool)}, {"filename": n + ".png"}))
+        _, rate, left, up = result_merge.parse_tile_name(n)
+        if rate == 0.5:
+            back.append(result_merge.tile_to_original(polys, rate, left, up))
+    merged = result_merge.merge_results(results, classes)
+    src, _, _ = tiling.parse_dota_label(str(Path(label_dir) / "scene_0000.txt"))
+    inside = ((src[:, 0::2] >= 0) & (src[:, 0::2] <= 1500)).all(1) & (
+        (src[:, 1::2] >= 0) & (src[:, 1::2] <= 1100)).all(1)
+    back = np.concatenate(back)
+    gap = max(np.abs(back - poly).max(1).min() for poly in src[inside])
+    check(list(merged) == ["scene_0000"] and inside.sum() > 10 and gap < 1e-3,
+          f"multi-rate merge: scenes {list(merged)}, {int(inside.sum())} quads inside, "
+          f"worst {gap}")
+    return {"multi_rate_tiles": len(tiles), "multi_rate_tiling_s": seconds,
+            "multi_rate_merged_detections": int(sum(len(v) for v in merged["scene_0000"].values())),
+            "multi_rate_worst_quad_px": float(gap)}
+
+
 def tiling_phase(cfg, rik, root):
     """The README's quick start on synthetic data: `python -m
     jdet_torch.tools.preprocess` tiles 2 raw scenes of 2000 x 1500 at the
@@ -2109,8 +2185,9 @@ def tiling_phase(cfg, rik, root):
     the test's tiles back into scenes. `DOTADataset.evaluate` and the merge
     are timed on the native polygon library and once more on its numpy
     plain path, with the same APs and the same merged detections.
-    Last, `Runner.profile` records 3 steps. Returns the launches of the
-    epoch and those of val and test."""
+    Then `multi_rate_tiling` at rates 0.5, 1.0 and 1.5. Last,
+    `Runner.profile` records 3 steps. Returns the launches of the epoch
+    and those of val and test."""
     import copy
     import shutil
 
@@ -2220,6 +2297,8 @@ def tiling_phase(cfg, rik, root):
     check(scenes == {"scene_0000", "scene_0001"}, f"merge: scenes {sorted(scenes)[:5]}")
     times["meanAP"] = m_nat["eval/0_meanAP"]
     times["test_tiles"] = len(test_results)
+
+    times.update(multi_rate_tiling(root / "rates"))
 
     # Runner.profile: 3 steps, a trace that names K1's fused kernels
     t0 = time.perf_counter()
@@ -4075,6 +4154,295 @@ def single_stage_phases(rik, n_steps=5):
     return entry, paths
 
 
+# RepPoints -----------------------------------------------------------------
+
+def reppoints_sets(model, images):
+    """The init and the refine point sets (B, A, 18) of a train-mode
+    forward of `images` without gradients (what `loss` sees), with the
+    points' centres and strides."""
+    head = model.bbox_head
+    was_training = model.training
+    model.train()
+    with torch.no_grad():
+        outs = head(model.extract_feat(images))
+    model.train(was_training)
+    B = images.shape[0]
+    pts, strides = head._points([tuple(o[0].shape[-2:]) for o in outs], images.device)
+    centers, strides = torch.cat(pts), torch.cat(strides)
+    sets = [head._decode_points(head._flatten(outs, i, 18), centers, strides).reshape(B, -1, 18)
+            for i in (1, 2)]
+    return sets[0], sets[1], centers, strides
+
+
+def reppoints_margin(model, targets, images):
+    """`utils/edge_cases.py::refine_margin` of the refine assignment's
+    convex IoU on the init sets of a forward of `images`."""
+    from jdet_torch.ops.box_convert import rbox_to_poly
+    from jdet_torch.ops.convex import convex_iou_batched
+    from jdet_torch.utils.edge_cases import refine_margin
+
+    pts_i = reppoints_sets(model, images)[0]
+    mask = torch.as_tensor(targets["gt_mask"], device=pts_i.device)
+    polys = rbox_to_poly(torch.as_tensor(targets["gt_bboxes"], device=pts_i.device).float())
+    ov = convex_iou_batched(pts_i, polys, mask)
+    return refine_margin(ov.cpu().numpy(), mask.cpu().numpy())
+
+
+def rect_corner_gap(a, b):
+    """Per rbox pair (N, 5): the largest distance from a corner of `a` to
+    the nearest corner of `b`, whichever corner each list starts at."""
+    from jdet_torch.ops.box_convert import rbox_to_poly
+
+    ca, cb = (rbox_to_poly(x.double()).reshape(-1, 4, 2) for x in (a, b))
+    return (ca[:, :, None] - cb[:, None]).norm(dim=-1).amin(-1).amax(-1)
+
+
+def check_reppoints_convex_ops(model, cfg):
+    """RepPoints' plain convex ops on the card against the CPU at the train
+    step's shapes: the init and refine point sets of a real forward at
+    B=4, 1024², K=512 (64 real gts per image), on the first batch seed
+    whose refine assignment has no near tie (`refine_margin` above 1e-5).
+    The refine assignment (`max_convex_iou_assign`): the convex IoU's
+    zeros identical, its values within 1e-6 + 1e-4 of the CPU's, gt_inds
+    and labels identical; its ms and the device bytes it holds at its
+    peak. `convex_giou` at the loss's pairs (each gt's init candidate;
+    the refine positives' budget of M = 4,096 per image, padded pairs
+    with zero weight) with the gradient of the weighted loss: values
+    within 1e-5, gradients within 1e-4 of the largest, no NaN among the
+    padded pairs. `min_area_rect` of every refine set: the area within
+    1e-4 plus 8 float32 ulps of the image coordinates times w + h (an
+    untrained set is sub-pixel, its sides measured to the ulps of a
+    coordinate near 1024), and, as a polygon whatever corner it starts at,
+    the corners within 1e-3 px + 16 ulps + 1e-3 of the set's size on
+    every set whose rectangle is decisive (`rect_decisive`): near-equal
+    candidate areas pick edges apart on the two devices. Returns the
+    numbers."""
+    from jdet_torch.models.boxes.assigner import convex_assign_init, max_convex_iou_assign
+    from jdet_torch.ops.box_convert import rbox_to_poly
+    from jdet_torch.ops.convex import convex_giou, convex_iou_batched, min_area_rect
+    from jdet_torch.ops.topk import stable_topk
+    from jdet_torch.parallel import make_device_normalizer
+    from jdet_torch.utils.edge_cases import refine_margin
+
+    normalize = make_device_normalizer(**cfg["device_normalize"])
+    for seed in range(3, 40):
+        images, targets = to_device(*synth_batch(4, 1024, K=512, real=64, seed=seed, uint8=True),
+                                    "cuda")
+        pts_i, pts_r, centers, strides = reppoints_sets(model, normalize(images))
+        mask, labels = targets["gt_mask"], targets["gt_labels"]
+        polys = rbox_to_poly(targets["gt_bboxes"].float())
+        ov = convex_iou_batched(pts_i, polys, mask)
+        margin = refine_margin(ov.cpu().numpy(), mask.cpu().numpy())
+        if margin > 1e-5:
+            break
+    else:
+        raise RuntimeError("chip_smoke: no RepPoints batch without near ties in 37 seeds")
+
+    out = {"batch_seed": seed, "refine_margin": margin}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = max_convex_iou_assign(pts_i, polys, mask, labels)
+    torch.cuda.synchronize()
+    out["refine_assign_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["refine_assign_ms"] = median_ms(
+        lambda: max_convex_iou_assign(pts_i, polys, mask, labels), 1, 5)
+    cpu_args = [a.cpu() for a in (pts_i, polys, mask, labels)]
+    t0 = time.perf_counter()
+    cpu = max_convex_iou_assign(*cpu_args)
+    out["refine_assign_cpu_ms"] = 1e3 * (time.perf_counter() - t0)
+    ov_cpu = convex_iou_batched(*cpu_args[:3])
+    real = mask.cpu()[..., None].expand_as(ov_cpu)
+    ov_card = ov.cpu()
+    out["real_pairs"] = int(real.sum())
+    out["nonzero_pairs"] = int((ov_cpu[real] > 0).sum())
+    check(torch.equal((ov_card == 0) & real, (ov_cpu == 0) & real),
+          "RepPoints: the card's convex IoU has other zeros than the CPU's")
+    err = (ov_card - ov_cpu).abs()[real]
+    out["iou_max_abs_err"] = err.max().item()
+    check((err <= 1e-6 + 1e-4 * ov_cpu[real]).all().item(),
+          f"RepPoints: convex IoU card vs cpu {out['iou_max_abs_err']}")
+    for k in ("gt_inds", "labels"):
+        check(torch.equal(card[k].cpu(), cpu[k]), f"RepPoints refine assignment: {k} differ")
+    out["refine_positives"] = int((cpu["gt_inds"] > 0).sum())
+
+    # convex_giou and its gradient at the loss's pairs
+    B, K = mask.shape
+    ai = convex_assign_init(centers, torch.log2(strides), polys, mask)
+    M = min(pts_r.shape[1], 8 * K)
+    top_s, top_idx = stable_topk(torch.where(card["gt_inds"] > 0, card["max_overlaps"],
+                                             float("-inf")), M)
+    sel_gt = (torch.gather(card["gt_inds"], 1, top_idx) - 1).clamp(0, K - 1)
+    pairs = {
+        "init": (torch.gather(pts_i, 1, ai["cand_idx"].reshape(B, -1, 1).expand(-1, -1, 18)),
+                 polys, ai["cand_win"].reshape(B, -1).float()),
+        "refine": (torch.gather(pts_r, 1, top_idx[..., None].expand(-1, -1, 18)),
+                   torch.gather(polys, 1, sel_gt[..., None].expand(-1, -1, 8)),
+                   torch.isfinite(top_s).float())}
+    for name, (sets, gts, w) in pairs.items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            x = sets.reshape(-1, 18).detach().to(dev).requires_grad_()
+            g = convex_giou(x, gts.reshape(-1, 8).to(dev))
+            ((1 - g) * w.reshape(-1).to(dev)).sum().backward()
+            res[dev] = (g.detach().cpu(), x.grad.cpu())
+        (gc, dc), (gp, dp) = res["cuda"], res["cpu"]
+        check(torch.isfinite(dc).all().item() and torch.isfinite(gc).all().item(),
+              f"RepPoints {name} GIoU: non-finite values or gradients on the card")
+        out[f"{name}_giou_pairs"] = int(gc.numel())
+        out[f"{name}_giou_weighted"] = int((w > 0).sum())
+        out[f"{name}_giou_max_abs_err"] = (gc - gp).abs().max().item()
+        out[f"{name}_giou_grad_err_of_largest"] = (
+            (dc - dp).abs().max().item() / max(dp.abs().max().item(), 1e-30))
+        check(out[f"{name}_giou_max_abs_err"] <= 1e-5
+              and out[f"{name}_giou_grad_err_of_largest"] <= 1e-4,
+              f"RepPoints {name} GIoU card vs cpu: {out}")
+
+    # min_area_rect of every refine set
+    sets = pts_r.reshape(-1, 9, 2)
+    rc, rp = min_area_rect(sets).cpu(), min_area_rect(sets.cpu())
+    area_c, area_p = (r[:, 2].double() * r[:, 3].double() for r in (rc, rp))
+    # the rotated coordinates of a sub-pixel set at ~1000 px keep a few
+    # float32 ulps of the image coordinate (1.2e-4 px at 1024) per side
+    ulp = sets.abs().amax().item() * 2.0 ** -23
+    area_tol = 1e-4 * area_p + 8 * ulp * (rp[:, 2] + rp[:, 3]).double()
+    out["rect_area_max_err_of_tol"] = ((area_c - area_p).abs() / area_tol).max().item()
+    check(out["rect_area_max_err_of_tol"] <= 1.0,
+          f"RepPoints min_area_rect: areas card vs cpu at {out['rect_area_max_err_of_tol']:.3f} "
+          f"of the tolerance")
+    size = (sets.amax(1) - sets.amin(1)).amax(-1).cpu().double()
+    agree = rect_corner_gap(rc, rp) <= 1e-3 + 16 * ulp + 1e-3 * size
+    decisive = rect_decisive(sets.cpu())
+    out["rect_corners_agree_share"] = agree.double().mean().item()
+    out["rect_decisive_share"] = decisive.double().mean().item()
+    check(decisive.any().item() and agree[decisive].all().item(),
+          f"RepPoints min_area_rect: corners card vs cpu differ on "
+          f"{int((~agree & decisive).sum())} of {int(decisive.sum())} decisive sets")
+    return out
+
+
+def rect_decisive(sets):
+    """(N,) point sets (N, n, 2) whose least-area rectangle no rounding can
+    turn: in float64, every candidate edge whose direction differs by
+    more than 1e-3 rad (modulo pi/2, the same rectangle) from the best's
+    gives an area at least 1% larger."""
+    from jdet_torch.ops.convex import _prev_next_valid, _take, convex_hull_mask
+
+    _, keep, p = convex_hull_mask(sets.double())
+    _, nxt = _prev_next_valid(keep)
+    edge = _take(p, nxt) - p
+    theta = torch.atan2(edge[..., 1], edge[..., 0])
+    c, s = torch.cos(-theta)[..., None], torch.sin(-theta)[..., None]
+    x, y = p[..., None, :, 0], p[..., None, :, 1]
+    rx, ry = c * x - s * y, s * x + c * y
+    v = keep[..., None, :]
+    inf = float("inf")
+    areas = ((torch.where(v, rx, -inf).amax(-1) - torch.where(v, rx, inf).amin(-1))
+             * (torch.where(v, ry, -inf).amax(-1) - torch.where(v, ry, inf).amin(-1)))
+    areas = torch.where(keep, areas, inf)
+    best, arg = areas.min(-1)
+    turn = torch.remainder(theta - torch.gather(theta, -1, arg[:, None]), np.pi / 2)
+    other = keep & (torch.minimum(turn, np.pi / 2 - turn) > 1e-3)
+    second = torch.where(other, areas, inf).amin(-1)
+    return (second - best) > 1e-2 * best
+
+
+def retina_poly_giou_phase(cfg):
+    """The main RetinaNet with `loss_bbox=dict(type="poly_giou")` at the
+    train step's traffic (B=4, 1024², K=512, 64 real gts): the loss
+    forward and one train step, timed (medians of 3 after 1), with the
+    peak memory of each. Returns the numbers."""
+    import copy
+
+    from jdet_torch.models.builder import build_detector
+
+    cfg = copy.deepcopy(cfg)
+    cfg["model"]["bbox_head"]["loss_bbox"] = dict(type="poly_giou", loss_weight=1.0)
+    model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    check(model.bbox_head.loss_bbox_cfg["type"] == "poly_giou", "not the poly_giou head")
+    step, _, normalize, _ = build_trainer(cfg, model, augment=False)
+    images, targets = to_device(*synth_batch(4, 1024, K=512, real=64, seed=3, uint8=True),
+                                "cuda")
+    x = normalize(images)
+    model.train()
+    losses = {k: v.item() for k, v in model.loss(x, targets).items()}
+    check(all(np.isfinite(v) for v in losses.values()) and losses["loss_bbox"] > 0,
+          f"RetinaNet poly_giou losses {losses}")
+    out = {"losses": losses,
+           "loss_forward_peak_bytes": peak_bytes(lambda: model.loss(x, targets)),
+           "loss_forward_ms": median_ms(lambda: model.loss(x, targets), 1, 3)}
+    counter = iter(range(10**6))
+    out["train_step_peak_bytes"] = peak_bytes(lambda: step(images, targets, next(counter)))
+    out["train_step_ms"] = median_ms(lambda: step(images, targets, next(counter)), 1, 3)
+    log(f"RetinaNet poly_giou at 1024², B=4, K=512: {json.dumps(out)}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def reppoints_phases(rik, n_steps=5):
+    """Rotated RepPoints R50-FPN from `configs/rotated_reppoints_r50_fpn_
+    1x_dota.py` at full width with random weights: its convex ops on the
+    card against the CPU (`check_reppoints_convex_ops`); card against CPU
+    at 512², B=1 (the float32 loss forward rtol 1e-4, then 2 SGD steps
+    at lr 0.008, each parameter within 1e-4 of its tensor's largest
+    value), and once under the bf16 policy within sqrt(2) of the f32 -
+    bf16 gap (two independent bf16 roundings);
+    the serving path at B=2 (timed briefly); `n_steps` train steps at
+    B=4, 1024², K=512 (64 real) in float32 and bf16, with the step's
+    parts, busy share, peak memory and one profile each; then the main
+    RetinaNet's `poly_giou` loss at the same traffic. No fused launch on
+    any of its paths, one K1 matrix launch per `predict`. Returns the
+    launches of each path."""
+    from jdet_torch.config import load_cfg_file
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    cfg = load_cfg_file(REPPOINTS_CONFIG)
+    check(cfg["optimizer"]["type"] == "SGD" and cfg["optimizer"]["lr"] == 0.008,
+          f"RepPoints optimizer {cfg['optimizer']}")
+    model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    head = model.bbox_head
+    check(is_reppoints(model) and type(head).__name__ == "RotatedRepPointsHead"
+          and model.backbone.depth == 50 and model.neck.out_channels == 256
+          and len(head.cls_convs) == len(head.reg_convs) == 3
+          and tuple(head.cls_convs[0].conv.weight.shape) == (256, 256, 3, 3)
+          and head.cls_convs[0].norm.num_groups == 32 and head.num_points == 9
+          and head.num_classes == 15 and tuple(head.pts_init_out.weight.shape) == (18, 256, 1, 1)
+          and head.gradient_mul == 0.1 and head.point_base_scale == 4
+          and head.refine_assign_cfg == dict(pos_iou_thr=0.4, neg_iou_thr=0.3, min_pos_iou=0.0),
+          "RepPoints is not R50-FPN at full width")
+    log(f"RepPoints model: {sum(p.numel() for p in model.parameters())} parameters")
+    ops = check_reppoints_convex_ops(model, cfg)
+    log(f"RepPoints convex ops card vs cpu at 1024², B=4, K=512 (64 real): {json.dumps(ops)}")
+    elapsed("RepPoints convex ops")
+    check_train_card_against_cpu(cfg, rik, loss_forward=True, param_tol=1e-4)
+    elapsed("RepPoints card vs cpu")
+    # two bf16 results whose roundings are independent lie sqrt(2) gaps
+    # apart: RepPoints' three GroupNorm convs per tower, in bf16 on cuDNN
+    # and on oneDNN, read 1.04 of the gap on the class outputs (the BN
+    # families' agree within 1.0)
+    check_bf16_card_against_cpu(cfg, rik, gap_factor=2 ** 0.5)
+    elapsed("RepPoints bf16 card vs cpu")
+    paths = {"reppoints_serving": serving_phase(model, rik, "fp32", brief=True),
+             f"reppoints_train_{n_steps}_steps": train_at_config_traffic(
+                 cfg, model, rik, "fp32", n_steps=n_steps)}
+    state = model.state_dict()
+    del model, head
+    torch.cuda.empty_cache()
+    with compute_dtype_scope(torch.bfloat16):
+        model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    model.load_state_dict(state)
+    del state
+    paths["reppoints_bf16_serving"] = serving_phase(model, rik, "bf16", brief=True)
+    paths[f"reppoints_bf16_train_{n_steps}_steps"] = train_at_config_traffic(
+        cfg, model, rik, "bf16", n_steps=n_steps)
+    del model
+    torch.cuda.empty_cache()
+    elapsed("the RepPoints phases")
+    return paths
+
+
 def vis_test_phase(rik, root, n_tiles=8):
     """`python -m jdet_torch.tools.run_net --task vis_test` on the card, in
     this process, on `n_tiles` synthetic 1024² tiles with the main config
@@ -4462,6 +4830,11 @@ def main():
     s2a_more_paths = s2anet_ridet_r101_phases(rik)
     # R3Det, Rotated FCOS and H2RBox, timed briefly
     r3det_entry, single_paths = single_stage_phases(rik)
+    # Rotated RepPoints (its convex ops, plain PyTorch), and the main
+    # RetinaNet's poly_giou loss at the train step's traffic
+    reppoints_paths = reppoints_phases(rik)
+    retina_poly_giou_phase(full_cfg)
+    elapsed("the RetinaNet poly_giou phase")
     vis_launches = vis_test_phase(rik, rik.BUILD_DIR / "vis_test")
     elapsed("the vis_test phase")
 
@@ -4493,7 +4866,7 @@ def main():
              "orcnn_bf16_train_b16_3_steps": orcnn_bf16_b16_launches,
              "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_,
              **lsk_paths, "weight_import_loss_predict": import_launches, **hbb_paths,
-             **s2a_more_paths, **single_paths, "vis_test": vis_launches}
+             **s2a_more_paths, **single_paths, **reppoints_paths, "vis_test": vis_launches}
     kernels = [entry, assign_entry, per_image_entry, r3det_entry, roi_entry, redet_entry,
                atss_entry, generic_entry]
     for e in kernels:
@@ -4514,6 +4887,11 @@ def main():
         for p, n in paths.items()),
           "a per-image launch without per-image masks on an Oriented R-CNN or ReDet path, "
           "or one with them elsewhere")
+    check(all(n["max_iou_assign_rect"] == n["max_iou_assign_rect_per_image"] == 0
+              and n["rotated_iou_rect"] == (2 if p.endswith("serving") else 0)
+              for p, n in paths.items() if p.startswith("reppoints")),
+          f"RepPoints' paths: a fused launch, or not one K1 matrix launch per predict: "
+          f"{ {p: n for p, n in paths.items() if p.startswith('reppoints')} }")
     check(roi_entry["launches"] > 0 and redet_entry["launches"] > 0
           and r3det_entry["launches"] > 0, "the RoI route or R3Det's per-image route was not "
           "launched on a main path")

@@ -21,8 +21,12 @@ tiles written with its PNG writer, the Sub filter on every row as cv2
 writes them; cv2 reads and writes BGR, so in both packages a tile's file
 holds its source file's channel order. `convert_to_pkl` reads a tile's
 size from its PNG header. Only PNG scenes can be read (the reader names
-the file of any other), only PNG tiles written, and only at rate 1.0: a
-rate needs cv2's bicubic resize, which is not ported.
+the file of any other), and only PNG tiles written.
+
+At a rate other than 1.0 the scene is first resized as the reference's
+`cv2.resize(img, None, fx=rate, fy=rate, interpolation=cv2.INTER_CUBIC)`
+and its quads multiplied by the rate (`resize_cubic`, OpenCV's own
+uint8 bicubic on numpy, byte for byte).
 """
 from __future__ import annotations
 
@@ -39,6 +43,59 @@ from .polygon import _clip_polys, _polygon_area, quad_area
 SUB_FILTER = 1
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif")
 IO_THREADS = 4  # scenes tiled at once (zlib and numpy release the GIL)
+COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+SIMD_LANES = 8  # values of a row that OpenCV's vertical pass takes at once
+RESIZE_ROWS = 256  # output rows resized at once
+
+
+def _cubic_taps(n_out, n_in, rate):
+    """Per output pixel, the 4 source indices (replicated at the borders)
+    and OpenCV's fixed-point cubic weights (A = -0.75, scaled by 2^11)."""
+    f = ((np.arange(n_out) + 0.5) * (1.0 / rate) - 0.5).astype(np.float32)
+    start = np.floor(f).astype(np.int64)
+    x = (f - start.astype(np.float32)).astype(np.float32)
+    a, one = np.float32(-0.75), np.float32(1.0)
+    c0 = ((a * (x + one) - np.float32(5) * a) * (x + one) + np.float32(8) * a) * (x + one) \
+        - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * x - (a + np.float32(3))) * x * x + one
+    c2 = ((a + np.float32(2)) * (one - x) - (a + np.float32(3))) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    weights = np.rint(np.stack([c0, c1, c2, c3], -1) * np.float32(1 << COEF_BITS))
+    return np.clip(start[:, None] - 1 + np.arange(4), 0, n_in - 1), weights.astype(np.int64)
+
+
+def resize_cubic(img, rate):
+    """`cv2.resize(img, None, fx=rate, fy=rate, interpolation=INTER_CUBIC)`
+    of a uint8 (H, W) or (H, W, C) image, as OpenCV computes it without
+    Intel IPP: the output size rounded half to even; per output pixel
+    float32 source coordinates and cubic weights in 11-bit fixed point; a
+    horizontal pass in integers; a vertical pass that, like OpenCV's SIMD
+    loop, takes each row's first multiple of `SIMD_LANES` values in
+    float32 (S0 b0 + (S1 b1 + (S2 b2 + S3 b3)), rounded half to even) and
+    the rest in integers ((sum + 2^21) >> 22), saturated to uint8."""
+    h, w = img.shape[:2]
+    src = img.reshape(h, w, -1).astype(np.int64)
+    ow, oh = int(np.rint(w * rate)), int(np.rint(h * rate))
+    xi, xw = _cubic_taps(ow, w, rate)
+    yi, yw = _cubic_taps(oh, h, rate)
+    hor = np.zeros((h, ow, src.shape[2]), np.int64)
+    for k in range(4):
+        hor += src[:, xi[:, k]] * xw[None, :, k, None]
+    hor = hor.reshape(h, -1)
+    n_simd = hor.shape[1] // SIMD_LANES * SIMD_LANES
+    bf = (yw.astype(np.float32) * np.float32(2.0 ** (-2 * COEF_BITS))).astype(np.float32)
+    out = np.empty((oh, hor.shape[1]), np.uint8)
+    for r0 in range(0, oh, RESIZE_ROWS):
+        rows = slice(r0, min(r0 + RESIZE_ROWS, oh))
+        taps = [hor[yi[rows, k]] for k in range(4)]
+        acc = taps[3][:, :n_simd].astype(np.float32) * bf[rows, 3, None]
+        for k in (2, 1, 0):
+            acc = taps[k][:, :n_simd].astype(np.float32) * bf[rows, k, None] + acc
+        exact = sum(t[:, n_simd:] * yw[rows, k, None] for k, t in enumerate(taps))
+        out[rows, :n_simd] = np.clip(np.rint(acc), 0, 255)
+        out[rows, n_simd:] = np.clip((exact + (1 << (2 * COEF_BITS - 1))) >> (2 * COEF_BITS),
+                                     0, 255)
+    return out.reshape((oh, ow) + img.shape[2:])
 
 
 def _clip_quad_to_window(polys, left, up, right, down):
@@ -172,13 +229,13 @@ def parse_dota_label(path):
 def split_single_image(img, polys, names, difficults, base_name, out_image_dir,
                        out_label_dir, subsize=1024, gap=200, rate=1.0, thresh=0.7):
     """Tile one image (H, W, 3) and its labels (ImgSplit
-    SplitSingle/savepatches) into `.png` tiles; returns the tile names."""
-    if rate != 1.0:
-        raise NotImplementedError(
-            f"tiling at rate {rate}: the bicubic resize of rates other than 1.0 "
-            "is not ported to jdet_torch")
+    SplitSingle/savepatches) into `.png` tiles, the image and the quads
+    scaled by `rate` first; returns the tile names."""
     os.makedirs(out_image_dir, exist_ok=True)
     os.makedirs(out_label_dir, exist_ok=True)
+    if rate != 1.0:
+        img = resize_cubic(img, rate)
+        polys = polys * rate
     h, w = img.shape[:2]
     written = []
     for left, up in window_grid(w, h, subsize, gap):

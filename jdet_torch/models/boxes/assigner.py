@@ -3,7 +3,8 @@
 Port of `jdet_tpu/models/boxes/assigner.py` (`hbb_overlaps` :25,
 `assign_wrt_overlaps` :45, `max_iou_assign_rotated` :135 with its
 `fake_rbb` branch :156-168, `max_iou_assign_hbb` :197,
-`atss_assign_rotated` :237). Every function takes a leading batch
+`atss_assign_rotated` :237, RepPoints' `convex_assign_init` :312 and
+`max_convex_iou_assign` :382). Every function takes a leading batch
 dimension (the reference's vmap over images, written out), so the IoU
 kernel is launched once for the batch.
 
@@ -35,9 +36,11 @@ import torch
 
 from ...ops.box_convert import points_in_rbox, rbox_to_hbox
 from ...ops.box_iou_rotated import box_iou_rotated
+from ...ops.convex import convex_iou_batched
 from ...ops.nms import hbb_iou_matrix as hbb_overlaps
 from ...ops.rotated_iou_kernel import (box_iou_rotated_rect, launch_max_iou_assign_rect,
                                        park_masked_boxes)
+from ...ops.topk import stable_topk
 
 
 def _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
@@ -296,3 +299,55 @@ def atss_assign_rotated(
         "max_overlaps": max_overlaps,
         "labels": torch.where(assigned > 0, picked, 0),
     }
+
+
+def convex_assign_init(centers, pt_lvls, gt_polys, gt_mask, pos_num=1, scale=4.0):
+    """RepPoints' init assignment (the reference's `convex_assign_init`
+    :312, JDet's ConvexAssigner) over a batch: per gt, a pyramid level
+    from the log2 size of its horizontal box (truncated toward zero,
+    clipped to the points' levels), and the `pos_num` centres of that
+    level nearest the gt's centre (distances normalised by the gt's w
+    and h, ties to the lower index); each candidate goes to its gt unless
+    an earlier gt claims it at a strictly smaller distance (the first
+    gt wins a tie).
+
+    centers (N, 2), pt_lvls (N,) log2 of each point's stride, gt_polys
+    (B, K, 8), gt_mask (B, K). Returns gt_inds (B, N) (0 or 1-based),
+    pos_mask (B, N), cand_idx (B, K, pos_num) and cand_win (B, K,
+    pos_num): the candidate went to this gt.
+    """
+    B, K = gt_mask.shape
+    xs, ys = gt_polys[..., 0::2], gt_polys[..., 1::2]
+    gx = (xs.amin(-1) + xs.amax(-1)) * 0.5
+    gy = (ys.amin(-1) + ys.amax(-1)) * 0.5
+    gw = (xs.amax(-1) - xs.amin(-1)).clamp(min=1e-6)
+    gh = (ys.amax(-1) - ys.amin(-1)).clamp(min=1e-6)
+    gt_lvl = torch.trunc((torch.log2(gw / scale) + torch.log2(gh / scale)) / 2.0)
+    gt_lvl = torch.maximum(torch.minimum(gt_lvl, pt_lvls.max()), pt_lvls.min())
+    d = torch.sqrt(((centers[:, 0] - gx[..., None]) / gw[..., None]) ** 2
+                   + ((centers[:, 1] - gy[..., None]) / gh[..., None]) ** 2)  # (B, K, N)
+    d = torch.where((pt_lvls == gt_lvl[..., None]) & gt_mask[..., None], d, float("inf"))
+    neg_d, cand_idx = stable_topk(-d, pos_num)
+    cand_d = -neg_d
+    cand_ok = torch.isfinite(cand_d)
+    sparse = torch.full_like(d, float("inf")).scatter_(
+        -1, cand_idx, torch.where(cand_ok, cand_d, float("inf")))
+    dmin, owner = sparse.min(1)  # (B, N); the first gt on ties
+    pos_mask = torch.isfinite(dmin)
+    gt_inds = torch.where(pos_mask, owner + 1, 0)
+    cand_win = cand_ok & (torch.gather(owner, 1, cand_idx.reshape(B, -1)).reshape(cand_idx.shape)
+                          == torch.arange(K, device=owner.device)[:, None])
+    return {"gt_inds": gt_inds, "pos_mask": pos_mask, "cand_idx": cand_idx,
+            "cand_win": cand_win}
+
+
+def max_convex_iou_assign(pointsets, gt_polys, gt_mask, gt_labels, pos_iou_thr=0.4,
+                          neg_iou_thr=0.3, min_pos_iou=0.0):
+    """RepPoints' refine assignment (the reference's
+    `max_convex_iou_assign` :382, JDet's MaxConvexIoUAssigner): MaxIoU
+    thresholds on the convex IoU of each detached point-set hull
+    (B, N, 2P) with each gt quad (B, K, 8), real gts only
+    (`ops/convex.py::convex_iou_batched`)."""
+    overlaps = convex_iou_batched(pointsets.detach(), gt_polys, gt_mask)
+    return assign_wrt_overlaps(overlaps, gt_mask, gt_labels, pos_iou_thr=pos_iou_thr,
+                               neg_iou_thr=neg_iou_thr, min_pos_iou=min_pos_iou)

@@ -1,5 +1,5 @@
 """Detectors."""
 from .h2rbox import H2RBox
 from .single_stage import (FCOS, KnowledgeDistillationSingleStageDetector, R3Det,
-                           RotatedRetinaNet, S2ANet, SingleStageDetector)
+                           RotatedRepPoints, RotatedRetinaNet, S2ANet, SingleStageDetector)
 from .two_stage import RCNN, OrientedRCNN, ReDet, RoITransformer, StripRCNN

@@ -2,7 +2,8 @@
 
 Port of `jdet_tpu/models/detectors/single_stage.py`
 (`SingleStageDetector` :16, `RotatedRetinaNet` :51, `S2ANet` :56, `FCOS`
-:61, `KnowledgeDistillationSingleStageDetector` :66, `R3Det` :110). Images come in as
+:61, `KnowledgeDistillationSingleStageDetector` :66, `RotatedRepPoints` :98,
+`R3Det` :110). Images come in as
 (B, H, W, 3) NHWC float32, the reference's batch contract, and are
 permuted to NCHW once here.
 """
@@ -54,6 +55,11 @@ class S2ANet(SingleStageDetector):
 @MODELS.register_module()
 class FCOS(SingleStageDetector):
     """Thin wrapper; all logic lives in `FCOSHead`."""
+
+
+@MODELS.register_module()
+class RotatedRepPoints(SingleStageDetector):
+    """Thin wrapper; all logic lives in `RotatedRepPointsHead`."""
 
 
 @MODELS.register_module()

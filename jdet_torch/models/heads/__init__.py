@@ -6,6 +6,7 @@ from .ld_retina_head import LDRotatedRetinaHead, RotatedRetinaDistributionHead
 from .obb_roi_heads import ReDetHead, RoITransHead, StripHead
 from .oriented_head import OrientedHead
 from .r3det_head import R3DetHead
+from .reppoints_head import RotatedRepPointsHead
 from .rotated_retina_head import (
     GWDRetinaHead,
     KFIoURRetinaHead,

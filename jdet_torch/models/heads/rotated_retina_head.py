@@ -11,8 +11,9 @@ plus the regression loss of `loss_bbox["type"]` (smooth-L1 on deltas;
 GWD / KLD / BCD / IoU / RIDet on decoded boxes against the gts
 themselves; KFIoU on both; RSDet's modulated loss), averaged by the total
 positives; test-time per-level top-k -> decode -> multiclass rotated
-NMS, fixed output size. `poly_iou` and `poly_giou` (with
-`ops/convex.py`) are not ported and raise.
+NMS, fixed output size. `poly_iou` and `poly_giou` (`losses/
+poly_iou_loss.py`) evaluate only the positives' pairs: the other
+anchors' zero weights add nothing to the loss or its gradient.
 
 Head outputs are NCHW. Anchors run (H, W, A), so `_flatten_outs`
 permutes to NHWC before the reshape: channel a*C + c lands at anchor a,
@@ -34,15 +35,13 @@ from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorRotated
 from ..boxes.anchor_target import anchor_target_batch
 from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init
-from ..losses import (gaussian_dist_loss, kf_iou_loss, ridet_loss, rotated_iou_loss,
-                      rsdet_loss, sigmoid_focal_loss, smooth_l1_loss)
+from ..losses import (gaussian_dist_loss, kf_iou_loss, poly_giou_loss, poly_iou_loss,
+                      ridet_loss, rotated_iou_loss, rsdet_loss, sigmoid_focal_loss,
+                      smooth_l1_loss)
 
 # regression losses on decoded boxes, against the matched gts themselves
 # (the reference's reg_decoded_bbox, rotated_retina_head.py:198-201)
 REG_DECODED = ("gwd", "kld", "bcd", "iou", "poly_iou", "poly_giou", "ridet")
-# the losses of the reference's dispatch that wait for a module of their own
-NOT_PORTED = {"poly_iou": "ops/convex.py (ROADMAP queue 1 item 11)",
-              "poly_giou": "ops/convex.py (ROADMAP queue 1 item 11)"}
 
 DEFAULT_TRAIN_CFG = dict(
     assigner=dict(
@@ -95,10 +94,8 @@ class RotatedRetinaHead(nn.Module):
         self.loss_cls_cfg = dict(loss_cls)
         self.loss_bbox_cfg = dict(loss_bbox)
         kind = self.loss_bbox_cfg.get("type", "smooth_l1")
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"loss_bbox {kind!r} is not ported: it needs {NOT_PORTED[kind]}")
-        if kind not in ("smooth_l1", "gwd", "kld", "bcd", "kfiou", "rsdet", "iou", "ridet"):
+        if kind not in ("smooth_l1", "gwd", "kld", "bcd", "kfiou", "rsdet", "iou", "ridet",
+                        "poly_iou", "poly_giou"):
             raise ValueError(f"unknown loss_bbox {kind!r}")
         self.train_cfg = {**DEFAULT_TRAIN_CFG, **(train_cfg or {})}
         self.test_cfg = {**DEFAULT_TEST_CFG, **(test_cfg or {})}
@@ -269,6 +266,11 @@ class RotatedRetinaHead(nn.Module):
             return ridet_loss(
                 self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),
                 weight=w1, beta=cfg.get("beta", 1.0), avg_factor=num_total)
+        if kind in ("poly_iou", "poly_giou"):
+            fn = poly_iou_loss if kind == "poly_iou" else poly_giou_loss
+            kw = {"linear": cfg.get("linear", False)} if kind == "poly_iou" else {}
+            return fn(self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),
+                      weight=w1, avg_factor=num_total, **kw)
         # "iou"
         return rotated_iou_loss(
             self._decode(anchors, bbox_preds).reshape(-1, 5), targets.reshape(-1, 5),

@@ -3,12 +3,13 @@
 As in `jdet_tpu/models/losses/__init__.py` (:25-64), the losses are plain
 functions: `LOSSES` maps the reference's class names to them, and
 `build_from_cfg(dict(type="FocalLoss", gamma=2.0), LOSSES)` returns the
-function with those keywords bound. The names whose losses are not ported
-yet (`PolyIoULoss`, `PolyGIoULoss` and `ConvexGIoULoss` with
-`ops/convex.py`) are not registered.
+function with those keywords bound. Every name of the reference's
+registry is registered (`ConvexGIoULoss` is `ops/convex.py`'s
+`convex_giou_loss`).
 """
 from functools import partial as _partial
 
+from ...ops.convex import convex_giou_loss as _convex_giou_loss
 from ...utils.registry import LOSSES as _LOSSES
 from .basic import (
     binary_cross_entropy_loss,
@@ -29,6 +30,7 @@ from .misc_losses import (
     knowledge_distillation_kl_div_loss,
     rsdet_loss,
 )
+from .poly_iou_loss import poly_giou_loss, poly_iou_loss
 from .ridet_loss import ridet_loss
 from .smooth_focal_loss import smooth_focal_loss
 
@@ -49,6 +51,9 @@ for _name, _fn in {
     "GDLoss_v1": gaussian_dist_loss,
     "KFLoss": kf_iou_loss,
     "IoULoss": rotated_iou_loss,
+    "PolyIoULoss": poly_iou_loss,
+    "PolyGIoULoss": poly_giou_loss,
+    "ConvexGIoULoss": _convex_giou_loss,
     "KnowledgeDistillationKLDivLoss": knowledge_distillation_kl_div_loss,
     "IMLoss": im_loss,
     "RSDetLoss": rsdet_loss,

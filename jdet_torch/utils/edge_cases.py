@@ -236,3 +236,75 @@ def roi_assign_edge_case(name, K=8, P=600, seed=11):
     props[~pmask] = 0.0
     return (gts, mask, labels, np.concatenate([gts, props], 1),
             np.concatenate([mask, pmask], 1))
+
+
+def point_sets(n=64, seed=7, lo=50.0, hi=200.0):
+    """(n, 18) float32 sets of 9 points scattered about random centres in
+    [lo, hi)², the first eight degenerate: one point nine times, nine
+    points on a horizontal line, seven copies of one point, a triangle
+    with six points inside, four points twice over, a triangle three
+    times, and (row 7) nine points on the diagonal y = x. The collinear
+    sets lie on integers, where every implementation's angles about
+    their centre are the same: a slanted line's rounding noise decides
+    the reference's own hull."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(lo, hi, (n, 1, 2))
+    p = c + rng.uniform(2, 40, (n, 1, 2)) * rng.normal(size=(n, 9, 2))
+    p[0] = p[0, :1]
+    base = np.round(c[1, 0])
+    p[1] = np.stack([base[0] + 3 * rng.permutation(9), np.full(9, base[1])], -1)
+    p[2, 2:] = p[2, 1]
+    tri = np.array([[0.0, 0.0], [30.0, 0.0], [0.0, 30.0]]) + c[3]
+    p[3, :3] = tri
+    p[3, 3:] = tri.mean(0) + rng.uniform(-3, 3, (6, 2))
+    p[4, 4:8] = p[4, :4]
+    p[4, 8] = p[4, 0]
+    p[5] = np.concatenate([tri + 20] * 3)
+    diag = np.round(c[7, 0, 0]) + 2 * rng.permutation(9)
+    p[7] = np.stack([diag, diag], -1)
+    return p.reshape(n, 18).astype(np.float32)
+
+
+def gt_quads(m, seed=8, lo=50.0, hi=200.0, size=(5.0, 80.0)):
+    """(m, 8) float32 rotated rectangles as quads, every third clockwise."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(lo, hi, (m, 2))
+    w, h = rng.uniform(*size, m), rng.uniform(*size, m)
+    a = rng.uniform(-3, 3, m)
+    dx = np.stack([w, -w, -w, w], 1) / 2
+    dy = np.stack([h, h, -h, -h], 1) / 2
+    x = c[:, :1] + np.cos(a)[:, None] * dx - np.sin(a)[:, None] * dy
+    y = c[:, 1:] + np.sin(a)[:, None] * dx + np.cos(a)[:, None] * dy
+    q = np.stack([x, y], -1)
+    q[::3] = q[::3, ::-1]
+    return q.reshape(m, 8).astype(np.float32)
+
+
+def refine_margin(overlaps, gt_mask, pos_iou_thr=0.4, neg_iou_thr=0.3):
+    """Of a (B, K, N) convex-IoU matrix (RepPoints' refine assignment,
+    `min_pos_iou` 0 with every gt claiming all the points at its max):
+    the smallest change of one value, relative where the values are
+    small, that could move an assignment. That is the least of: a
+    point's best IoU from both thresholds; a positive point's best from
+    its second best gt; and, over the gt's max, a gt's positive max from
+    the next smaller value of its row (an untrained head's hulls are
+    sub-pixel, its IoUs ~1e-6, and two implementations agree on them to
+    a few ulps of each). A gt whose max is 0 claims every point where its
+    IoU is exactly 0: the zero pattern, which is compared apart, decides
+    those."""
+    ov = np.where(np.asarray(gt_mask)[..., None], np.asarray(overlaps, np.float64), -np.inf)
+    ov = ov[np.asarray(gt_mask).any(-1)]
+    if ov.size == 0:
+        return np.inf
+    srt = np.sort(np.concatenate([ov, np.full_like(ov[:, :1], -np.inf)], 1), axis=1)
+    best, second = srt[:, -1], srt[:, -2]
+    margin = min(np.abs(best - neg_iou_thr).min(), np.abs(best - pos_iou_thr).min())
+    pos = best >= pos_iou_thr - 1e-5
+    if pos.any():
+        margin = min(margin, (best - second)[pos].min())
+    rows = ov.transpose(1, 0, 2)[np.isfinite(ov.max(-1)).T & (ov.max(-1).T > 0)]
+    if len(rows):
+        rmax = rows.max(-1, keepdims=True)
+        below = np.where(rows >= rmax, -np.inf, rows).max(-1)
+        margin = min(margin, ((rmax[:, 0] - below) / rmax[:, 0]).min())
+    return float(margin)

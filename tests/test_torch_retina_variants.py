@@ -42,9 +42,15 @@ def unfused_jit(fn, *args):
     rotated IoU matrix inside each of its consumers, a few ulp apart, and
     the max-IoU assigner's `overlaps == gt_max` then drops a gt's best
     anchors; eager, it compiles each of a head loss's several hundred
-    primitives apart (~20 s where this takes ~2 s)."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "fusion"})(*args)
+    primitives apart (~20 s where this takes ~2 s). LLVM runs at -O0
+    (`UNFUSED_OPTIONS`): the same IEEE arithmetic, in half the compile
+    time."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=UNFUSED_OPTIONS)(*args)
+
+
+# XLA's fusion off, LLVM's optimizer off: no fast-math either way, so the
+# results are bit for bit those of the default backend level
+UNFUSED_OPTIONS = {"xla_disable_hlo_passes": "fusion", "xla_backend_optimization_level": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from jdet_torch.models.convert import load_from_jax, params_from_jax
 from jdet_torch.optim import build_lr_schedule, build_optimizer
 from jdet_torch.parallel import build_train_step, make_device_normalizer
 from test_torch_pretrained import _abstract
+from test_torch_retina_variants import UNFUSED_OPTIONS
 from test_torch_train_step import MEAN, SCHED, STD
 
 BF16 = torch.bfloat16
@@ -150,8 +151,7 @@ def fast_jit(fn, *args):
 
 def compile_unfused(fn, *args):
     """`fast_jit`'s compiled fn, to call again."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_disable_hlo_passes": "fusion"})
+    return jax.jit(fn).lower(*args).compile(compiler_options=UNFUSED_OPTIONS)
 
 
 def reference_f32(jmodel, tmodel, u8, targets, opt_kw, lr=0.01, steps=2, loss_kw=None,
