@@ -155,6 +155,26 @@
    with the step's parts and profile. Then the main RetinaNet with
    `loss_bbox=dict(type="poly_giou")` at the train step's traffic: its
    loss forward and one step, timed, with peak memory.
+8l. SSD300-VGG16 from `configs/ssd300_coco.py` at full width (VGG16, 300²,
+   80 classes) with weights drawn from a seed so that its untrained
+   `predict` keeps thousands of candidates per image (`draw_ssd_weights`):
+   card against CPU at B=2 on a batch without near ties (the float32 loss
+   forward, `predict` on the same head outputs and on each device's own, 2
+   SGD steps, then the bf16 model within the f32 - bf16 gap); K1's matrix
+   route on SSD's real candidates at B=8, (640, 512, 512) axis-aligned
+   boxes, against its plain version and the exact hbb IoU, the NMS's
+   decisions off 0.45 identical, timed against its bound; the serving
+   path at B=8 and 5 train steps at B=32 in float32 and bf16, with the
+   step's parts, busy share and peak memory.
+8m. The JPEG and TIFF fixtures of `tests/data/torch_codecs/` decoded to the
+   digests cv2 gave (`tests/make_codec_fixtures.py`), a 640x480 JPEG and
+   the 1000² LZW TIFF timed; COCO from disk: the Runner trains one epoch
+   of SSD300 at B=4 on a COCO-style tree over those JPEGs with the
+   config's whole augmentation stack, then validates through
+   `COCODataset.evaluate`; the SSDD+ and FAIR1M-1.5 configs' `convert`
+   steps through `python -m jdet_torch.tools.preprocess` (then FAIR1M's
+   tiling) and a FAIR1M-1.5 csv through `python -m
+   jdet_torch.tools.merge_results`.
 8f. Weight import, from files written from a seed: a torchvision-named
    ResNet-50 `.pth` as the main config's `backbone.pretrained`; a JDet
    payload of the whole RetinaNet through `Runner.load`, then its loss
@@ -192,9 +212,9 @@ S2ANet, Oriented R-CNN, ReDet and RetinaNet variants' paths and their
 `run_net`, LSKNet-S's and StripNet-S's paths, the imported detector's
 loss forward and `predict`, FasterRCNN-OBB's, Gliding Vertex's, S2ANet
 RIDet's and R101's paths, R3Det's, FCOS's, H2RBox's and RepPoints'
-paths, `vis_test`, the Runner's `run()`, the epoch on the preprocessed tiles
-and its val and test) runs with the launch counters set to 0 just
-before it and read just after:
+paths, `vis_test`, SSD300's paths and its COCO Runner, the Runner's
+`run()`, the epoch on the preprocessed tiles and its val and test) runs
+with the launch counters set to 0 just before it and read just after:
 one fused assigner launch per loss forward and per train step
 (RetinaNet), two for S2ANet (FAM on shared anchors, ODM on per-image
 anchors), one per-image launch for Oriented R-CNN (its RoI head) and for
@@ -203,11 +223,11 @@ and for the RetinaNet variants one fused launch
 (GWD, KLD, KFIoU, RSDet, CSL, LD, v1d, DOTA-1.5), one K1 matrix launch
 inside the assigner (ATSS) or none (hbb); none for FasterRCNN-OBB and
 Gliding Vertex; one shared and one per-image (no mask) for R3Det; none
-for FCOS, H2RBox and RepPoints; one K1 matrix launch per `predict` (per predict
-batch in `val`, `test` and `vis_test`), no K2 launch.
+for FCOS, H2RBox, RepPoints and SSD300; one K1 matrix launch per `predict`
+(per predict batch in `val`, `test` and `vis_test`), no K2 launch.
 
 The families whose times `PERF.md` already holds (all but the main
-RetinaNet, and RepPoints' train steps) are timed briefly (`brief=True`) and run 5 train steps
+RetinaNet and SSD300) are timed briefly (`brief=True`) and run 5 train steps
 (Oriented R-CNN 3 at B=16), and the bf16 card-against-CPU check runs
 once per head family (RetinaNet, S2ANet, Oriented R-CNN R50, ReDet,
 FasterRCNN-OBB, RepPoints) and once for the LSKNet/StripNet backbones
@@ -268,6 +288,11 @@ R3DET_CONFIG = Path(__file__).resolve().parent / "configs/r3det_r50_fpn_1x_dota.
 FCOS_CONFIG = Path(__file__).resolve().parent / "configs/fcos_obb_r50_fpn_1x_dota.py"
 H2RBOX_CONFIG = Path(__file__).resolve().parent / "configs/h2rbox_r50_fpn_1x_dota.py"
 REPPOINTS_CONFIG = Path(__file__).resolve().parent / "configs/rotated_reppoints_r50_fpn_1x_dota.py"
+ROOT = Path(__file__).resolve().parent
+SSD_CONFIG = ROOT / "configs/ssd300_coco.py"
+SSDD_PLUS_CONFIG = ROOT / "configs/s2anet_r50_fpn_1x_ssdd_plus.py"
+FAIR1M_CONFIG = ROOT / "configs/s2anet_r50_fpn_1x_fair1m_1_5.py"
+CODEC_FIXTURES = ROOT / "tests/data/torch_codecs"
 # the card-vs-CPU gradients of LSKNet-S / StripNet-S from one state: each
 # trainable tensor's largest error over its largest CPU gradient, and the
 # error's RMS over the gradient's RMS (a probe run read StripNet-S's worst
@@ -4388,9 +4413,8 @@ def reppoints_phases(rik, n_steps=5):
     at lr 0.008, each parameter within 1e-4 of its tensor's largest
     value), and once under the bf16 policy within sqrt(2) of the f32 -
     bf16 gap (two independent bf16 roundings);
-    the serving path at B=2 (timed briefly); `n_steps` train steps at
-    B=4, 1024², K=512 (64 real) in float32 and bf16, with the step's
-    parts, busy share, peak memory and one profile each; then the main
+    the serving path at B=2 and `n_steps` train steps at B=4, 1024², K=512
+    (64 real) in float32 and bf16, timed briefly; then the main
     RetinaNet's `poly_giou` loss at the same traffic. No fused launch on
     any of its paths, one K1 matrix launch per `predict`. Returns the
     launches of each path."""
@@ -4426,7 +4450,7 @@ def reppoints_phases(rik, n_steps=5):
     elapsed("RepPoints bf16 card vs cpu")
     paths = {"reppoints_serving": serving_phase(model, rik, "fp32", brief=True),
              f"reppoints_train_{n_steps}_steps": train_at_config_traffic(
-                 cfg, model, rik, "fp32", n_steps=n_steps)}
+                 cfg, model, rik, "fp32", n_steps=n_steps, brief=True)}
     state = model.state_dict()
     del model, head
     torch.cuda.empty_cache()
@@ -4436,7 +4460,7 @@ def reppoints_phases(rik, n_steps=5):
     del state
     paths["reppoints_bf16_serving"] = serving_phase(model, rik, "bf16", brief=True)
     paths[f"reppoints_bf16_train_{n_steps}_steps"] = train_at_config_traffic(
-        cfg, model, rik, "bf16", n_steps=n_steps)
+        cfg, model, rik, "bf16", n_steps=n_steps, brief=True)
     del model
     torch.cuda.empty_cache()
     elapsed("the RepPoints phases")
@@ -4640,6 +4664,639 @@ def weight_import_phase(full_cfg, rik):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# SSD300 on COCO, the codecs, COCO from disk and the SSDD+ / FAIR1M converters
+
+
+def ssd_config():
+    """`configs/ssd300_coco.py` with `backbone.pretrained` dropped (the VGG16
+    checkpoint is not in the checkout)."""
+    from jdet_torch.config import load_cfg_file
+
+    cfg = load_cfg_file(SSD_CONFIG)
+    cfg["model"]["backbone"]["pretrained"] = None
+    return cfg
+
+
+def draw_ssd_weights(model, seed=4):
+    """SSD's weights from a seed, drawn so that its untrained `predict`
+    does work: the backbone's and the neck's convs He-scaled (std
+    sqrt(2 / fan_in), the first conv's also divided by the images' root
+    mean square, biases N(0, 0.05)), so that the activations stay near
+    unit scale through VGG's sixteen ReLUs; then, on a batch drawn from
+    the same seed, each level's head convs scaled to its feature's root
+    mean square r: the class convs at 2 / (r sqrt(fan_in)), the box convs
+    at 0.2 / (r sqrt(fan_in)), biases 0. Class logits then spread with a
+    standard deviation near 2: at the initializer's scales every class
+    score sits near 1/81, below the config's score_thr of 0.02; drawn so,
+    thousands of candidates per image pass it."""
+    gen = torch.Generator().manual_seed(seed)
+    head = model.bbox_head
+    x = torch.as_tensor(ssd_batch(1, seed=seed)[0])
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("bbox_head.") or name.endswith("l2norm.weight"):
+                continue
+            if p.dim() == 4:
+                # the first conv also divides by the images' scale
+                scale = x.pow(2).mean().sqrt().item() if name == "backbone.blocks.0.0.weight" else 1
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / p[0].numel()) ** 0.5 / scale)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        feats = model.extract_feat(x.to(next(model.parameters()).device))
+        for lvl, f in enumerate(feats):
+            r = f.float().pow(2).mean().sqrt().item()
+            for convs, gain in ((head.cls_convs, 2.0), (head.reg_convs, 0.2)):
+                w = convs[lvl].weight
+                w.copy_(torch.randn(w.shape, generator=gen) * (gain / (r * w[0].numel() ** 0.5)))
+                convs[lvl].bias.zero_()
+
+
+def ssd_batch(B, seed=0, size=300, K=32, real=8, num_classes=80):
+    """Float images as the config's Normalize leaves them (BGR, mean
+    subtracted, std 1) of uint8 noise, and zero-angle gts (gt_bboxes
+    (B, K, 5), 1-based labels, mask) on a 300² canvas."""
+    rng = np.random.RandomState(seed)
+    mean = np.asarray([103.53, 116.28, 123.675], np.float32)
+    images = rng.randint(0, 256, (B, size, size, 3)).astype(np.float32) - mean
+    gt = np.zeros((B, K, 5), np.float32)
+    mask = np.zeros((B, K), bool)
+    labels = np.zeros((B, K), np.int64)
+    for b in range(B):
+        mask[b, :real] = True
+        gt[b, :real, 0] = rng.uniform(40, size - 40, real)
+        gt[b, :real, 1] = rng.uniform(40, size - 40, real)
+        gt[b, :real, 2] = rng.uniform(16, 200, real)
+        gt[b, :real, 3] = rng.uniform(16, 200, real)
+        labels[b, :real] = rng.randint(1, num_classes + 1, real)
+    return images, {"gt_bboxes": gt, "gt_labels": labels, "gt_mask": mask}
+
+
+def ssd_margins(model, images, targets):
+    """On the CPU model: the smallest distance of a valid gt-anchor hbb IoU
+    from the assigner's 0.5, and the smallest relative gap between the
+    last negative the hard-negative cut keeps and the first it drops, over
+    the batch. (A gt's best anchors often tie exactly, anchors of one size
+    inside a larger gt; the hbb IoU is the same float operations on both
+    devices, so such ties break alike. The negatives' losses come from
+    convolutions that sum in another order on each device.)"""
+    from jdet_torch.models.boxes.anchor_target import anchor_target_batch
+    from jdet_torch.ops.box_convert import rbox_to_hbox
+
+    head = model.bbox_head
+    with torch.no_grad():
+        cls, _, anchors = head._flatten(head(model.extract_feat(images)))
+        gt_h = rbox_to_hbox(targets["gt_bboxes"])
+        tgt, _, _ = anchor_target_batch(
+            anchors, torch.ones(len(anchors), dtype=torch.bool), gt_h, targets["gt_mask"],
+            targets["gt_labels"], target_means=head.target_means, target_stds=head.target_stds,
+            assigner_cfg=dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.0), rotated=False)
+        lbl = torch.where(tgt["labels"] > 0, tgt["labels"] - 1, head.num_classes).long()
+        ce = -torch.gather(torch.log_softmax(cls, -1), -1, lbl[..., None])[..., 0]
+    a, g = anchors.double(), gt_h.double()
+    lt = torch.maximum(a[None, None, :, :2], g[:, :, None, :2])
+    rb = torch.minimum(a[None, None, :, 2:], g[:, :, None, 2:])
+    inter = (rb - lt).clamp(min=0).prod(-1)
+    area = lambda b: (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])  # noqa: E731
+    iou = inter / (area(a)[None, None] + area(g)[:, :, None] - inter)
+    thr_gap = (iou - 0.5).abs()[targets["gt_mask"]].min().item()
+    neg_gap = 1.0
+    for b in range(ce.shape[0]):
+        neg = torch.sort(ce[b][tgt["neg_mask"][b]], descending=True).values
+        k = head.neg_pos_ratio * max(int(tgt["pos_mask"][b].sum()), 1)
+        neg_gap = min(neg_gap, ((neg[k - 1] - neg[k]) / neg[k - 1]).item())
+    return thr_gap, neg_gap
+
+
+def ssd_nms_candidates(model, images):
+    """The per-class candidates that SSD's `predict` hands K1's matrix
+    route, as `multiclass_nms_rotated` builds them: (B * 80, 512, 5)
+    axis-aligned rboxes (the classes' top 512 by score, -inf scores
+    parked) and their validity."""
+    from jdet_torch.ops.box_convert import delta2hbox, hbox_to_rbox
+    from jdet_torch.ops.topk import stable_topk
+
+    head, cfg = model.bbox_head, model.bbox_head.test_cfg
+    with torch.no_grad():
+        cls, reg, anchors = head._flatten(head(model.extract_feat(images)))
+        scores = torch.softmax(cls, -1)[..., :head.num_classes]
+        _, topk = stable_topk(scores.amax(-1), min(cfg["nms_pre"], anchors.shape[0]))
+        scores = torch.gather(scores, 1, topk[..., None].expand(-1, -1, scores.shape[-1]))
+        deltas = torch.gather(reg, 1, topk[..., None].expand(-1, -1, 4))
+        boxes = hbox_to_rbox(delta2hbox(anchors[topk], deltas, head.target_means,
+                                        head.target_stds))
+        B, n, C = scores.shape
+        K = min(n, 512)
+        sT = torch.where(scores > cfg["score_thr"], scores, float("-inf")).transpose(1, 2)
+        top_s, top_i = stable_topk(sT, K)
+        b = torch.gather(boxes[:, None].expand(B, C, n, 5), 2,
+                         top_i[..., None].expand(B, C, K, 5))
+    return b.reshape(B * C, K, 5).contiguous(), torch.isfinite(top_s).reshape(B * C, K)
+
+
+def hbb_self_iou(rboxes):
+    """The exact IoU (float64) of axis-aligned rboxes (theta 0 or pi/2)
+    against each other: (M, K, 5) -> (M, K, K)."""
+    r = rboxes.double()
+    swap = (r[..., 4].abs() > 1.0)[..., None]
+    wh = torch.where(swap, r[..., [3, 2]], r[..., 2:4])
+    lo, hi = r[..., :2] - wh / 2, r[..., :2] + wh / 2
+    inter = (torch.minimum(hi[:, :, None], hi[:, None]) - torch.maximum(lo[:, :, None], lo[:, None])
+             ).clamp(min=0).prod(-1)
+    area = wh.prod(-1)
+    return inter / (area[:, :, None] + area[:, None] - inter)
+
+
+def check_ssd_iou_kernel(rik, model):
+    """K1's matrix route on SSD's real candidates at B=8: (640, 512, 512)
+    axis-aligned boxes, many with shared or coinciding edges (decoded
+    from one anchor grid). Against its plain version and against the exact
+    hbb IoU; on the pairs of valid candidates whose exact IoU lies more
+    than 1e-4 from `nms_iou_thr` (0.45), K1 takes the NMS's decision of
+    the exact IoU. Timed against the plain version, with its bound.
+    Returns the numbers for K1's entry of the kernels line."""
+    images = torch.as_tensor(ssd_batch(8, seed=11)[0], device="cuda")
+    cand, valid = ssd_nms_candidates(model, images)
+    M, K = cand.shape[:2]
+    got = rik.box_iou_rotated_rect(cand, cand)
+
+    def plain():  # the plain version's pair-shaped temporaries, 80 classes at a time
+        return torch.cat([rik.box_iou_rotated_rect_reference(c, c) for c in cand.split(80)])
+
+    want = plain()
+    torch.cuda.synchronize()
+    err_plain = (got - want).abs().max().item()
+    del want
+    pair = valid[:, :, None] & valid[:, None, :]
+    thr = model.bbox_head.test_cfg["nms_iou_thr"]
+    err_exact, near, flips, n_pairs = 0.0, 0, 0, int(pair.sum())
+    for lo in range(0, M, 40):  # the exact IoU in float64, 40 classes at a time
+        exact = hbb_self_iou(cand[lo:lo + 40])
+        p = pair[lo:lo + 40]
+        g = got[lo:lo + 40].double()
+        err_exact = max(err_exact, (g - exact)[p].abs().max().item() if p.any() else 0.0)
+        decisive = p & ((exact - thr).abs() > 1e-4)
+        near += int((p & ~decisive).sum())
+        flips += int(((g > thr) != (exact > thr))[decisive].sum())
+    log(f"SSD NMS self-IoU on K1 ({M}, {K}, {K}): {int(valid.sum())} valid candidates, "
+        f"{n_pairs} valid pairs; max_abs_err vs plain {err_plain:.3e}, vs exact hbb IoU "
+        f"{err_exact:.3e}; {near} pairs within 1e-4 of {thr}, decisions flipped on the "
+        f"others: {flips}")
+    check(err_plain <= 2e-4 and err_exact <= 2e-4 and flips == 0,
+          f"K1 on SSD's candidates: {err_plain}, {err_exact}, {flips} flipped decisions")
+    check(int(valid.sum()) >= 100 * 8, "SSD's candidates: fewer than 100 per image")
+    ms = median_ms(lambda: rik.box_iou_rotated_rect(cand, cand))
+    plain_ms = median_ms(plain, warmup=1, iters=3)
+    nbytes = (2 * M * K * 5 + M * K * K) * 4
+    touching = touching_pairs(cand, cand)
+    bound_ms, bound_by = bound(nbytes, IOU_FLOPS_PER_TOUCHING_PAIR * touching)
+    log(f"SSD NMS self-IoU ({M}, {K}, {K}): K1 {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} (bytes {nbytes}, {touching} touching pairs)")
+    return {"ssd_shape": [M, K, K], "ssd_ms": ms, "ssd_plain_ms": plain_ms,
+            "ssd_bound_ms": bound_ms, "ssd_bound_by": bound_by,
+            "ssd_max_abs_err": max(err_plain, err_exact)}
+
+
+def ssd_trainer(cfg, model):
+    """The config's SGD (lr 2e-3, momentum 0.9, weight decay 5e-4, no
+    clipping) with its StepLR warmup, and the train step on host-normalized
+    images (SSD's config normalizes on the host)."""
+    from jdet_torch.optim import build_lr_schedule, build_optimizer
+    from jdet_torch.parallel import build_train_step
+
+    ocfg, scfg = cfg["optimizer"], cfg["scheduler"]
+    schedule = build_lr_schedule(
+        ocfg["lr"], scheduler_type=scfg["type"], milestones=scfg["milestones"],
+        gamma=scfg.get("gamma", 0.1), steps_per_epoch=STEPS_PER_EPOCH,
+        max_steps=cfg["max_epoch"] * STEPS_PER_EPOCH, warmup=scfg["warmup"],
+        warmup_iters=scfg["warmup_iters"], warmup_ratio=scfg["warmup_ratio"])
+    opt = build_optimizer(model, opt_type=ocfg["type"], lr_schedule=schedule,
+                          momentum=ocfg["momentum"], weight_decay=ocfg["weight_decay"],
+                          grad_clip=ocfg.get("grad_clip"))
+    return build_train_step(model, opt), opt
+
+
+def ssd_card_against_cpu(cfg, rik):
+    """SSD300 on the card against the CPU, the same drawn weights, B=2 at
+    300² on a batch without near ties (`ssd_margins` above 1e-6 and 1e-4):
+    the
+    float32 loss forward (rtol 1e-4), `predict` on the card's head outputs
+    on both devices (the same detections: matched boxes, counts, scores
+    within 1e-5) and each device's own `predict` as sets, then 2 SGD steps
+    (losses rtol 1e-4, every parameter within 1e-4 of its tensor's
+    largest). Then the bf16 model on the card against the CPU's, B=1:
+    the losses and the head's class and box outputs within this run's
+    f32 - bf16 gap."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    cpu = build_detector(cfg["model"], device="cpu", seed=0, load_pretrained=False)
+    draw_ssd_weights(cpu)
+    card = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    card.load_state_dict(cpu.state_dict())
+    seed = next(s for s in range(20) if np.all(np.greater(ssd_margins(
+        cpu, *to_device(*ssd_batch(2, seed=s), "cpu")), (1e-6, 1e-4))))
+    images, targets = ssd_batch(2, seed=seed)
+    out = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        x, t = to_device(images, targets, "cpu" if m is cpu else "cuda")
+        losses = {k: v.item() for k, v in m.loss(x, t).items()}
+        with torch.no_grad():
+            outs = m.bbox_head(m.extract_feat(x))
+            det = {k: v.cpu() for k, v in m.predict(x).items()}
+        out[name] = (losses, det, outs)
+    for k, v in out["cpu"][0].items():
+        check(abs(out["card"][0][k] - v) <= 1e-4 * abs(v), f"SSD {k}: card {out['card'][0][k]} "
+              f"cpu {v}")
+    card_outs = [tuple(o.cpu() for o in lvl) for lvl in out["card"][2]]
+    with torch.no_grad():
+        on_cpu = {k: v.cpu() for k, v in cpu.bbox_head.predict(card_outs).items()}
+        on_card = {k: v.cpu() for k, v in card.bbox_head.predict(out["card"][2]).items()}
+    same = as_sets(on_card, on_cpu, matched_scores=True)
+    own = as_sets(out["card"][1], out["cpu"][1], rel=1e-4)
+    log(f"SSD card vs cpu at 300², B=2 (batch seed {seed}): losses card {out['card'][0]} cpu "
+        f"{out['cpu'][0]}; predict on the card's head outputs (matched share, counts, score "
+        f"err) {same}; each device's own predict {own}")
+    check(same[0] == 1.0 and same[1][0] == same[1][1] >= 200 and same[2] <= 1e-5,
+          f"SSD predict on the same head outputs: {same}")
+    check(own[0] >= 0.95 and abs(own[1][0] - own[1][1]) <= 0.05 * own[1][1],
+          f"SSD predict, each device's own: {own}")
+    start = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    steps = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        step, _ = ssd_trainer(cfg, m)
+        x, t = to_device(images, targets, "cpu" if m is cpu else "cuda")
+        steps[name] = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
+    worst = 0.0
+    for (n, p), q in zip(cpu.named_parameters(), card.parameters()):
+        worst = max(worst, ((q.detach().cpu() - p.detach()).abs().max()
+                            / p.detach().abs().max().clamp(min=1e-30)).item())
+    moved = max((p.detach() - start[n]).abs().max().item() for n, p in cpu.named_parameters())
+    log(f"SSD 2 SGD steps card vs cpu: losses card {steps['card']} cpu {steps['cpu']}, "
+        f"worst parameter error {worst:.3e} of its tensor's largest (largest change {moved:.3e})")
+    for a, b in zip(steps["card"], steps["cpu"]):
+        check(all(abs(a[k] - b[k]) <= 1e-4 * abs(b[k]) for k in b), "SSD steps' losses differ")
+    check(worst <= 1e-4 and moved > 0, f"SSD steps: parameters {worst} apart")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+    # bf16: the card's and the CPU's bf16 models within the f32 - bf16 gap
+    models = {}
+    for name, dev, dtype in (("bf16_card", "cuda", torch.bfloat16),
+                             ("bf16_cpu", "cpu", torch.bfloat16), ("f32_card", "cuda", None)):
+        with compute_dtype_scope(dtype):
+            models[name] = build_detector(cfg["model"], device=dev, seed=0,
+                                          load_pretrained=False)
+    draw_ssd_weights(models["bf16_cpu"], seed=5)
+    for name in ("bf16_card", "f32_card"):
+        models[name].load_state_dict(models["bf16_cpu"].state_dict())
+    images1, targets1 = ssd_batch(1, seed=seed)
+    res = {}
+    for name, m in models.items():
+        x, t = to_device(images1, targets1, "cpu" if name == "bf16_cpu" else "cuda")
+        losses = torch.tensor([v.item() for v in m.loss(x, t).values()], dtype=torch.float64)
+        with torch.no_grad():
+            outs = m.bbox_head(m.extract_feat(x))
+        res[name] = (losses, [torch.cat([lvl[i].float().flatten().cpu() for lvl in outs])
+                              for i in (0, 1)])
+
+    def rms(a):
+        return float(torch.sqrt(torch.mean(torch.as_tensor(a, dtype=torch.float64) ** 2)))
+
+    c, p, f = (res[k] for k in ("bf16_card", "bf16_cpu", "f32_card"))
+    fractions = {"losses": rms(c[0] - p[0]) / rms(f[0] - p[0]),
+                 "class outputs": rms(c[1][0] - p[1][0]) / rms(f[1][0] - p[1][0]),
+                 "box outputs": rms(c[1][1] - p[1][1]) / rms(f[1][1] - p[1][1])}
+    log(f"SSD bf16 card vs cpu at 300², B=1: losses card {c[0].tolist()} cpu {p[0].tolist()} "
+        f"f32 {f[0].tolist()}; |card - cpu| over the f32 - bf16 gap: {json.dumps(fractions)}")
+    for what, frac in fractions.items():
+        check(frac <= BF16_GAP_FACTOR, f"SSD bf16 card vs cpu, {what}: {frac:.3f} of the gap")
+    del models
+    torch.cuda.empty_cache()
+
+
+def ssd_serving_phase(model, rik, label, B=8, brief=False):
+    """SSD's loss forward and `predict` at the config's val batch (B=8,
+    300²), once with the launch counters read around them (one K1 matrix
+    launch per `predict`, nothing in the loss), then timed."""
+    x, t = to_device(*ssd_batch(B, seed=3), "cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    model.train()
+    losses = {k: v.item() for k, v in model.loss(x, t).items()}
+    model.eval()
+    torch.cuda.synchronize()
+    loss_launches = launch_counts(rik)
+    with torch.no_grad():
+        det = model.predict(x)
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+    check(sum(loss_launches.values()) == 0, f"{label} SSD loss forward launched {loss_launches}")
+    check(launches["rotated_iou_rect"] == 1 and sum(launches.values()) == 1,
+          f"{label} SSD predict: not one K1 matrix launch: {launches}")
+    valid = det["valid"].sum(1).tolist()
+    check(all(np.isfinite(v) and v > 0 for v in losses.values()), f"SSD losses {losses}")
+    check(det["boxes"].shape == (B, 200, 5) and min(valid) > 0
+          and all(torch.isfinite(det[k][det["valid"]]).all().item()
+                  for k in ("boxes", "scores", "polys"))
+          and ((det["labels"][det["valid"]] >= 0) & (det["labels"][det["valid"]] < 80)).all(),
+          f"{label} SSD predict: valid {valid}")
+
+    def loss_fwd():
+        model.train()
+        out = model.loss(x, t)
+        model.eval()
+        return out
+
+    head = model.bbox_head
+    with torch.no_grad():
+        outs = head(model.extract_feat(x))
+        times = {"loss_forward_ms": median_ms(loss_fwd, *timing(brief)),
+                 "predict_ms": median_ms(lambda: model.predict(x), *timing(brief)),
+                 "network_forward_no_grad_ms": median_ms(
+                     lambda: head(model.extract_feat(x)), *timing(brief)),
+                 "head_predict_ms": median_ms(lambda: head.predict(outs), *timing(brief))}
+    log(f"{label} SSD300 at B={B}: losses {losses}, valid per image {valid}, "
+        f"{json.dumps(times)}")
+    return launches
+
+
+def ssd_train_phase(cfg, model, rik, label, B=32, n_steps=5):
+    """`n_steps` train steps at the config's traffic (B=32, 300², 32 gt
+    slots with 8 real), the launch counters read around them (nothing),
+    then the step timed (median ms), its parts (the loss forward, the
+    backward, the optimizer), its device busy share and busiest kernels
+    over 3 profiled steps, and its peak memory."""
+    step, opt = ssd_trainer(cfg, model)
+    x, t = to_device(*ssd_batch(B, seed=1), "cuda")
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    logs = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(n_steps)]
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(launches.values()) == 0, f"{label} SSD train: launches {launches}")
+    check(all(np.isfinite(v) for lv in logs for v in lv.values()), f"{label} SSD losses {logs}")
+    it = iter(range(n_steps, 10 ** 6))
+    times = {"step_ms": median_ms(lambda: step(x, t, next(it)), 2, 10)}
+
+    def fwd():
+        return sum(model.loss(x, t).values())
+
+    times["loss_forward_ms"] = median_ms(fwd, 2, 5)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        fwd().backward()
+
+    times["forward_backward_ms"] = median_ms(fwd_bwd, 2, 5)
+    times["backward_ms"] = times["forward_backward_ms"] - times["loss_forward_ms"]
+    times["optimizer_ms"] = median_ms(opt.step, 2, 5)
+    kernels, device_ms, wall_ms = device_profile(lambda: step(x, t, next(it)), iters=3)
+    times.update(profiled_step_device_ms=device_ms, profiled_step_wall_ms=wall_ms,
+                 device_busy_share=device_ms / wall_ms, peak_memory_bytes=peak)
+    log(f"{label} SSD300 train at B={B}, 300²: losses {[round(lv['total_loss'], 4) for lv in logs]}"
+        f"; {json.dumps(times)}")
+    log(f"{label} SSD300 step, the 8 busiest kernels, device ms: "
+        + json.dumps(dict(list(kernels.items())[:8])))
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return launches
+
+
+def ssd_phases(rik):
+    """SSD300-VGG16 from `configs/ssd300_coco.py` at full width (VGG16,
+    300², 80 classes) with weights drawn from a seed (`draw_ssd_weights`):
+    card against CPU (`ssd_card_against_cpu`), K1 on its real candidates
+    (`check_ssd_iou_kernel`), the serving path at B=8 and 5 train steps
+    at B=32 in float32 and bf16. Returns (K1's SSD numbers, the launches
+    of each path)."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    cfg = ssd_config()
+    model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    head = model.bbox_head
+    n_anchors = head.anchors([(s, s) for s in (38, 19, 10, 5, 3, 1)], "cuda").shape[0]
+    check(type(model).__name__ == "SSD" and type(model.backbone).__name__ == "SSDVGG"
+          and tuple(model.backbone.fc6.weight.shape) == (1024, 512, 3, 3)
+          and model.neck.out_channels == [512, 1024, 512, 256, 256, 256]
+          and head.num_classes == 80 and n_anchors == 8732
+          and tuple(head.cls_convs[0].weight.shape) == (4 * 81, 512, 3, 3),
+          "SSD is not SSD300-VGG16 with 80 classes")
+    draw_ssd_weights(model)
+    log(f"SSD300 model: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"{n_anchors} anchors")
+    ssd_card_against_cpu(cfg, rik)
+    elapsed("SSD card vs cpu")
+    k1 = check_ssd_iou_kernel(rik, model)
+    paths = {"ssd_serving": ssd_serving_phase(model, rik, "fp32"),
+             "ssd_train_5_steps": ssd_train_phase(cfg, model, rik, "fp32")}
+    state = model.state_dict()
+    del model, head
+    torch.cuda.empty_cache()
+    with compute_dtype_scope(torch.bfloat16):
+        model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    model.load_state_dict(state)
+    paths["ssd_bf16_serving"] = ssd_serving_phase(model, rik, "bf16")
+    paths["ssd_bf16_train_5_steps"] = ssd_train_phase(cfg, model, rik, "bf16")
+    del model, state
+    torch.cuda.empty_cache()
+    elapsed("the SSD phases")
+    return k1, paths
+
+
+def codec_phase():
+    """Every fixture of `tests/data/torch_codecs/` decoded by the port's
+    JPEG and TIFF readers (no cv2 here) to the SHA-256 digest that
+    `tests/make_codec_fixtures.py` took from cv2; then the decode of a
+    640x480 4:2:0 JPEG and of the 1000x1000 LZW TIFF timed (median ms of
+    20, the files in the page cache)."""
+    import hashlib
+
+    from jdet_torch.data import image_codecs, image_io
+
+    t0 = time.perf_counter()
+    image_codecs.build()
+    build_s = time.perf_counter() - t0
+    with open(CODEC_FIXTURES / "digests.json") as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        image = image_io.imread(str(CODEC_FIXTURES / name))
+        got = hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
+        check(got == want["sha256"] and list(image.shape) == want["shape"],
+              f"{name} does not decode to cv2's pixels")
+
+    def ms_per_image(path, n=20):
+        times = []
+        for _ in range(n + 2):
+            t = time.perf_counter()
+            image_io.imread(str(path))
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times[2:]))
+
+    times = {"jpeg_420_640x480_ms": ms_per_image(CODEC_FIXTURES / "baseline_420_640x480.jpg"),
+             "tiff_lzw_1000x1000_ms": ms_per_image(
+                 CODEC_FIXTURES / "lzw_predictor_1000x1000.tif"),
+             "library_build_s": build_s}
+    log(f"codecs: {len(digests)} fixtures decode to cv2's digests; {json.dumps(times)}")
+    return times
+
+
+def coco_runner_phase(rik, root, copies=3, B=4):
+    """The Runner on a COCO-style tree written over the JPEG fixtures
+    (`copies` of each, `make_coco_tree`: 80 categories on sparse ids): one
+    epoch of SSD300 with the config's whole augmentation stack
+    (PhotoMetricDistortion, Expand, MinIoURandomCrop, Resize, RandomFlip,
+    Normalize) and its val through `COCODataset.evaluate`, 2 spawned
+    loader workers. Reports the iteration times and loader wait, and the
+    JPEG decode ms. One K1 matrix launch per val batch, nothing in
+    training."""
+    import copy
+    import shutil
+
+    from jdet_torch.data import image_io
+    from jdet_torch.data.synthetic import make_coco_tree
+    from jdet_torch.runner import Runner
+
+    shutil.rmtree(root, ignore_errors=True)
+    jpegs = sorted(str(p) for p in CODEC_FIXTURES.glob("*.jpg"))
+    img_dir, ann = make_coco_tree(str(root), jpegs * copies, seed=0)
+    cfg = copy.deepcopy(ssd_config())
+    for split in ("train", "val", "test"):
+        d = cfg["dataset"][split]
+        check(d.pop("anno_file", None) is not None, "the config no longer sets anno_file")
+        d.update(annotations_file=ann, images_dir=img_dir, num_workers=2, batch_size=B)
+    cfg.update(name="coco_smoke", work_dir=str(root / "work"), max_epoch=1, eval_interval=1,
+               checkpoint_interval=1, log_interval=1)
+    runner = Runner(cfg, device="cuda")
+    draw_ssd_weights(runner.model)
+    logged = []
+    real_log = runner.logger.log
+    runner.logger.log = lambda d: (logged.append(d), real_log(d))
+    n_images = len(runner.train_dataset)
+    iters = n_images // B
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    t0 = time.perf_counter()
+    runner.train_epoch()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = launch_counts(rik)
+    t0 = time.perf_counter()
+    runner.val()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    launches = launch_counts(rik)
+    losses = [d for d in logged if "total_loss" in d]
+    evals = [d for d in logged if "eval/coco_mAP" in d]
+    n_val = -(-len(runner.val_dataset) // B)
+    check(len(losses) == iters and all(np.isfinite(d["total_loss"]) for d in losses),
+          f"COCO runner: {len(losses)} logged iterations of {iters}, or a non-finite loss")
+    check(len(evals) == 1 and len([k for k in evals[0] if k.startswith("eval/coco_")]) == 9
+          and all(0.0 <= v <= 1.0 for k, v in evals[0].items() if k.startswith("eval/coco_")),
+          f"COCO val: {evals}")
+    check(sum(train_launches.values()) == 0 and launches["rotated_iou_rect"] == n_val
+          and sum(launches.values()) == n_val,
+          f"COCO runner: {train_launches} in training, {launches} after val ({n_val} batches)")
+    its = runner.iteration_times[-1]
+    decode = []
+    for path in jpegs:
+        t = time.perf_counter()
+        image_io.imread(path)
+        decode.append((time.perf_counter() - t) * 1e3)
+    times = {"images": n_images, "iterations": iters, "train_epoch_s": train_s, "val_s": val_s,
+             "iteration_ms_median": 1e3 * float(np.median([t for _, t in its])),
+             "loader_wait_ms_median": 1e3 * float(np.median([w for w, _ in its])),
+             "loader_wait_ms_mean": 1e3 * float(np.mean([w for w, _ in its])),
+             "jpeg_decode_ms_per_fixture": decode}
+    log(f"COCO from disk, SSD300 B={B}: losses {[round(d['total_loss'], 4) for d in losses]}, "
+        f"val {json.dumps({k: v for k, v in evals[0].items() if k.startswith('eval/')})}; "
+        f"{json.dumps(times)}")
+    runner.close()
+    return launches
+
+
+def convert_phase(root):
+    """The `convert` step of the committed SSDD+ and FAIR1M-1.5 configs
+    through `python -m jdet_torch.tools.preprocess`, each config's paths
+    pointed at source trees written here over the codec fixtures (SSDD+:
+    the JPEGs and XML with rotated boxes; FAIR1M: the TIFFs and FAIR XML),
+    then FAIR1M's tiling at the config's 1024 / 200; then a FAIR1M-1.5
+    submission csv through `python -m jdet_torch.tools.merge_results` from
+    a test pkl of tile detections drawn from a seed."""
+    import shutil
+
+    from jdet_torch.data.synthetic import make_fair_tree, make_ssdd_tree
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    jpegs = sorted(str(p) for p in CODEC_FIXTURES.glob("*.jpg"))
+    tiffs = sorted(str(p) for p in CODEC_FIXTURES.glob("*.tif"))
+    img_dir, ann_dir = make_ssdd_tree(str(root / "ssdd_plus"), jpegs, seed=0)
+    fair_src = str(root / "fair1m")
+    make_fair_tree(fair_src, tiffs, seed=1)
+    ssdd_out, fair_dota, fair_tiles = (str(root / n) for n in ("ssdd_dota", "fair_dota",
+                                                               "fair_tiles"))
+    # the SSDD+ config inherits the DOTA base's tiling tasks, which SSDD
+    # does not need (its converter resizes to 512): they are emptied
+    configs = {
+        "ssdd_plus.py": (SSDD_PLUS_CONFIG, (
+            f"preprocess = dict(convert=dict(tasks=[dict(image_dir={img_dir!r}, "
+            f"label_dir={ann_dir!r}, out_dir={ssdd_out!r})]), tasks=[])\n")),
+        "fair1m.py": (FAIR1M_CONFIG, (
+            f"preprocess = dict(convert=dict(tasks=[dict(in_dir={fair_src!r}, "
+            f"out_dir={fair_dota!r})]), tasks=[dict(image_dir={fair_dota + '/images'!r}, "
+            f"label_dir={fair_dota + '/labelTxt'!r}, out_dir={fair_tiles!r})])\n")),
+    }
+    times = {}
+    for name, (base, body) in configs.items():
+        path = root / name
+        path.write_text(f"_base_ = [{str(base)!r}]\n" + body)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "jdet_torch.tools.preprocess", "--config-file",
+                        str(path)], check=True, cwd=str(ROOT), timeout=600)
+        times[f"{name}_s"] = time.perf_counter() - t0
+    with open(os.path.join(ssdd_out, "labels.pkl"), "rb") as f:
+        ssdd = pickle.load(f)
+    pngs = sorted(os.listdir(os.path.join(ssdd_out, "images")))
+    check(len(pngs) == len(jpegs) and len(ssdd) > 0 and all(
+        (r["width"], r["height"]) == (512, 512) for r in ssdd),
+        f"SSDD+ convert: {len(pngs)} images, {len(ssdd)} records")
+    with open(os.path.join(fair_tiles, "labels.pkl"), "rb") as f:
+        fair = pickle.load(f)
+    dota_pngs = sorted(os.listdir(os.path.join(fair_dota, "images")))
+    check(dota_pngs == [f"P{i:04d}.png" for i in range(1, len(tiffs) + 1)] and len(fair) > 0
+          and all((r["width"], r["height"]) == (1024, 1024) for r in fair),
+          f"FAIR1M convert: {dota_pngs}, {len(fair)} tile records")
+    # a FAIR1M-1.5 submission from tile detections
+    rng = np.random.RandomState(2)
+    results = []
+    for r in fair:
+        n = 16
+        results.append(({"polys": rng.uniform(0, 1024, (n, 8)).astype(np.float32),
+                         "scores": rng.rand(n).astype(np.float32),
+                         "labels": rng.randint(0, 10, n), "valid": rng.rand(n) < 0.8},
+                        {"filename": r["filename"]}))
+    pkl = root / "test_1.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump(results, f)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "jdet_torch.tools.merge_results", "--results",
+                    str(pkl), "--out-dir", str(root / "merged"), "--dataset-type",
+                    "FAIR1M_1_5", "--name", "fair1m"], check=True, cwd=str(ROOT), timeout=600)
+    times["merge_results_s"] = time.perf_counter() - t0
+    lines = (root / "merged" / "fair1m.csv").read_text().splitlines()
+    check(len(lines) > 0 and all(len(line.split(",")) == 11 and line.split(",")[0].endswith(".tif")
+                                 for line in lines), f"FAIR1M csv: {lines[:2]}")
+    log(f"convert: SSDD+ {len(pngs)} images / {len(ssdd)} records at 512²; FAIR1M "
+        f"{len(dota_pngs)} scenes -> {len(fair)} tiles; csv {len(lines)} lines; "
+        f"{json.dumps(times)}")
+
+
+
 def main():
     import argparse
 
@@ -4837,6 +5494,14 @@ def main():
     elapsed("the RetinaNet poly_giou phase")
     vis_launches = vis_test_phase(rik, rik.BUILD_DIR / "vis_test")
     elapsed("the vis_test phase")
+    # SSD300 on COCO (K1's matrix route on 80 classes of axis-aligned
+    # candidates), the codecs, COCO from disk and the converters
+    codec_phase()
+    ssd_k1, ssd_paths = ssd_phases(rik)
+    coco_launches = coco_runner_phase(rik, rik.BUILD_DIR / "coco_smoke")
+    elapsed("the COCO runner phase")
+    convert_phase(rik.BUILD_DIR / "convert_smoke")
+    elapsed("the convert phase")
 
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
     elapsed('runner_phase')
@@ -4866,7 +5531,8 @@ def main():
              "orcnn_bf16_train_b16_3_steps": orcnn_bf16_b16_launches,
              "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_,
              **lsk_paths, "weight_import_loss_predict": import_launches, **hbb_paths,
-             **s2a_more_paths, **single_paths, **reppoints_paths, "vis_test": vis_launches}
+             **s2a_more_paths, **single_paths, **reppoints_paths, "vis_test": vis_launches,
+             **ssd_paths, "ssd_coco_runner": coco_launches}
     kernels = [entry, assign_entry, per_image_entry, r3det_entry, roi_entry, redet_entry,
                atss_entry, generic_entry]
     for e in kernels:
@@ -4895,6 +5561,13 @@ def main():
     check(roi_entry["launches"] > 0 and redet_entry["launches"] > 0
           and r3det_entry["launches"] > 0, "the RoI route or R3Det's per-image route was not "
           "launched on a main path")
+    entry.update(ssd_k1)
+    check(all(n == {"rotated_iou_rect": 1 if p.endswith("serving") else 0,
+                    "max_iou_assign_rect": 0, "max_iou_assign_rect_per_image": 0,
+                    "max_iou_assign_rect_per_image_masked": 0, "rotated_iou_generic": 0}
+              for p, n in paths.items() if p.startswith("ssd_") and p != "ssd_coco_runner"),
+          f"SSD's paths: not one K1 matrix launch per predict and nothing else: "
+          f"{ {p: n for p, n in paths.items() if p.startswith('ssd_')} }")
     check(atss_entry["launches"] == 2 * (1 + 5),
           f"ATSS's route: {atss_entry['launches']} launches, not one per loss forward and "
           f"train step in float32 and bf16")

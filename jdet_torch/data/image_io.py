@@ -1,4 +1,5 @@
-"""PNG tiles to RGB uint8 with `zlib` and numpy, and a PNG writer.
+"""Images to RGB uint8: PNG with `zlib` and numpy, JPEG and TIFF through
+`jpeg.py` and `tiff.py`; and a PNG writer.
 
 The counterpart of `jdet_tpu/data/custom.py::_imread` (:43-50), which
 returns `cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]`. The GPU machine
@@ -18,9 +19,11 @@ pixels as cv2 (libpng under IMREAD_COLOR):
   (y, d - y) of every row at once, H + W steps for a tile instead of one
   numpy call per pixel.
 
-Interlaced (Adam7) files, corrupt chunks and every extension other than
-`.png` and `.npy` raise an error that names the file; `.npy` tiles load
-with `np.load`. No other decoder is ever tried.
+Interlaced (Adam7) files and corrupt chunks raise an error that names the
+file. `imread` sends `.jpg`/`.jpeg` to `jpeg.py` and `.tif`/`.tiff` to
+`tiff.py` (the same pixels as cv2, on a g++ library), loads `.npy` tiles
+with `np.load`, and refuses every other extension. No other decoder is
+ever tried.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ import zlib
 
 import numpy as np
 
+from .jpeg import read_jpeg
+from .tiff import read_tiff
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -37,13 +43,19 @@ FILTER_NAMES = ("none", "sub", "up", "average", "paeth")
 
 
 def imread(path):
-    """RGB uint8 (H, W, 3) of a `.png` tile, or the array of a `.npy`
-    tile; any other extension raises."""
+    """RGB uint8 (H, W, 3) of a `.png`, `.jpg`/`.jpeg` or `.tif`/`.tiff`
+    image (`jpeg.py`, `tiff.py`), or the array of a `.npy` tile; any other
+    extension raises."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
         return np.load(path)
+    if ext in (".jpg", ".jpeg"):
+        return read_jpeg(path)
+    if ext in (".tif", ".tiff"):
+        return read_tiff(path)
     if ext != ".png":
-        raise ValueError(f"{path}: only .png and .npy tiles can be read, not {ext!r}")
+        raise ValueError(f"{path}: only .png, .jpg, .jpeg, .tif, .tiff and .npy images "
+                         f"can be read, not {ext!r}")
     with open(path, "rb") as f:
         data = f.read()
     try:

@@ -1,6 +1,7 @@
 """Synthetic DOTA data: a tiled tree (PNG tiles of filled rotated
 rectangles and a `labels.pkl` in the reference's record format), and raw
-scenes with DOTA labelTxt files for the tiler.
+scenes with DOTA labelTxt files for the tiler; and source trees of the
+SSDD / SSDD+, FAIR and COCO formats around given JPEG or TIFF files.
 
 No DOTA data ships with the repository, so `chip_smoke.py` and the tests
 drive the data pipeline on images drawn here from a seed with numpy and
@@ -107,3 +108,114 @@ def make_synthetic_raw_dota(root, sizes=((2000, 1500), (2100, 900)),
         with open(os.path.join(label_dir, name + ".txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
     return img_dir, label_dir
+
+
+def _random_quads(rng, w, h, n):
+    """n (x1, y1, ..., x4, y4) rotated rectangles inside a w x h image and
+    their enclosing (xmin, ymin, xmax, ymax)."""
+    side = min(w, h)
+    rboxes = np.stack([rng.uniform(0.2 * w, 0.8 * w, n), rng.uniform(0.2 * h, 0.8 * h, n),
+                       rng.uniform(0.08, 0.3, n) * side, rng.uniform(0.04, 0.15, n) * side,
+                       rng.uniform(-np.pi / 4, 3 * np.pi / 4, n)], 1).astype(np.float32)
+    quads = np.round(rbox_to_poly_np(rboxes).astype(np.float64), 1)
+    quads[:, 0::2] = np.clip(quads[:, 0::2], 0, w - 1)
+    quads[:, 1::2] = np.clip(quads[:, 1::2], 0, h - 1)
+    hboxes = np.stack([quads[:, 0::2].min(1), quads[:, 1::2].min(1),
+                       quads[:, 0::2].max(1), quads[:, 1::2].max(1)], 1)
+    return quads, hboxes
+
+
+def _image_size(path):
+    from .image_io import imread
+
+    h, w = imread(path).shape[:2]
+    return w, h
+
+
+def make_ssdd_tree(root, jpegs, seed=0, n_obj=(1, 6)):
+    """An SSDD / SSDD+ source tree: root/images/<i>.jpg (copies of the given
+    JPEG files) and root/labels/<i>.xml, each object with a `bndbox` and a
+    `rotated_bndbox` (x1..y4), difficult 0 or 1. Returns (images, labels)."""
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    img_dir, ann_dir = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    for i, src in enumerate(jpegs):
+        name = f"{i + 1:06d}"
+        shutil.copyfile(src, os.path.join(img_dir, name + ".jpg"))
+        w, h = _image_size(src)
+        quads, hboxes = _random_quads(rng, w, h, int(rng.integers(*n_obj)))
+        objs = []
+        for q, b in zip(quads, hboxes):
+            rot = "".join(f"<{k}>{v}</{k}>" for k, v in zip(
+                ("x1", "y1", "x2", "y2", "x3", "y3", "x4", "y4"), q))
+            box = "".join(f"<{k}>{v}</{k}>" for k, v in zip(
+                ("xmin", "ymin", "xmax", "ymax"), b))
+            objs.append(f"<object><name>ship</name><difficult>{int(rng.random() < 0.2)}"
+                        f"</difficult><bndbox>{box}</bndbox><rotated_bndbox>{rot}"
+                        "</rotated_bndbox></object>")
+        with open(os.path.join(ann_dir, name + ".xml"), "w") as f:
+            f.write(f"<annotation><filename>{name}.jpg</filename>{''.join(objs)}</annotation>\n")
+    return img_dir, ann_dir
+
+
+def make_fair_tree(root, tiffs, dataset_type="FAIR1M_1_5", seed=0, n_obj=(2, 9)):
+    """A FAIR source tree: root/images/<i>.tif (copies of the given TIFF
+    files) and root/labelXml/<i>.xml in FAIR's format (class names with
+    spaces, 5 points per object, the first repeated)."""
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    classes = [c.replace("_", " ") for c in get_classes_by_name(dataset_type)]
+    img_dir, ann_dir = os.path.join(root, "images"), os.path.join(root, "labelXml")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    for i, src in enumerate(tiffs):
+        shutil.copyfile(src, os.path.join(img_dir, f"{i + 1}.tif"))
+        w, h = _image_size(src)
+        quads, _ = _random_quads(rng, w, h, int(rng.integers(*n_obj)))
+        objs = []
+        for q in quads:
+            pts = [f"{q[2 * k]:.6f},{q[2 * k + 1]:.6f}" for k in (0, 1, 2, 3, 0)]
+            objs.append("<object><possibleresult><name>"
+                        f"{classes[int(rng.integers(len(classes)))]}</name></possibleresult>"
+                        "<points>" + "".join(f"<point>{p}</point>" for p in pts)
+                        + "</points></object>")
+        with open(os.path.join(ann_dir, f"{i + 1}.xml"), "w") as f:
+            f.write(f"<annotation><objects>{''.join(objs)}</objects></annotation>\n")
+    return img_dir, ann_dir
+
+
+def make_coco_tree(root, images, n_classes=80, seed=0, n_obj=(1, 12)):
+    """A COCO-style tree: root/images/<i><ext> (copies of the given image
+    files) and root/instances.json with `n_classes` categories on ids
+    sparse in 1..90 as COCO's are, xywh boxes and a few crowd
+    annotations. Returns (images_dir, annotations_file)."""
+    import json
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    cat_ids = np.sort(rng.choice(np.arange(1, 91), n_classes, replace=False))
+    coco = {"images": [], "annotations": [],
+            "categories": [{"id": int(c), "name": f"class_{c}"} for c in cat_ids]}
+    for i, src in enumerate(images):
+        name = f"{i:012d}{os.path.splitext(src)[1]}"
+        shutil.copyfile(src, os.path.join(img_dir, name))
+        w, h = _image_size(src)
+        coco["images"].append({"id": i + 1, "file_name": name, "width": w, "height": h})
+        _, hboxes = _random_quads(rng, w, h, int(rng.integers(*n_obj)))
+        for b in hboxes:
+            coco["annotations"].append({
+                "id": len(coco["annotations"]) + 1, "image_id": i + 1,
+                "category_id": int(rng.choice(cat_ids)),
+                "bbox": [float(b[0]), float(b[1]), float(b[2] - b[0]), float(b[3] - b[1])],
+                "area": float((b[2] - b[0]) * (b[3] - b[1])),
+                "iscrowd": int(rng.random() < 0.05)})
+    ann = os.path.join(root, "instances.json")
+    with open(ann, "w") as f:
+        json.dump(coco, f)
+    return img_dir, ann

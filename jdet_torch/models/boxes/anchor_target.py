@@ -3,10 +3,10 @@
 Port of `jdet_tpu/models/boxes/anchor_target.py` (`anchor_target_single`
 :37, `anchor_target_batch` :148): the rotated branch on the max-IoU or the
 ATSS assigner (:79-90), the horizontal one (the RPN's, :91-95), the
-pseudo and the random sampler (:98-105), and `reg_decoded_bbox`
-(:121-122), whose targets are the matched gts themselves (the gaussian
-and IoU losses regress on them); horizontal deltas (`hbox2delta`) are not ported, so the
-horizontal branch takes `reg_decoded_bbox=True`. The reference vmaps the
+pseudo and the random sampler (:98-105), the deltas of either branch
+(`rbox2delta` or `hbox2delta`, :124) or with `reg_decoded_bbox`
+(:121-122) the matched gts themselves (the gaussian and IoU losses
+regress on them). The reference vmaps the
 single-image function over the batch, over the anchors too where they
 are per image (:163-176, S2ANet's refined anchors); here
 `anchor_target_single` takes any leading batch dimensions, on shared
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops.box_convert import rbox2delta
+from ...ops.box_convert import hbox2delta, rbox2delta
 from .assigner import atss_assign_rotated, max_iou_assign_hbb, max_iou_assign_rotated
 from .sampler import pseudo_sample, random_sample
 
@@ -69,9 +69,6 @@ def anchor_target_single(
             anchors, gt_bboxes, gt_mask, gt_labels,
             anchor_mask=valid_flags, iou_chunk=iou_chunk, **assigner_cfg
         )
-    elif not reg_decoded_bbox:
-        raise NotImplementedError("horizontal deltas (hbox2delta) are not ported: "
-                                  "the horizontal branch takes reg_decoded_bbox=True")
     else:
         assign = max_iou_assign_hbb(anchors, gt_bboxes, gt_mask, gt_labels,
                                     anchor_mask=valid_flags, **assigner_cfg)
@@ -96,7 +93,8 @@ def anchor_target_single(
     if reg_decoded_bbox:
         bbox_targets = torch.where(pos_mask[..., None], matched_gt, 0.0)
     else:
-        deltas = rbox2delta(anchors, matched_gt, target_means, target_stds)
+        encode = rbox2delta if rotated else hbox2delta
+        deltas = encode(anchors, matched_gt, target_means, target_stds)
         bbox_targets = torch.where(pos_mask[..., None], deltas, 0.0)
     bbox_weights = pos_mask[..., None].to(bbox_targets.dtype).expand_as(
         bbox_targets

@@ -14,6 +14,7 @@ mirror those paths, so the mapping is mechanical:
                                scale is its weight)
   <p>.scale (0-d)           -> <p>.scale                 (FCOS's `Scale`)
   <p>.ls1 / <p>.ls2         -> as they are (LSKNet's layer scales)
+  <p>.weight (C,)           -> <p>.weight                (SSD's L2Norm)
   <p>.weight (H, W, I, O)   -> <p>.weight (O, I, H, W)   (DeformConv)
   <p>.weight (O, I, k, k)   -> <p>.weight as it is        (REConv2dLift)
   <p>.weight (O, I, nOr, k, k) -> <p>.weight as it is      (ORConv2d, REConv2d)
@@ -38,6 +39,7 @@ import torch
 from torch import nn
 
 from ..ops.deform_conv import DeformConv
+from .backbones.ssd_vgg import L2Norm
 from .equivariant.econv import REConv2dLift
 from .layers import Scale
 
@@ -75,6 +77,9 @@ def params_from_jax(flat, model):
             if leaf == "scale" and isinstance(model.get_submodule(prefix), nn.BatchNorm2d):
                 sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
         elif leaf in ("bias", "ls1", "ls2"):
+            sd[path] = torch.from_numpy(arr.copy())
+        elif leaf == "weight" and arr.ndim == 1 and isinstance(
+                model.get_submodule(prefix), L2Norm):
             sd[path] = torch.from_numpy(arr.copy())
         elif leaf == "weight" and arr.ndim == 4:
             sd[path] = torch.from_numpy(np.array(_weight_4d(model, path, prefix, arr)))

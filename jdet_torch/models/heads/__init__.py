@@ -17,3 +17,4 @@ from .rotated_retina_head import (
 )
 from .rpn_heads import OrientedRPNHead, RPNHead
 from .s2anet_head import S2ANetHead
+from .ssd_head import SSDHead

@@ -30,8 +30,10 @@ keep their layout (a conv's OIHW, a depthwise (dim, 1, k, k), a linear's
   `extra_convs`, and a ConvModule's `.conv.` segment dropped where the
   port holds a bare conv.
 
-VGG16 (SSD) waits for the port of SSDVGG. Only files from trusted sources
-may be loaded: unpickling can run code.
+- `vgg16_to_flat` (:312): torchvision vgg16 `features.N` (and mmdet
+  SSDVGG's fc6 / fc7) -> SSDVGG's `blocks.<i>.<j>`, `fc6`, `fc7`.
+
+Only files from trusted sources may be loaded: unpickling can run code.
 """
 from __future__ import annotations
 
@@ -232,6 +234,30 @@ def lsknet_to_flat(sd):
     return out
 
 
+# VGG16 (SSD) -----------------------------------------------------------------
+
+# torchvision's `features.N` conv index -> (block, conv) of SSDVGG
+VGG16_CONV_IDX = [(0, 0, 0), (2, 0, 1), (5, 1, 0), (7, 1, 1),
+                  (10, 2, 0), (12, 2, 1), (14, 2, 2),
+                  (17, 3, 0), (19, 3, 1), (21, 3, 2),
+                  (24, 4, 0), (26, 4, 1), (28, 4, 2)]
+
+
+def vgg16_to_flat(sd):
+    """torchvision vgg16 `features.N` convs (and mmdet SSDVGG's fc6 / fc7 at
+    `features.31` / `features.33`, where present) -> SSDVGG's names."""
+    out = {}
+    for feat_i, b, j in VGG16_CONV_IDX:
+        if f"features.{feat_i}.weight" in sd:
+            out[f"blocks.{b}.{j}.weight"] = _np(sd[f"features.{feat_i}.weight"])
+            out[f"blocks.{b}.{j}.bias"] = _np(sd[f"features.{feat_i}.bias"])
+    for feat_i, name in ((31, "fc6"), (33, "fc7")):
+        if f"features.{feat_i}.weight" in sd:
+            out[f"{name}.weight"] = _np(sd[f"features.{feat_i}.weight"])
+            out[f"{name}.bias"] = _np(sd[f"features.{feat_i}.bias"])
+    return out
+
+
 # dispatch and detectors ------------------------------------------------------
 
 def backbone_to_flat(backbone, sd):
@@ -243,7 +269,7 @@ def backbone_to_flat(backbone, sd):
     if name in ("LSKNet", "StripNet"):
         return lsknet_to_flat(sd)
     if name == "SSDVGG":
-        raise NotImplementedError("the VGG16 converter waits for the port of SSDVGG")
+        return vgg16_to_flat(sd)
     if name in ("ResNet", "ResNet_v1d"):
         return resnet_to_flat(sd, deep_stem=getattr(backbone, "deep_stem", False))
     raise ValueError(f"no pretrained converter for backbone {name}")

@@ -69,8 +69,6 @@ def main(argv=None):
         from jdet_torch.utils.registry import BACKBONES
 
         bcfg = dict(FAMILIES[args.family])
-        if bcfg["type"] == "SSDVGG":
-            raise SystemExit("vgg16: the VGG16 converter waits for the port of SSDVGG")
         model = BACKBONES.get(bcfg.pop("type"))(generator=torch.Generator().manual_seed(0),
                                                **bcfg)
         mapping = pretrained.backbone_to_flat(model, pretrained.load_blob(args.src))

@@ -8,6 +8,7 @@ against its numpy path in tests/test_torch_polygon_native.py).
 """
 import os
 import pickle
+import zipfile
 
 import numpy as np
 import pytest
@@ -159,6 +160,18 @@ def test_merge_results_and_cli_match_the_reference(tmp_path):
                                  DOTA1_CLASSES, str(tmp_path / "ref_cli"))
     for f in out:
         assert open(f).read() == (tmp_path / "ref_cli" / os.path.basename(f)).read_text()
-    with pytest.raises(SystemExit):
-        merge_cli.main(["--results", str(pkl), "--out-dir", str(tmp_path / "x"),
-                        "--dataset-type", "FAIR"])
+    # FAIR: the submission converted to per-image XML and zipped, as the
+    # reference's tools/merge_results.py does (`finalize_submission`)
+    from jdet_tpu.config.constants import FAIR_CLASSES
+    from jdet_tpu.data.devkits.converters import finalize_submission
+
+    merge_cli.main(["--results", str(pkl), "--out-dir", str(tmp_path / "fair"),
+                    "--dataset-type", "FAIR", "--zip", str(tmp_path / "fair.zip")])
+    jmerge.write_dota_submission(jmerge.merge_results(results, FAIR_CLASSES), FAIR_CLASSES,
+                                 str(tmp_path / "ref_fair"))
+    finalize_submission(str(tmp_path / "ref_fair"), str(tmp_path / "ref_fair"), "submission",
+                        "FAIR", zip_path=str(tmp_path / "ref_fair.zip"))
+    with zipfile.ZipFile(tmp_path / "fair.zip") as a, \
+            zipfile.ZipFile(tmp_path / "ref_fair.zip") as b:
+        assert a.namelist() == b.namelist() and len(b.namelist()) > 0
+        assert all(a.read(n) == b.read(n) for n in b.namelist())

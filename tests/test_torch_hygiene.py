@@ -40,6 +40,9 @@ def test_port_imports_no_jax_and_no_jdet_tpu():
     assert bad == "[]", bad
     walked = set(names.split())
     for name in ("jdet_torch.data.image_io", "jdet_torch.data.devkits.voc_eval",
+                 "jdet_torch.data.jpeg", "jdet_torch.data.tiff", "jdet_torch.data.image_codecs",
+                 "jdet_torch.data.coco", "jdet_torch.data.devkits.converters",
+                 "jdet_torch.models.backbones.ssd_vgg", "jdet_torch.models.heads.ssd_head",
                  "jdet_torch.runner.runner", "jdet_torch.runner.checkpoint",
                  "jdet_torch.tools.run_net", "jdet_torch.tools.merge_results",
                  "jdet_torch.tools.time_paths",

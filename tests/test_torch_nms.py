@@ -3,7 +3,9 @@
 Scores are well separated (distinct multiples of 1/(n*C+1)), so the keep
 set is decided by the boxes alone and must be exactly the reference's.
 Only valid slots are compared: the order of the -inf tail of a top-k is
-not part of the contract."""
+not part of the contract. The reference runs compiled once with XLA's
+fusion off (`unfused_jit`), the arithmetic of eager JAX without compiling
+each primitive apart."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -12,6 +14,7 @@ import torch
 from jdet_tpu.ops.nms_rotated import multiclass_nms_rotated as j_mc_nms
 from jdet_tpu.ops.nms_rotated import nms_rotated as j_nms
 from jdet_torch.ops.nms_rotated import _greedy_sweep, multiclass_nms_rotated, nms_rotated
+from test_torch_retina_variants import unfused_jit
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,7 +65,8 @@ def test_greedy_sweep_is_exact_greedy():
 def test_nms_rotated_matches():
     boxes, scores = _clustered(1)
     order, keep = nms_rotated(torch.from_numpy(boxes), torch.from_numpy(scores[:, 0]), 0.3)
-    j_order, j_keep = j_nms(jnp.asarray(boxes), jnp.asarray(scores[:, 0]), 0.3)
+    j_order, j_keep = unfused_jit(lambda b, s: j_nms(b, s, 0.3), jnp.asarray(boxes),
+                                  jnp.asarray(scores[:, 0]))
     np.testing.assert_array_equal(order.numpy(), np.asarray(j_order))
     np.testing.assert_array_equal(keep.numpy(), np.asarray(j_keep))
     assert 0 < keep.sum() < len(boxes)
@@ -80,8 +84,8 @@ def test_multiclass_nms_matches_on_valid_slots(seed, class_cap, iou_thr, max_per
         kw["class_cap"] = class_cap
     got = multiclass_nms_rotated(torch.from_numpy(boxes)[None],
                                  torch.from_numpy(scores)[None], **kw)
-    want = {k: np.asarray(v) for k, v in
-            j_mc_nms(jnp.asarray(boxes), jnp.asarray(scores), **kw).items()}
+    want = {k: np.asarray(v) for k, v in unfused_jit(
+        lambda b, s: j_mc_nms(b, s, **kw), jnp.asarray(boxes), jnp.asarray(scores)).items()}
     got = {k: v[0].numpy() for k, v in got.items()}
     for k in ("boxes", "scores", "labels", "valid"):
         assert got[k].shape == want[k].shape, k

@@ -252,12 +252,47 @@ def test_lsknet_import_equals_the_reference(family):
                                   sd["block1.0.layer_scale_1"])
 
 
-def test_vgg16_waits_for_ssdvgg():
-    class SSDVGG(torch.nn.Module):
-        pass
+def test_vgg16_waits_for_ssdvgg(tmp_path):
+    """SSDVGG's import, which waited for the port of SSD: a
+    torchvision vgg16 state dict (`features.N`, with mmdet SSDVGG's fc6 and
+    fc7 at features.31 and .33) gives the reference's import tensor for
+    tensor, through `backbone_to_flat` and through `python -m
+    jdet_torch.tools.convert_weights --family vgg16`; L2Norm's scale, which
+    the file lacks, stays at its init in both."""
+    from jdet_tpu.models.backbones.ssd_vgg import SSDVGG as JSSDVGG
 
-    with pytest.raises(NotImplementedError, match="SSDVGG"):
-        pretrained.backbone_to_flat(SSDVGG(), {})
+    tm = BACKBONES.get("SSDVGG")()
+    jm = _abstract(lambda rngs: JSSDVGG(rngs=rngs))
+    # both start from the port's initial values
+    init = {(k.rsplit(".", 1)[0] + ".kernel" if v.dim() == 4 else k):
+            (v.numpy().transpose(2, 3, 1, 0) if v.dim() == 4 else v.numpy())
+            for k, v in tm.state_dict().items()}
+    j_assign_flat(jm, init, strict=True)
+    rng = np.random.default_rng(7)
+    sd = {}
+    for i, b, j in pretrained.VGG16_CONV_IDX:
+        w = tm.blocks[b][j].weight
+        sd[f"features.{i}.weight"] = rng.standard_normal(tuple(w.shape)).astype(np.float32)
+        sd[f"features.{i}.bias"] = rng.standard_normal(w.shape[0]).astype(np.float32)
+    for i, name in ((31, "fc6"), (33, "fc7")):
+        w = getattr(tm, name).weight
+        sd[f"features.{i}.weight"] = rng.standard_normal(tuple(w.shape)).astype(np.float32)
+        sd[f"features.{i}.bias"] = rng.standard_normal(w.shape[0]).astype(np.float32)
+    sd["classifier.0.weight"] = np.zeros((4, 4), np.float32)  # unused by both
+    j_assign_flat(jm, j_backbone_to_flat(jm, sd), strict=False)
+    loaded, missing, unexpected = pretrained.assign_state(
+        tm, pretrained.backbone_to_flat(tm, sd), strict=False)
+    assert missing == ["l2norm.weight"] and not unexpected and len(loaded) == 30
+    _assert_same_state(jm, tm)
+
+    src, out = str(tmp_path / "vgg16.pth"), str(tmp_path / "vgg16.jtorch.pkl")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, src)
+    assert convert_weights.main(["--src", src, "--family", "vgg16", "--out", out]) == 0
+    fresh = BACKBONES.get("SSDVGG")()
+    fresh.l2norm.weight.data.copy_(tm.l2norm.weight)
+    _, missing, _ = pretrained.load_pretrained_backbone(fresh, out)
+    assert not missing
+    _assert_same_state(jm, fresh)
 
 
 def _jdet_detector_sd(tmodel, seed=4, torch_tensors=False):

@@ -106,12 +106,12 @@ def test_what_the_tiler_refuses(tmp_path):
     img = np.zeros((64, 64, 3), np.uint8)
     src = tmp_path / "src"
     src.mkdir()
-    cv2.imwrite(str(src / "scene.jpg"), img)
-    with pytest.raises(ValueError, match="scene.jpg"):
+    cv2.imwrite(str(src / "scene.bmp"), img)
+    with pytest.raises(ValueError, match="scene.bmp"):
         tiling.process(str(src), None, str(tmp_path / "out"), subsize=32, gap=8)
     cfg = tmp_path / "cfg.py"
-    cfg.write_text("preprocess = dict(convert=dict(type='SSDD', tasks=[]), tasks=[])\n")
-    with pytest.raises(NotImplementedError, match="SSDD"):
+    cfg.write_text("preprocess = dict(convert=dict(type='VOC', tasks=[]), tasks=[])\n")
+    with pytest.raises(ValueError, match="VOC"):
         preprocess.main(["--config-file", str(cfg)])
 
 
