@@ -267,6 +267,11 @@ STEPS_PER_EPOCH = 1000
 # how far the bf16 model on the card may sit from the bf16 model on the
 # CPU, in units of the f32 - bf16 gap (check_bf16_card_against_cpu)
 BF16_GAP_FACTOR = 1.0
+# YOLOv5s's bf16 card against the CPU pools its 3 train-mode losses over
+# this many batches: batch by batch their RMS ratio to the gap reads 0.21
+# to 1.12 on an H100 (`yolo_card_against_cpu` logs it), as ~60 train-mode
+# BNs carry one-ulp flips of their batch statistics on to the losses
+YOLO_BF16_DRAWS = 8
 # ReDet's card against the CPU, each train step from the same state: per
 # trainable tensor, the largest error over the CPU's largest value, of the
 # values and of the step's change, and the change's RMS error over its RMS
@@ -5221,15 +5226,17 @@ def coco_runner_phase(rik, root, copies=3, B=4):
 
 def convert_phase(root):
     """The `convert` step of the committed SSDD+ and FAIR1M-1.5 configs
-    through `python -m jdet_torch.tools.preprocess`, each config's paths
-    pointed at source trees written here over the codec fixtures (SSDD+:
-    the JPEGs and XML with rotated boxes; FAIR1M: the TIFFs and FAIR XML),
-    then FAIR1M's tiling at the config's 1024 / 200; then a FAIR1M-1.5
-    submission csv through `python -m jdet_torch.tools.merge_results` from
-    a test pkl of tile detections drawn from a seed."""
+    through `jdet_torch.tools.preprocess`'s `main` (in this process: the
+    CLI's own start took most of its 38 s as three processes), each
+    config's paths pointed at source trees written here over the codec
+    fixtures (SSDD+: the JPEGs and XML with rotated boxes; FAIR1M: the
+    TIFFs and FAIR XML), then FAIR1M's tiling at the config's 1024 / 200;
+    then a FAIR1M-1.5 submission csv through `tools.merge_results`'s
+    `main` from a test pkl of tile detections drawn from a seed."""
     import shutil
 
     from jdet_torch.data.synthetic import make_fair_tree, make_ssdd_tree
+    from jdet_torch.tools import merge_results, preprocess
 
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -5256,8 +5263,7 @@ def convert_phase(root):
         path = root / name
         path.write_text(f"_base_ = [{str(base)!r}]\n" + body)
         t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-m", "jdet_torch.tools.preprocess", "--config-file",
-                        str(path)], check=True, cwd=str(ROOT), timeout=600)
+        preprocess.main(["--config-file", str(path)])
         times[f"{name}_s"] = time.perf_counter() - t0
     with open(os.path.join(ssdd_out, "labels.pkl"), "rb") as f:
         ssdd = pickle.load(f)
@@ -5284,9 +5290,8 @@ def convert_phase(root):
     with open(pkl, "wb") as f:
         pickle.dump(results, f)
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", "jdet_torch.tools.merge_results", "--results",
-                    str(pkl), "--out-dir", str(root / "merged"), "--dataset-type",
-                    "FAIR1M_1_5", "--name", "fair1m"], check=True, cwd=str(ROOT), timeout=600)
+    merge_results.main(["--results", str(pkl), "--out-dir", str(root / "merged"),
+                        "--dataset-type", "FAIR1M_1_5", "--name", "fair1m"])
     times["merge_results_s"] = time.perf_counter() - t0
     lines = (root / "merged" / "fair1m.csv").read_text().splitlines()
     check(len(lines) > 0 and all(len(line.split(",")) == 11 and line.split(",")[0].endswith(".tif")
@@ -5295,6 +5300,429 @@ def convert_phase(root):
         f"{len(dota_pngs)} scenes -> {len(fair)} tiles; csv {len(lines)} lines; "
         f"{json.dumps(times)}")
 
+
+
+YOLO_CONFIG = ROOT / "configs/yolov5s_coco.py"
+
+
+def yolo_batch(B, size=640, K=128, real=16, seed=0, num_classes=80):
+    """Images (B, size, size, 3) in 0..1, as `YoloDataset` collates them,
+    and `real` of `K` gt slots per image: xyxy pixel boxes of 8..200 px,
+    labels 1..num_classes."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 1, (B, size, size, 3)).astype(np.float32)
+    cxy = rng.uniform(0.1 * size, 0.9 * size, (B, K, 2))
+    wh = rng.uniform(8, 200, (B, K, 2))
+    hb = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).clip(0, size).astype(np.float32)
+    mask = np.zeros((B, K), bool)
+    mask[:, :real] = True
+    labels = np.where(mask, rng.integers(1, num_classes + 1, (B, K)), 0).astype(np.int32)
+    return images, {"gt_hboxes": hb * mask[..., None], "gt_labels": labels, "gt_mask": mask}
+
+
+def draw_yolo_weights(model, seed=4, size=320):
+    """Random weights made usable: with seeded initial weights, YOLOv5s's
+    activations shrink ~100x a stage in eval mode (Detect's logits 6e-4
+    apart, no score above `conf_thres`). Each BN's running statistics are
+    set to its batch statistics on a seeded batch (one train-mode forward
+    with the running averages replaced, not moved), then Detect's
+    objectness biases are raised by 4 and its class biases by 3, so that
+    thousands of candidates a batch pass `conf_thres` and the NMS works."""
+    from jdet_torch.models.detectors.yolo import ConvBnAct
+
+    bns = [m.bn for m in model.modules() if isinstance(m, ConvBnAct)]
+    x = torch.as_tensor(yolo_batch(2, size, seed=seed)[0],
+                        device=next(model.parameters()).device)
+    for bn in bns:
+        bn.flax_momentum = 0.0
+    was = model.training
+    model.train()
+    with torch.no_grad():
+        model(x)
+        for conv in model.detect.m:
+            b = conv.bias.view(model.detect.na, -1)
+            b[:, 4] += 4.0
+            b[:, 5:] += 3.0
+    for bn in bns:
+        bn.flax_momentum = 0.97
+    model.train(was)
+
+
+def yolo_trainer(cfg, model):
+    """The config's SGD (lr 0.01, momentum 0.937, weight decay 5e-4: its
+    `nesterov=True` is not passed on, as neither Runner passes it) with
+    its cosine schedule and linear warmup, and the train step on images
+    already in 0..1."""
+    from jdet_torch.optim import build_lr_schedule, build_optimizer
+    from jdet_torch.parallel import build_train_step
+
+    ocfg, scfg = cfg["optimizer"], cfg["scheduler"]
+    schedule = build_lr_schedule(
+        ocfg["lr"], scheduler_type=scfg["type"], steps_per_epoch=STEPS_PER_EPOCH,
+        max_steps=cfg["max_epoch"] * STEPS_PER_EPOCH, warmup=scfg["warmup"],
+        warmup_iters=scfg["warmup_iters"], warmup_ratio=scfg["warmup_ratio"])
+    opt = build_optimizer(model, opt_type=ocfg["type"], lr_schedule=schedule,
+                          momentum=ocfg["momentum"], weight_decay=ocfg["weight_decay"])
+    return build_train_step(model, opt), opt
+
+
+def yolo_card_against_cpu(cfg, rik):
+    """YOLOv5s on the card against the CPU, the same drawn weights, B=2 at
+    640², 128 gt slots (16 real): the train-mode loss forward (rtol 1e-4),
+    `predict` on the card's Detect outputs on both devices (the same
+    detections: every box matched, counts equal, scores within 1e-6),
+    then 2 SGD steps in float32 (losses rtol 1e-4) and under the float64
+    policy (losses rtol 1e-4, every parameter and BN statistic within
+    1e-5 of its tensor's largest). The parameters are held in float64
+    because the BN biases start at 0: after 2 steps each is only its
+    float32 gradients, which the train-mode BNs' backward spreads by
+    4e-5 to 9e-4 of their largest with the order of its sums (cuDNN's
+    algorithm, the CPU's threads); the float32 models' distance from the
+    CPU's float64 one is logged. Then the bf16 model on the card against
+    the CPU's, B=1 at 320² on `YOLO_BF16_DRAWS` batches: the losses and
+    the maps of all of them within this run's f32 - bf16 gap. No kernel of the port runs on YOLO's paths: the
+    counters stay at 0."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    cpu = build_detector(cfg["model"], device="cpu", seed=0, load_pretrained=False)
+    draw_yolo_weights(cpu)
+    card = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    card.load_state_dict(cpu.state_dict())
+    images, targets = yolo_batch(2, seed=1)
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    out = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        x, t = to_device(images, targets, "cpu" if m is cpu else "cuda")
+        m.train()
+        losses = {k: v.item() for k, v in m.loss(x, t).items()}
+        m.eval()
+        with torch.no_grad():
+            maps = m(x)
+        out[name] = (losses, maps)
+    for k, v in out["cpu"][0].items():
+        check(abs(out["card"][0][k] - v) <= 1e-4 * abs(v), f"YOLO {k}: card {out['card'][0][k]} "
+              f"cpu {v}")
+    with torch.no_grad():
+        on_card = {k: v.cpu() for k, v in card.predict_from_outputs(out["card"][1]).items()}
+        on_cpu = {k: v.cpu() for k, v in cpu.predict_from_outputs(
+            [o.cpu() for o in out["card"][1]]).items()}
+    same = as_sets(on_card, on_cpu, matched_scores=True)
+    maps_err = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(out["card"][1], out["cpu"][1]))
+    log(f"YOLOv5s card vs cpu at 640², B=2: losses card {out['card'][0]} cpu {out['cpu'][0]}; "
+        f"eval maps {maps_err:.3e} of the largest apart; predict on the card's Detect outputs "
+        f"(matched share, counts, score err) {same}")
+    check(same[0] == 1.0 and same[1][0] == same[1][1] >= 200 and same[2] <= 1e-6
+          and torch.equal(on_card["labels"][on_card["valid"]].sort().values,
+                          on_cpu["labels"][on_cpu["valid"]].sort().values),
+          f"YOLO predict on the same Detect outputs: {same}")
+    check(maps_err <= 1e-4, f"YOLO eval maps card vs cpu {maps_err}")
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    models = {"cpu": cpu, "card": card}
+    for name, dev in (("cpu64", "cpu"), ("card64", "cuda")):
+        with compute_dtype_scope(torch.float64):
+            models[name] = build_detector(cfg["model"], device=dev, seed=0,
+                                          load_pretrained=False)
+        models[name].load_state_dict(start)
+    steps, states = {}, {}
+    for name, m in models.items():
+        step, _ = yolo_trainer(cfg, m)
+        x, t = to_device(images, targets, "cuda" if name.startswith("card") else "cpu")
+        steps[name] = [{k: v.item() for k, v in step(x, t, it).items()} for it in range(2)]
+        states[name] = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+
+    def worst(got, want):
+        """The largest error over the float tensors of `want`, each over
+        its tensor's largest value: (error, tensor)."""
+        return max(((got[k].double() - p.double()).abs().max().item()
+                    / max(p.abs().max().item(), 1e-30), k)
+                   for k, p in want.items() if p.is_floating_point())
+
+    errs = {"card64 vs cpu64": worst(states["card64"], states["cpu64"]),
+            "card vs cpu": worst(states["card"], states["cpu"]),
+            "card vs cpu64": worst(states["card"], states["cpu64"]),
+            "cpu vs cpu64": worst(states["cpu"], states["cpu64"])}
+    moved = max((states["cpu64"][n] - start[n]).abs().max().item()
+                for n, _ in cpu.named_parameters())
+    log(f"YOLOv5s 2 SGD steps card vs cpu: losses {json.dumps(steps)}; worst parameter or "
+        f"statistic error over its tensor's largest (error, tensor) {json.dumps(errs)}; "
+        f"largest change {moved:.3e}")
+    for card_name, cpu_name in (("card", "cpu"), ("card64", "cpu64")):
+        for a, b in zip(steps[card_name], steps[cpu_name]):
+            check(all(abs(a[k] - b[k]) <= 1e-4 * abs(b[k]) for k in b),
+                  f"YOLO steps' losses differ: {card_name} {a} {cpu_name} {b}")
+    check(errs["card64 vs cpu64"][0] <= 1e-5 and moved > 0,
+          f"YOLO steps under the float64 policy: parameters {errs['card64 vs cpu64']} apart")
+    del cpu, card, models
+    torch.cuda.empty_cache()
+
+    models = {}
+    for name, dev, dtype in (("bf16_card", "cuda", torch.bfloat16),
+                             ("bf16_cpu", "cpu", torch.bfloat16), ("f32_card", "cuda", None)):
+        with compute_dtype_scope(dtype):
+            models[name] = build_detector(cfg["model"], device=dev, seed=0,
+                                          load_pretrained=False)
+    draw_yolo_weights(models["f32_card"], seed=5)
+    for name in ("bf16_card", "bf16_cpu"):
+        models[name].load_state_dict(models["f32_card"].state_dict())
+    res = {name: ([], []) for name in models}
+    for seed in range(2, 2 + YOLO_BF16_DRAWS):
+        images1, targets1 = yolo_batch(1, 320, seed=seed)
+        for name, m in models.items():
+            x, t = to_device(images1, targets1, "cpu" if name == "bf16_cpu" else "cuda")
+            m.eval()
+            with torch.no_grad():
+                res[name][1].append(torch.cat([o.float().flatten().cpu() for o in m(x)]))
+            m.train()
+            res[name][0].append(torch.tensor([v.item() for v in m.loss(x, t).values()],
+                                             dtype=torch.float64))
+    res = {name: (torch.cat(losses), torch.cat(maps)) for name, (losses, maps) in res.items()}
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+
+    def rms(a):
+        return float(torch.sqrt(torch.mean(torch.as_tensor(a, dtype=torch.float64) ** 2)))
+
+    c, p, f = (res[k] for k in ("bf16_card", "bf16_cpu", "f32_card"))
+    fractions = {"losses": rms(c[0] - p[0]) / rms(f[0] - p[0]),
+                 "maps": rms(c[1] - p[1]) / rms(f[1] - p[1])}
+    per_batch = [round(rms(a - b) / rms(g - b), 4) for a, b, g in
+                 zip(*(x[0].view(YOLO_BF16_DRAWS, -1) for x in (c, p, f)))]
+    log(f"YOLOv5s bf16 card vs cpu at 320², B=1, {YOLO_BF16_DRAWS} batches: losses card "
+        f"{c[0].tolist()} cpu {p[0].tolist()} f32 {f[0].tolist()}; |card - cpu| over the "
+        f"f32 - bf16 gap: {json.dumps(fractions)}, the losses' batch by batch {per_batch}; "
+        f"launches {launches}")
+    for what, frac in fractions.items():
+        check(frac <= BF16_GAP_FACTOR, f"YOLO bf16 card vs cpu, {what}: {frac:.3f} of the gap")
+    check(sum(launches.values()) == 0, f"YOLO card vs cpu launched {launches}")
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
+def yolo_serving_phase(model, rik, label, B=16, brief=False):
+    """YOLOv5s's train-mode loss forward and `predict` at the config's
+    batch (B=16, 640²), once with the launch counters read around them
+    (nothing launches: the NMS is plain PyTorch), then timed: the loss
+    forward, `predict`, the network alone and the decode + NMS alone."""
+    x, t = to_device(*yolo_batch(B, seed=3), "cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    model.train()
+    losses = {k: v.item() for k, v in model.loss(x, t).items()}
+    model.eval()
+    with torch.no_grad():
+        det = model.predict(x)
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+    check(sum(launches.values()) == 0, f"{label} YOLO serving launched {launches}")
+    valid = det["valid"].sum(1).tolist()
+    check(all(np.isfinite(v) and v > 0 for v in losses.values()), f"YOLO losses {losses}")
+    check(det["boxes"].shape == (B, 300, 4) and min(valid) > 0
+          and all(torch.isfinite(det[k][det["valid"]]).all().item() for k in ("boxes", "scores"))
+          and ((det["labels"][det["valid"]] >= 0) & (det["labels"][det["valid"]] < 80)).all(),
+          f"{label} YOLO predict: valid {valid}")
+
+    def loss_fwd():
+        model.train()
+        out = model.loss(x, t)
+        model.eval()
+        return out
+
+    with torch.no_grad():
+        maps = model(x)
+        times = {"loss_forward_ms": median_ms(loss_fwd, *timing(brief)),
+                 "predict_ms": median_ms(lambda: model.predict(x), *timing(brief)),
+                 "network_forward_no_grad_ms": median_ms(lambda: model(x), *timing(brief)),
+                 "decode_nms_ms": median_ms(lambda: model.predict_from_outputs(maps),
+                                            *timing(brief))}
+    log(f"{label} YOLOv5s serving at B={B}, 640²: losses {losses}, valid per image {valid}, "
+        f"{json.dumps(times)}")
+    return launches
+
+
+def yolo_train_phase(cfg, model, rik, label, B=16, n_steps=5):
+    """`n_steps` train steps at the config's traffic (B=16, 640², 128 gt
+    slots with 16 real) with the EMA updated after each, as the Runner
+    does, the launch counters read around them (nothing), then the step
+    timed, its parts (loss forward, backward, optimizer), the EMA update
+    alone, the device busy share and busiest kernels over 3 profiled
+    steps, and the peak memory."""
+    from jdet_torch.utils.ema import ModelEMA
+
+    step, opt = yolo_trainer(cfg, model)
+    ema = ModelEMA(model, decay=cfg["ema"]["decay"])
+    x, t = to_device(*yolo_batch(B, seed=4), "cuda")
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts(rik)
+    logs = []
+    for it in range(n_steps):
+        logs.append({k: v.item() for k, v in step(x, t, it).items()})
+        ema.update(model)
+    torch.cuda.synchronize()
+    launches = launch_counts(rik)
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(launches.values()) == 0, f"{label} YOLO train: launches {launches}")
+    check(all(np.isfinite(v) for lv in logs for v in lv.values()), f"{label} YOLO losses {logs}")
+    check(ema.updates == n_steps and all(torch.isfinite(v).all().item() for v in ema.ema.values()),
+          f"{label} YOLO EMA")
+    it = iter(range(n_steps, 10 ** 6))
+    times = {"step_ms": median_ms(lambda: step(x, t, next(it)), 2, 10)}
+
+    def fwd():
+        return sum(model.loss(x, t).values())
+
+    times["loss_forward_ms"] = median_ms(fwd, 2, 5)
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        fwd().backward()
+
+    times["forward_backward_ms"] = median_ms(fwd_bwd, 2, 5)
+    times["backward_ms"] = times["forward_backward_ms"] - times["loss_forward_ms"]
+    times["optimizer_ms"] = median_ms(opt.step, 2, 5)
+    times["ema_update_ms"] = median_ms(lambda: ema.update(model), 2, 10)
+    kernels, device_ms, wall_ms = device_profile(lambda: step(x, t, next(it)), iters=3)
+    times.update(profiled_step_device_ms=device_ms, profiled_step_wall_ms=wall_ms,
+                 device_busy_share=device_ms / wall_ms, peak_memory_bytes=peak,
+                 ema_floats=int(ema._flat.numel()))
+    log(f"{label} YOLOv5s train at B={B}, 640²: losses "
+        f"{[round(lv['total_loss'], 4) for lv in logs]}; {json.dumps(times)}")
+    log(f"{label} YOLOv5s step, the 8 busiest kernels, device ms: "
+        + json.dumps(dict(list(kernels.items())[:8])))
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return launches
+
+
+def yolo_runner_phase(rik, root, copies=7):
+    """`run_net` (its `main`, in this process) on the committed YOLO config
+    with the dataset paths pointed at a `make_yolo_tree` of the JPEG
+    fixtures (`copies` of each: 49 images, 3 train batches of 16 with the
+    mosaic, 4 spawned loader workers; val and test in this process): one
+    epoch with the EMA, `val` on the EMA weights (COCO mAP), the
+    checkpoint, `test`; then a Runner resumed from the checkpoint, its
+    EMA and `updates` checked. Reports the iteration times, the loader
+    wait and one mosaic batch made in this process."""
+    import shutil
+
+    from jdet_torch.data.synthetic import make_yolo_tree
+    from jdet_torch.runner import Runner
+    from jdet_torch.tools import run_net
+
+    shutil.rmtree(root, ignore_errors=True)
+    jpegs = sorted(str(p) for p in CODEC_FIXTURES.glob("*.jpg"))
+    img_dir, lab_dir = make_yolo_tree(str(root / "tree"), jpegs * copies, seed=0)
+    paths = f"images_dir={img_dir!r}, labels_dir={lab_dir!r}"
+    cfg_file = root / "yolo.py"
+    # the eval splits letterbox in this process: a spawned worker's start
+    # (~8 s) outweighs their decoding
+    cfg_file.write_text(
+        f"_base_ = [{str(YOLO_CONFIG)!r}]\n"
+        f"dataset = dict(train=dict({paths}, num_workers=4), val=dict({paths}, num_workers=0),\n"
+        f"               test=dict(type='YoloDataset', {paths}, augment=False, mosaic=False,\n"
+        f"                         batch_size=16, drop_last=False, num_workers=0))\n"
+        f"max_epoch = 1\neval_interval = 1\nlog_interval = 1\nname = 'yolo_smoke'\n"
+        f"work_dir = {str(root / 'work')!r}\n")
+    seen, logged = {}, []
+    real_init = Runner.__init__
+
+    def spy(self, *a, **kw):
+        real_init(self, *a, **kw)
+        draw_yolo_weights(self.model)
+        real_log = self.logger.log
+        self.logger.log = lambda d: (logged.append(d), real_log(d))
+        seen["runner"] = self
+
+    Runner.__init__ = spy
+    torch.cuda.synchronize()
+    reset_launch_counts(rik)
+    t0 = time.perf_counter()
+    try:
+        run_net.main(["--config-file", str(cfg_file)])
+    finally:
+        Runner.__init__ = real_init
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts(rik)
+    runner = seen["runner"]
+    n_images = len(runner.train_dataset)
+    iters = n_images // 16
+    losses = [d for d in logged if "total_loss" in d]
+    evals = [d for d in logged if "eval/coco_mAP" in d]
+    check(runner.iter == iters == len(losses) and runner.ema.updates == iters
+          and all(np.isfinite(d["total_loss"]) for d in losses),
+          f"YOLO run_net: {runner.iter} iterations, {len(losses)} logged, EMA "
+          f"{runner.ema.updates} updates")
+    check(len(evals) == 1 and all(0.0 <= v <= 1.0 for k, v in evals[0].items()
+                                  if k.startswith("eval/")), f"YOLO val: {evals}")
+    check(sum(launches.values()) == 0, f"YOLO run_net launched {launches}")
+    ckpt = root / "work" / "checkpoints" / "ckpt_1.pkl"
+    test_pkl = root / "work" / "test" / "test_1.pkl"
+    check(ckpt.exists() and test_pkl.exists(), "YOLO run_net wrote no checkpoint or test pkl")
+    from jdet_torch.config import init_cfg
+
+    resumed = Runner(dict(init_cfg(str(cfg_file)), resume_path=str(ckpt)), device="cuda")
+    check(resumed.iter == iters and resumed.ema.updates == iters
+          and all(torch.equal(v, runner.ema.ema[k]) for k, v in resumed.ema.ema.items()),
+          "YOLO resume: the EMA or its updates were not restored")
+    resumed.close()
+    # one train batch of 16 mosaics made in this process: the loader's
+    # work per iteration, which 4 workers share
+    t0 = time.perf_counter()
+    runner.train_dataset._load_batch((np.arange(16), 0, 0))
+    batch_s = time.perf_counter() - t0
+    its = runner.iteration_times[-1]
+    times = {"images": n_images, "iterations": iters, "run_net_s": run_s,
+             "iteration_ms": [1e3 * t for _, t in its],
+             "loader_wait_ms": [1e3 * w for w, _ in its],
+             "mosaic_batch_of_16_one_process_ms": 1e3 * batch_s}
+    log(f"YOLOv5s run_net from disk (mosaic, B=16, 640², EMA): losses "
+        f"{[round(d['total_loss'], 4) for d in losses]}, val on the EMA weights "
+        f"{json.dumps({k: v for k, v in evals[0].items() if k.startswith('eval/')})}; "
+        f"{json.dumps(times)}")
+    return launches
+
+
+def yolo_phases(rik):
+    """YOLOv5s from `configs/yolov5s_coco.py` at full width (depth 0.33,
+    width 0.50, 80 classes, 25,200 predictions at 640²) with weights drawn
+    from a seed (`draw_yolo_weights`): card against CPU, serving at B=16
+    and 5 train steps at B=16 in float32 and bf16, with the EMA. Returns
+    the launches of each path (all 0)."""
+    from jdet_torch.models.builder import build_detector
+    from jdet_torch.models.nn import compute_dtype_scope
+
+    from jdet_torch.config import load_cfg_file
+
+    cfg = load_cfg_file(str(YOLO_CONFIG))
+    model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(type(model).__name__ == "YOLO" and model.nc == 80 and model.detect.stride == [8, 16, 32]
+          and n_params == 7_276_605 and sum(3 * s * s for s in model._feature_sizes(640)) == 25200,
+          "YOLO is not YOLOv5s with 80 classes")
+    log(f"YOLOv5s model: {n_params} parameters")
+    paths = {"yolo_card_vs_cpu": yolo_card_against_cpu(cfg, rik)}
+    elapsed("YOLO card vs cpu")
+    draw_yolo_weights(model)
+    paths["yolo_serving"] = yolo_serving_phase(model, rik, "fp32")
+    paths["yolo_train_5_steps"] = yolo_train_phase(cfg, model, rik, "fp32")
+    state = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    with compute_dtype_scope(torch.bfloat16):
+        model = build_detector(cfg["model"], device="cuda", seed=0, load_pretrained=False)
+    model.load_state_dict(state)
+    paths["yolo_bf16_serving"] = yolo_serving_phase(model, rik, "bf16")
+    paths["yolo_bf16_train_5_steps"] = yolo_train_phase(cfg, model, rik, "bf16")
+    del model, state
+    torch.cuda.empty_cache()
+    elapsed("the YOLO phases")
+    return paths
 
 
 def main():
@@ -5502,6 +5930,10 @@ def main():
     elapsed("the COCO runner phase")
     convert_phase(rik.BUILD_DIR / "convert_smoke")
     elapsed("the convert phase")
+    # YOLOv5s on COCO with the model EMA: no kernel of the port on its paths
+    yolo_paths = yolo_phases(rik)
+    yolo_paths["yolo_run_net"] = yolo_runner_phase(rik, rik.BUILD_DIR / "yolo_smoke")
+    elapsed("the YOLO run_net phase")
 
     runner_launches = runner_phase(full_cfg, rik, rik.BUILD_DIR / "runner_dota")
     elapsed('runner_phase')
@@ -5532,7 +5964,7 @@ def main():
              "orcnn_run_net": orcnn_run_net_launches, **redet_paths, **variant_paths_,
              **lsk_paths, "weight_import_loss_predict": import_launches, **hbb_paths,
              **s2a_more_paths, **single_paths, **reppoints_paths, "vis_test": vis_launches,
-             **ssd_paths, "ssd_coco_runner": coco_launches}
+             **ssd_paths, "ssd_coco_runner": coco_launches, **yolo_paths}
     kernels = [entry, assign_entry, per_image_entry, r3det_entry, roi_entry, redet_entry,
                atss_entry, generic_entry]
     for e in kernels:
@@ -5568,6 +6000,9 @@ def main():
               for p, n in paths.items() if p.startswith("ssd_") and p != "ssd_coco_runner"),
           f"SSD's paths: not one K1 matrix launch per predict and nothing else: "
           f"{ {p: n for p, n in paths.items() if p.startswith('ssd_')} }")
+    check(all(sum(n.values()) == 0 for p, n in paths.items() if p.startswith("yolo")),
+          f"YOLO's paths launched a kernel: "
+          f"{ {p: n for p, n in paths.items() if p.startswith('yolo')} }")
     check(atss_entry["launches"] == 2 * (1 + 5),
           f"ATSS's route: {atss_entry['launches']} launches, not one per loss forward and "
           f"train step in float32 and bf16")

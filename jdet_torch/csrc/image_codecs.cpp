@@ -1,6 +1,8 @@
 // Host-side image codecs for the data path: a JPEG decoder that gives the
-// pixels of libjpeg-turbo (cv2.imread's JPEG path), and the inner loops of
-// the TIFF reader (LZW and PackBits).
+// pixels of libjpeg-turbo (cv2.imread's JPEG path), the inner loops of
+// the TIFF reader (LZW and PackBits), and cv2 5.0's float32 warpAffine
+// (INTER_LINEAR, BORDER_CONSTANT) for YOLO's random affine
+// (`jdet_torch/data/yolo.py::warp_affine`, whose numpy form it equals).
 //
 // `jdet_torch/data/jpeg.py` and `jdet_torch/data/tiff.py` build this file
 // with `g++ -O3 -shared -fPIC` at first use into `build/` (keyed by a hash
@@ -21,6 +23,7 @@
 // of the image with grey, this decoder never returns such pixels.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -993,6 +996,56 @@ int64_t tiff_packbits_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t
   } catch (const Error& e) {
     set_err(err, errlen, e.msg);
     return -1;
+  }
+}
+
+// a * b + c rounded once to float: the product of two floats is exact in
+// a double (the numpy form computes the same)
+static inline float fma_once(float a, float b, float c) {
+  return static_cast<float>(static_cast<double>(a) * static_cast<double>(b) +
+                            static_cast<double>(c));
+}
+
+// dst (h, w, C) from src (H, W, C), float32, through the inverted affine map
+// m (6 floats, rounded from cv2's float64 inverse): the source coordinates
+// of a row's first w / 16 * 16 pixels as cv2's vector code takes them,
+// fma(m0, x, m1 * y + m2), the rest as its scalar tail does,
+// fma(x, m0, m1 * y) + m2; neighbours outside the image read `fill`; three
+// fused lerps.
+void warp_affine_f32(const float* src, int64_t H, int64_t W, int64_t C, float* dst,
+                     int64_t h, int64_t w, const float* m, float fill) {
+  const int64_t nvec = w / 16 * 16;
+  for (int64_t y = 0; y < h; ++y) {
+    const float fy = static_cast<float>(y);
+    const float bx = m[1] * fy + m[2], by = m[4] * fy + m[5];
+    const float tx = m[1] * fy, ty = m[4] * fy;
+    for (int64_t x = 0; x < w; ++x) {
+      const float fx = static_cast<float>(x);
+      float sx, sy;
+      if (x < nvec) {
+        sx = fma_once(m[0], fx, bx);
+        sy = fma_once(m[3], fx, by);
+      } else {
+        sx = fma_once(fx, m[0], tx) + m[2];
+        sy = fma_once(fx, m[3], ty) + m[5];
+      }
+      const float flx = std::floor(sx), fly = std::floor(sy);
+      const float a = sx - flx, b = sy - fly;
+      const int64_t ix = static_cast<int64_t>(std::min(std::max(flx, -2.0f), W + 1.0f));
+      const int64_t iy = static_cast<int64_t>(std::min(std::max(fly, -2.0f), H + 1.0f));
+      const bool x0 = ix >= 0 && ix < W, x1 = ix + 1 >= 0 && ix + 1 < W;
+      const bool y0 = iy >= 0 && iy < H, y1 = iy + 1 >= 0 && iy + 1 < H;
+      float* out = dst + (y * w + x) * C;
+      for (int64_t c = 0; c < C; ++c) {
+        const float p00 = (y0 && x0) ? src[(iy * W + ix) * C + c] : fill;
+        const float p01 = (y0 && x1) ? src[(iy * W + ix + 1) * C + c] : fill;
+        const float p10 = (y1 && x0) ? src[((iy + 1) * W + ix) * C + c] : fill;
+        const float p11 = (y1 && x1) ? src[((iy + 1) * W + ix + 1) * C + c] : fill;
+        const float v0 = fma_once(a, p01 - p00, p00);
+        const float v1 = fma_once(a, p11 - p10, p10);
+        out[c] = fma_once(b, v1 - v0, v0);
+      }
+    }
   }
 }
 

@@ -1,5 +1,5 @@
-"""Host-side data pipeline: PNG, JPEG and TIFF decode, transforms, datasets,
-devkits."""
+"""Host-side data pipeline: PNG, JPEG, TIFF and BMP decode, transforms,
+datasets, devkits."""
 from .coco import COCODataset
 from .custom import CustomDataset
 from .dota import DOTADataset, FAIR1M_1_5_Dataset, FAIRDataset, ImageDataset, SSDDDataset
@@ -7,3 +7,4 @@ from .transforms import (
     Compose, Normalize, Pad, RandomFlip, RandomRotateAug, Resize, RotatedRandomFlip,
     RotatedResize,
 )
+from .yolo import YoloDataset

@@ -4,8 +4,8 @@ bound with ctypes.
 It is compiled with `g++ -O3 -shared -fPIC` at first use into `build/` at
 the repository root, keyed by a hash of the source and flags, as
 `ops/polygon_native.py` builds `polygon.cpp`. A failed build raises with
-the compiler's output; no other decoder is ever tried. `jpeg.py` and
-`tiff.py` call the functions below.
+the compiler's output; no other decoder is ever tried. `jpeg.py`,
+`tiff.py` and `yolo.py` call the functions below.
 """
 from __future__ import annotations
 
@@ -21,7 +21,9 @@ import numpy as np
 from ..ops.rotated_iou_kernel import BUILD_DIR
 
 SOURCE = BUILD_DIR.parent / "jdet_torch" / "csrc" / "image_codecs.cpp"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# no contraction into fused multiply-adds: the warp rounds each step where
+# its numpy form does
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 _ERRLEN = 512
 
 _lib = None
@@ -57,6 +59,9 @@ def build():
             fn = getattr(lib, name)
             fn.argtypes = [ptr, i64, ptr, i64, ctypes.c_char_p, i32]
             fn.restype = i64
+        lib.warp_affine_f32.argtypes = [ptr, i64, i64, i64, ptr, i64, i64, ptr,
+                                        ctypes.c_float]
+        lib.warp_affine_f32.restype = None
         _lib = lib
         return lib
 
@@ -100,3 +105,17 @@ def lzw_decode(data, size):
 def packbits_decode(data, size):
     """TIFF PackBits bytes -> (uint8 (size,) buffer, bytes decoded)."""
     return _inflate(build().tiff_packbits_decode, data, size)
+
+
+def warp_affine_f32(src, inverse_map, dsize, fill):
+    """float32 (H, W, C) -> (h, w, C) through `inverse_map` (6 float32s),
+    the compiled form of `yolo.py::warp_affine_plain`."""
+    lib = build()
+    src = np.ascontiguousarray(src, np.float32)
+    H, W, C = src.shape
+    w, h = dsize
+    m = np.ascontiguousarray(inverse_map, np.float32).reshape(6)
+    out = np.empty((h, w, C), np.float32)
+    lib.warp_affine_f32(src.ctypes.data, H, W, C, out.ctypes.data, h, w, m.ctypes.data,
+                        float(np.float32(fill)))
+    return out

@@ -20,7 +20,9 @@ pixels as cv2 (libpng under IMREAD_COLOR):
   numpy call per pixel.
 
 Interlaced (Adam7) files and corrupt chunks raise an error that names the
-file. `imread` sends `.jpg`/`.jpeg` to `jpeg.py` and `.tif`/`.tiff` to
+file. BMP (`read_bmp`) is read as cv2 reads it: uncompressed (BI_RGB)
+24- and 32-bit pixels (the fourth byte dropped) and 8-bit palette
+indices, bottom-up or top-down; any other depth or compression raises. `imread` sends `.jpg`/`.jpeg` to `jpeg.py` and `.tif`/`.tiff` to
 `tiff.py` (the same pixels as cv2, on a g++ library), loads `.npy` tiles
 with `np.load`, and refuses every other extension. No other decoder is
 ever tried.
@@ -43,9 +45,9 @@ FILTER_NAMES = ("none", "sub", "up", "average", "paeth")
 
 
 def imread(path):
-    """RGB uint8 (H, W, 3) of a `.png`, `.jpg`/`.jpeg` or `.tif`/`.tiff`
-    image (`jpeg.py`, `tiff.py`), or the array of a `.npy` tile; any other
-    extension raises."""
+    """RGB uint8 (H, W, 3) of a `.png`, `.jpg`/`.jpeg`, `.tif`/`.tiff` or
+    `.bmp` image (`jpeg.py`, `tiff.py`, `read_bmp`), or the array of a
+    `.npy` tile; any other extension raises."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npy":
         return np.load(path)
@@ -53,9 +55,11 @@ def imread(path):
         return read_jpeg(path)
     if ext in (".tif", ".tiff"):
         return read_tiff(path)
+    if ext == ".bmp":
+        return read_bmp(path)
     if ext != ".png":
-        raise ValueError(f"{path}: only .png, .jpg, .jpeg, .tif, .tiff and .npy images "
-                         f"can be read, not {ext!r}")
+        raise ValueError(f"{path}: only .png, .jpg, .jpeg, .tif, .tiff, .bmp and .npy "
+                         f"images can be read, not {ext!r}")
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -266,3 +270,48 @@ def imwrite(path, image, filter_type=0, level=6):
     """Write `image` (see `encode_png`) to `path` as a PNG."""
     with open(path, "wb") as f:
         f.write(encode_png(image, filter_type, level))
+
+
+def read_bmp(path):
+    """RGB uint8 (H, W, 3) of an uncompressed BMP, the pixels of
+    `cv2.imread(path, IMREAD_COLOR)[..., ::-1]`: 24-bit BGR, 32-bit BGRX
+    (the fourth byte dropped) or 8-bit indices into a palette of
+    `clrUsed` (or 256) BGRX entries, zeros past its end; rows padded to 4
+    bytes, bottom-up for a positive height and top-down for a negative
+    one. Other depths, compressions and truncated files raise an error
+    that names the file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        if len(data) < 54 or data[:2] != b"BM":
+            raise ValueError("not a BMP file")
+        (offset,) = struct.unpack_from("<I", data, 10)
+        (hsize,) = struct.unpack_from("<I", data, 14)
+        if hsize < 40:
+            raise ValueError(f"a {hsize}-byte DIB header is not supported")
+        width, height, _, bpp, compression, _, _, _, clr_used = struct.unpack_from(
+            "<iiHHIIiiI", data, 18)
+        if compression != 0 or bpp not in (8, 24, 32):
+            raise ValueError(f"only uncompressed 8-, 24- and 32-bit BMPs are supported, "
+                             f"not {bpp}-bit with compression {compression}")
+        if width <= 0 or height == 0:
+            raise ValueError(f"invalid size {width}x{height}")
+        h = abs(height)
+        stride = (width * bpp // 8 + 3) // 4 * 4
+        if offset + stride * h > len(data):
+            raise ValueError("pixel data shorter than the header says")
+        rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+        if height > 0:
+            rows = rows[::-1]
+        if bpp == 8:
+            n = clr_used or 256
+            if n > 256 or 14 + hsize + 4 * n > len(data):
+                raise ValueError(f"invalid palette of {n} colours")
+            palette = np.zeros((256, 4), np.uint8)
+            palette[:n] = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize).reshape(n, 4)
+            bgr = palette[rows[:, :width], :3]
+        else:
+            bgr = rows[:, :width * bpp // 8].reshape(h, width, bpp // 8)[..., :3]
+    except (ValueError, struct.error) as e:
+        raise ValueError(f"{path}: {e}") from None
+    return np.ascontiguousarray(bgr[..., ::-1])

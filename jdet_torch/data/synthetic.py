@@ -1,7 +1,8 @@
 """Synthetic DOTA data: a tiled tree (PNG tiles of filled rotated
 rectangles and a `labels.pkl` in the reference's record format), and raw
 scenes with DOTA labelTxt files for the tiler; and source trees of the
-SSDD / SSDD+, FAIR and COCO formats around given JPEG or TIFF files.
+SSDD / SSDD+, FAIR, COCO and YOLO formats around given JPEG or TIFF
+files.
 
 No DOTA data ships with the repository, so `chip_smoke.py` and the tests
 drive the data pipeline on images drawn here from a seed with numpy and
@@ -219,3 +220,29 @@ def make_coco_tree(root, images, n_classes=80, seed=0, n_obj=(1, 12)):
     with open(ann, "w") as f:
         json.dump(coco, f)
     return img_dir, ann
+
+
+def make_yolo_tree(root, images, n_classes=80, seed=0, n_obj=(1, 12)):
+    """A YOLO-format tree: root/images/<i><ext> (copies of the given image
+    files) and root/labels/<i>.txt, one "cls cx cy w h" line per object
+    (0-based class, centre and size normalized by the image's size); every
+    fifth image's txt is empty. Returns (images_dir, labels_dir)."""
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    lab_dir = os.path.join(root, "labels")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+    for i, src in enumerate(images):
+        name = f"{i:06d}"
+        shutil.copyfile(src, os.path.join(img_dir, name + os.path.splitext(src)[1]))
+        w, h = _image_size(src)
+        n = int(rng.integers(*n_obj))
+        _, hb = _random_quads(rng, w, h, 0 if i % 5 == 4 else n)
+        cls = rng.integers(0, n_classes, len(hb))
+        with open(os.path.join(lab_dir, name + ".txt"), "w") as f:
+            for c, b in zip(cls, hb):
+                f.write(f"{c} {(b[0] + b[2]) / 2 / w:.6f} {(b[1] + b[3]) / 2 / h:.6f} "
+                        f"{(b[2] - b[0]) / w:.6f} {(b[3] - b[1]) / h:.6f}\n")
+    return img_dir, lab_dir

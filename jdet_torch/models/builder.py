@@ -3,7 +3,8 @@
 Port of `jdet_tpu/models/builder.py::build_detector` (:22-94) for
 single-stage and two-stage detectors: {type, backbone{type, ...},
 neck{...}, [rpn_head{...},] bbox_head{...}} assembled through the
-registries, and a distillation detector's `teacher{...}` (built after
+registries, a detector without a backbone (YOLO: {type, nc, imgsz, ...})
+built from its own keys, and a distillation detector's `teacher{...}` (built after
 the student from the same stream, :79-88) with its `teacher_ckpt`;
 weights drawn from one seeded `torch.Generator` on the CPU, then moved
 to `device`. Its layers
@@ -43,6 +44,8 @@ def build_detector(cfg, device="cuda", seed=0, load_pretrained=True):
 
 def _build(cfg, generator, load_pretrained):
     cfg = dict(cfg)
+    if "backbone" not in cfg:  # a whole network of its own (YOLO)
+        return build_from_cfg(cfg, MODELS, generator=generator)
     bcfg = dict(cfg.pop("backbone"))
     pretrained = bcfg.pop("pretrained", None)
     backbone = build_from_cfg(bcfg, BACKBONES, generator=generator)

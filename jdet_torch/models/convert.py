@@ -14,6 +14,7 @@ mirror those paths, so the mapping is mechanical:
                                scale is its weight)
   <p>.scale (0-d)           -> <p>.scale                 (FCOS's `Scale`)
   <p>.ls1 / <p>.ls2         -> as they are (LSKNet's layer scales)
+  <p>.anchors_px            -> as it is (YOLO's Detect anchors, a state leaf)
   <p>.weight (C,)           -> <p>.weight                (SSD's L2Norm)
   <p>.weight (H, W, I, O)   -> <p>.weight (O, I, H, W)   (DeformConv)
   <p>.weight (O, I, k, k)   -> <p>.weight as it is        (REConv2dLift)
@@ -76,7 +77,7 @@ def params_from_jax(flat, model):
             sd[f"{prefix}.{_BN_RENAMES[leaf]}"] = torch.from_numpy(arr.copy())
             if leaf == "scale" and isinstance(model.get_submodule(prefix), nn.BatchNorm2d):
                 sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-        elif leaf in ("bias", "ls1", "ls2"):
+        elif leaf in ("bias", "ls1", "ls2", "anchors_px"):
             sd[path] = torch.from_numpy(arr.copy())
         elif leaf == "weight" and arr.ndim == 1 and isinstance(
                 model.get_submodule(prefix), L2Norm):

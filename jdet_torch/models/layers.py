@@ -162,17 +162,30 @@ def _stats_dtype(dtype):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1);
-    float32 parameters and statistics, computing in the compute dtype
-    bound when it is built. Training mode takes the batch statistics in
-    float32 as flax does (E[x^2] - E[x]^2, clamped at 0) and moves the
+    """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1) by
+    default; float32 parameters and statistics, computing in the compute
+    dtype bound when it is built. Training mode takes the batch statistics
+    in float32 as flax does (E[x^2] - E[x]^2, clamped at 0) and moves the
     running ones towards them, biased variance included (torch's own
     keeps the unbiased one), rounding the output to the compute dtype;
-    the main path's BNs all run on their running statistics."""
+    the main path's BNs all run on their running statistics.
 
-    def __init__(self, channels):
-        super().__init__(channels, eps=1e-5, momentum=0.1)
+    `flax_momentum` m (YOLO's 0.97) updates the running statistics in
+    flax's own form, m * running + (1 - m) * batch; without it they move
+    by `lerp_` with torch's momentum 0.1, as every other model's do."""
+
+    def __init__(self, channels, eps=1e-5, flax_momentum=None):
+        super().__init__(channels, eps=eps, momentum=0.1)
+        self.flax_momentum = flax_momentum
         self.dtype = compute_dtype()
+
+    def _update_running(self, mean, var):
+        m = self.flax_momentum
+        for running, batch in ((self.running_mean, mean), (self.running_var, var)):
+            if m is None:
+                running.lerp_(batch, self.momentum)
+            else:
+                running.copy_(running * m + batch * (1.0 - m))
 
     def forward(self, x):
         d = self.dtype
@@ -182,8 +195,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean = y.mean((0, 2, 3))
             var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                self._update_running(mean, var)
             weight, bias = self.weight, self.bias
             if d is not None:
                 weight, bias = weight.to(d), bias.to(d)

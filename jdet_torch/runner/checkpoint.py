@@ -26,9 +26,19 @@ SGD momentum buffers (`momentum`) or Adam's moments and step count
   imports it (`models/pretrained.py::import_jdet_checkpoint`, not
   strict); it carries no optimizer state for the port.
 
-A full load of a payload with an `ema` entry raises until EMA is ported;
-a model-only load ignores it, as the reference does. Only files from
-trusted sources may be loaded: unpickling can run code.
+A payload may carry the model EMA (`utils/ema.py`) as `ema`: {"state":
+its tensors, "updates", "decay"}. The port writes the state as flat numpy
+under its state-dict names; the reference writes the flax `nnx.State` of
+its EMA (`jdet_tpu/runner/checkpoint.py:75-79`). A full load hands it to
+the Runner as `meta["_ema_payload"]`, its state under the port's names; a
+model-only load ignores it, as the reference does.
+
+Files are read by `_CheckpointUnpickler`, which needs neither flax nor
+JAX: it maps the four flax classes a reference EMA payload names
+(`State`, `Param`, `BatchStat`, `TraceState`) to plain stand-ins whose
+arrays are read out, takes numpy's globals and `collections.OrderedDict`,
+and refuses every other global by name. Only files from trusted sources
+may be loaded all the same.
 """
 from __future__ import annotations
 
@@ -45,7 +55,62 @@ from ..models.pretrained import import_jdet_checkpoint
 VERSION = "0.1.0"
 
 
-def save_checkpoint(path, model, optimizer=None, meta=None):
+class _FlaxStandIn:
+    """What a flax `State`, `Param`, `BatchStat` or `TraceState` unpickles
+    to: the attributes the pickle stores, and nothing else."""
+
+    def __setstate__(self, state):
+        if isinstance(state, tuple):  # (dict, slots)
+            state = {**(state[0] or {}), **(state[1] or {})}
+        self.__dict__.update(state)
+
+
+_FLAX_CLASSES = {("flax.nnx.statelib", "State"), ("flax.nnx.variablelib", "Param"),
+                 ("flax.nnx.variablelib", "BatchStat"), ("flax.nnx.tracers", "TraceState")}
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _FLAX_CLASSES:
+            return type(name, (_FlaxStandIn,), {})
+        if module == "numpy" or module.startswith("numpy.") or (
+                module, name) == ("collections", "OrderedDict"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refused global {module}.{name}")
+
+
+def _read_payload(path):
+    with open(path, "rb") as f:
+        try:
+            return _CheckpointUnpickler(f).load()
+        except pickle.UnpicklingError as e:
+            raise pickle.UnpicklingError(f"{path}: {e}") from None
+
+
+def _flax_state_flat(state, prefix=""):
+    """{dotted path: array} of an unpickled flax `State` (or a nested dict
+    of variables and arrays)."""
+    if isinstance(state, _FlaxStandIn) and hasattr(state, "_mapping"):
+        state = state._mapping
+    if isinstance(state, dict):
+        out = {}
+        for k, v in state.items():
+            out.update(_flax_state_flat(v, f"{prefix}{k}."))
+        return out
+    if isinstance(state, _FlaxStandIn):
+        state = state._raw_value
+    return {prefix[:-1]: np.asarray(state)}
+
+
+def _ema_state(ema, meta, model):
+    """The EMA payload's state as {port state-dict name: tensor}."""
+    state = ema["state"]
+    if "jdet_tpu_version" in meta:
+        return params_from_jax(_flax_state_flat(state), model)
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in state.items()}
+
+
+def save_checkpoint(path, model, optimizer=None, meta=None, ema=None):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {
         "meta": {
@@ -64,6 +129,9 @@ def save_checkpoint(path, model, optimizer=None, meta=None):
                                                 for n, st in state.items() if st}
         else:
             payload["optimizer"]["adam"] = state
+    if ema is not None:
+        payload["ema"] = {"state": {k: v.detach().cpu().numpy() for k, v in ema.ema.items()},
+                          "updates": int(ema.updates), "decay": float(ema.decay)}
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=4)
@@ -119,14 +187,15 @@ def _is_reference_payload(payload):
 
 def load_checkpoint(path, model, optimizer=None, model_only=False):
     """Load `path` into `model` (and `optimizer` unless model_only);
-    returns the checkpoint's meta."""
-    with open(path, "rb") as f:
-        payload = pickle.load(f)
+    returns the checkpoint's meta, with the EMA payload, if any, under
+    `_ema_payload` unless model_only."""
+    payload = _read_payload(path)
     if isinstance(payload, dict) and "model" not in payload:  # a raw state dict
         payload = {"model": payload.get("state_dict", payload), "meta": {}}
     meta = dict(payload.get("meta", {})) if isinstance(payload, dict) else {}
-    if not model_only and "ema" in payload:
-        raise NotImplementedError(f"{path}: EMA checkpoints wait for the port of EMA")
+    if not model_only and payload.get("ema") is not None:
+        ema = payload["ema"]
+        meta["_ema_payload"] = {**ema, "state": _ema_state(ema, meta, model)}
     if isinstance(payload, dict) and _is_reference_payload(payload):
         import_jdet_checkpoint(model, payload)
         return meta

@@ -8,6 +8,18 @@ Port of `jdet_tpu/runner/runner.py` (constructor :47-199, `run` :283,
 `_unflip_dets` :574, `_meta_light` :600). The config is a plain dict
 (`jdet_torch.config`).
 
+With an `ema` key (`ema=dict(decay=...)`, or any true value for the
+default 0.9999) the Runner keeps a model EMA (`utils/ema.py`), as the
+reference does (:193-199, :236-241, :314-315, :348-354): made from the
+weights at the first train epoch, updated after every train step, and
+swapped in for `val`, `test` and every other inference pass; `save`
+writes the raw weights as `model` and the EMA as `ema` with its `updates`
+and `decay`, and `load`/`resume` restore it. The optimizer takes the
+config's `type`, `lr`, `momentum`, `weight_decay`, `grad_clip` and
+`param_groups`, as the reference's Runner does: other keys, such as
+`nesterov`, are not passed on (the reference runs plain momentum for
+them too).
+
 Host batches come from the dataset's DataLoader, pinned when the device
 is the card, and are copied with `non_blocking=True`. The train step
 never synchronises: its losses stay on the device and are read with
@@ -15,7 +27,7 @@ never synchronises: its losses stay on the device and are read with
 them only when it logs.
 
 Keys the port cannot honour raise instead of being ignored:
-`scheduler.groups` (per-group schedules) and `ema`.
+`scheduler.groups` (per-group schedules).
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ from ..models.builder import build_detector
 from ..models.equivariant import cache_expanded_weights, cache_frozen_expansions
 from ..optim import build_lr_schedule, build_optimizer
 from ..parallel import build_train_step, make_device_augmenter, make_device_normalizer
+from ..utils.ema import ModelEMA
 from ..utils.general import build_file, check_interval, search_ckpt, set_random_seed
 from ..utils.logger import RunLogger
 from ..utils.registry import DATASETS, build_from_cfg
@@ -55,8 +68,6 @@ class Runner:
         cfg = get_cfg() if cfg is None else cfg
         self.cfg = cfg
         scfg = dict(cfg.get("scheduler") or {})
-        if cfg.get("ema"):
-            raise NotImplementedError("ema: model EMA is not ported to jdet_torch yet")
         if scfg.get("groups"):
             raise NotImplementedError(
                 "scheduler.groups: per-group lr schedules are not ported to jdet_torch yet")
@@ -125,6 +136,10 @@ class Runner:
             self.model, self.optimizer, preprocess=self._preprocess,
             augment=self._augment, seed=self.seed)
 
+        ema_cfg = cfg.get("ema")
+        self._ema_cfg = (dict(ema_cfg) if isinstance(ema_cfg, dict)
+                         else ({} if ema_cfg else None))
+        self.ema = None
         self.logger = RunLogger(self.work_dir)
         self.epoch = 0
         self.iter = 0
@@ -158,6 +173,8 @@ class Runner:
         self.test()
 
     def train_epoch(self):
+        if self._ema_cfg is not None and self.ema is None:
+            self.ema = ModelEMA(self.model, decay=self._ema_cfg.get("decay", 0.9999))
         start = time.time()
         n_img = 0
         times = []
@@ -171,6 +188,8 @@ class Runner:
             wait = time.perf_counter() - t0
             images, targets = self._to_device(item[0])
             log_vars = self._train_step(images, targets, self.iter)
+            if self.ema is not None:
+                self.ema.update(self.model)
             self.iter += 1
             n_img += images.shape[0]
             if check_interval(self.iter, self.log_interval):
@@ -198,7 +217,20 @@ class Runner:
         The expanded weights of the equivariant and ORN convs are cached
         from the current weights for the pass (the reference's
         `cache_expanded_weights` around inference), and afterwards only
-        the frozen stages' stay cached, as the train step wants them."""
+        the frozen stages' stay cached, as the train step wants them.
+        With a model EMA the pass runs on the EMA's weights, and the raw
+        ones are put back after it."""
+        raw = None
+        if self.ema is not None:
+            raw = {k: v.clone() for k, v in self.model.state_dict().items()}
+            self.model.load_state_dict(self.ema.state_dict())
+        try:
+            return self._predict_all(dataset)
+        finally:
+            if raw is not None:
+                self.model.load_state_dict(raw)
+
+    def _predict_all(self, dataset):
         self.model.eval()
         cache_expanded_weights(self.model)
         flip_modes = list(self.cfg.get("flip_test") or [])
@@ -320,7 +352,7 @@ class Runner:
             "max_iter": self.max_iter,
             "config": self.cfg,
         }
-        return save_checkpoint(path, self.model, self.optimizer, meta)
+        return save_checkpoint(path, self.model, self.optimizer, meta, ema=self.ema)
 
     def load(self, path, model_only=False):
         meta = load_checkpoint(path, self.model, self.optimizer, model_only)
@@ -329,6 +361,11 @@ class Runner:
         if not model_only:
             self.epoch = meta.get("epoch", 0)
             self.iter = meta.get("iter", 0)
+        ema = meta.pop("_ema_payload", None)
+        if ema is not None and self._ema_cfg is not None:
+            self.ema = ModelEMA(self.model, state=ema["state"],
+                                decay=ema.get("decay", self._ema_cfg.get("decay", 0.9999)),
+                                updates=ema.get("updates", 0))
         return meta
 
     def resume(self):

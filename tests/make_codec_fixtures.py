@@ -12,7 +12,10 @@ written by cv2 (libtiff) without compression, with LZW and the horizontal
 predictor at 1000x1000 (a FAIR1M-sized scene; long waves in steps of 8,
 so that it compresses to ~120 KB), with Deflate and with
 PackBits, and by `write_tiff` below as a tiled, planar (2) file with
-Deflate and the predictor, which cv2 cannot write. `digests.json` holds,
+Deflate and the predictor, which cv2 cannot write. BMPs: 24-bit and
+8-bit gray written by cv2, and by `write_bmp` a top-down 32-bit BI_RGB
+file and a top-down 8-bit file with a 40-colour palette (indices past
+it read black), which cv2 reads but does not write. `digests.json` holds,
 for each file, the SHA-256 of `cv2.imread(path, IMREAD_COLOR)[..., ::-1]`
 (RGB, C order) and its shape: `tests/test_torch_codecs.py` and
 `chip_smoke.py` hold the port's decoders to them where cv2 is absent.
@@ -71,6 +74,25 @@ def packbits(data):
         out += bytes([k - i - 1]) + data[i:k]
         i = k
     return bytes(out)
+
+
+def write_bmp(path, pixels, bpp, top_down=False, palette=None, compression=0):
+    """A BMP with a 40-byte header: `pixels` (H, W, 3) BGR for 24 bits,
+    (H, W, 4) BGRX for 32, (H, W) palette indices for 8 with `palette`
+    (n, 4) BGRX; rows padded to 4 bytes, bottom-up unless `top_down`."""
+    h, w = pixels.shape[:2]
+    stride = (w * bpp // 8 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * bpp // 8] = np.asarray(pixels, np.uint8).reshape(h, -1)
+    if not top_down:
+        rows = rows[::-1]
+    pal = b"" if palette is None else np.asarray(palette, np.uint8).tobytes()
+    offset = 14 + 40 + len(pal)
+    dib = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp, compression,
+                      stride * h, 2835, 2835, 0 if palette is None else len(palette), 0)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", offset + stride * h, 0, 0, offset) + dib + pal
+                + rows.tobytes())
 
 
 def write_tiff(path, image, compression="none", predictor=1, tile=None, rows_per_strip=None,
@@ -196,6 +218,25 @@ def fixtures(cv2):
                tile=(64, 48), planar=2)
     with open(tmp, "rb") as f:
         files["tiled_planar_deflate_150x100.tif"] = f.read()
+    os.remove(tmp)
+    # BMP: cv2's own 24-bit and 8-bit gray-palette files, and what cv2
+    # reads but does not write: 32-bit BI_RGB and a colour palette, top-down
+    for name, image in (("rgb24_37x23.bmp", smooth_image(23, 37, 13)),
+                        ("gray8_29x17.bmp", smooth_image(17, 29, 14, 1)[..., 0])):
+        ok, buf = cv2.imencode(".bmp", image)
+        assert ok
+        files[name] = buf.tobytes()
+    tmp = os.path.join(OUT, ".tmp.bmp")
+    rng = np.random.default_rng(15)
+    palette = np.zeros((40, 4), np.uint8)
+    palette[:, :3] = rng.integers(0, 256, (40, 3))
+    for name, args in (
+            ("bgrx32_top_down_21x13.bmp", (smooth_image(13, 21, 16, 4), 32, True)),
+            ("palette8_top_down_25x19.bmp",
+             (rng.integers(0, 48, (19, 25)), 8, True, palette))):
+        write_bmp(tmp, *args)
+        with open(tmp, "rb") as f:
+            files[name] = f.read()
     os.remove(tmp)
     return files
 

@@ -160,14 +160,16 @@ def test_png_writer_mixed_filters_and_reader_errors(tmp_path):
     bad.write_bytes(bytes(data))
     with pytest.raises(ValueError, match="corrupt"):
         image_io.imread(str(bad))
-    # a JPEG goes to the port's decoder (tests/test_torch_codecs.py holds
-    # it to cv2); an extension the port cannot read is refused by name
-    cv2.imwrite(str(tmp_path / "t.jpg"), img)
-    np.testing.assert_array_equal(image_io.imread(str(tmp_path / "t.jpg")),
-                                  cv2.imread(str(tmp_path / "t.jpg"))[..., ::-1])
-    cv2.imwrite(str(tmp_path / "t.bmp"), img)
-    with pytest.raises(ValueError, match="t.bmp"):
-        image_io.imread(str(tmp_path / "t.bmp"))
+    # a JPEG and a BMP go to the port's decoders (tests/test_torch_codecs.py
+    # and tests/test_torch_yolo_data.py hold them to cv2); an extension the
+    # port cannot read is refused by name
+    for ext in ("jpg", "bmp"):
+        cv2.imwrite(str(tmp_path / f"t.{ext}"), img)
+        np.testing.assert_array_equal(image_io.imread(str(tmp_path / f"t.{ext}")),
+                                      cv2.imread(str(tmp_path / f"t.{ext}"))[..., ::-1])
+    cv2.imwrite(str(tmp_path / "t.ppm"), img)
+    with pytest.raises(ValueError, match="t.ppm"):
+        image_io.imread(str(tmp_path / "t.ppm"))
     np.save(tmp_path / "t.npy", img)
     np.testing.assert_array_equal(image_io.imread(str(tmp_path / "t.npy")), img)
 

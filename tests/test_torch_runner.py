@@ -133,13 +133,15 @@ def test_jax_checkpoint_loads_and_predicts_like_the_jax_model(tmp_path):
 
 
 def test_checkpoint_payloads_the_port_cannot_take(tmp_path):
-    """An EMA payload (until EMA is ported) and one of no known package;
-    a JDet payload ("jdet_version") is imported, as the reference imports
-    it (tests/test_torch_pretrained.py holds the import)."""
+    """A payload that names a global other than numpy's or flax's state
+    classes (here in its EMA entry), and one of no known package; a JDet
+    payload ("jdet_version") is imported, as the reference imports it
+    (tests/test_torch_pretrained.py holds the import)."""
     model = build_detector(CFG, device="cpu", load_pretrained=False)
     for name, payload, error in (
-            ("ema.pkl", {"meta": {"jdet_tpu_version": "0.1.0"}, "model": {}, "ema": {}},
-             NotImplementedError),
+            ("ema.pkl", {"meta": {"jdet_tpu_version": "0.1.0"}, "model": {},
+                         "ema": {"state": types.SimpleNamespace()}},
+             pickle.UnpicklingError),
             ("other.pkl", {"meta": {"other_version": "0.2"}, "model": {"conv.kernel": 0}},
              ValueError)):
         with open(tmp_path / name, "wb") as f:
@@ -228,7 +230,8 @@ def test_ema_checkpoint_loads_model_only(tmp_path):
     """An EMA-trained jdet_tpu checkpoint: its weights load with
     model_only=True (as `pretrained_weights` loads them) and the `ema`
     entry is ignored, as the reference ignores it there; a full load
-    raises until EMA is ported."""
+    hands the entry to the Runner (tests/test_torch_yolo.py loads a real
+    one)."""
     jmodel = j_build_detector(SMALL, seed=0)
     _randomize_bn(jmodel, seed=1)
     path = str(tmp_path / "ema_ckpt.pkl")
@@ -245,8 +248,9 @@ def test_ema_checkpoint_loads_model_only(tmp_path):
                            tmodel)
     for name, t in tmodel.state_dict().items():
         torch.testing.assert_close(t, want[name], rtol=0, atol=0, msg=name)
-    with pytest.raises(NotImplementedError, match="ema_ckpt.pkl"):
-        load_checkpoint(path, tmodel)
+    assert "_ema_payload" not in meta
+    meta = load_checkpoint(path, tmodel)
+    assert meta["_ema_payload"] == {"state": {}, "updates": 10, "decay": 0.9999}
 
 
 def test_s2anet_jax_checkpoint_resumes_with_the_deform_and_orconv_momentum(tmp_path):
@@ -587,8 +591,11 @@ def test_unflip_matches_the_reference():
 
 def test_runner_refuses_what_it_cannot_honour(mini_tree):
     root, img_dir, ann = mini_tree
-    with pytest.raises(NotImplementedError, match="ema"):
-        Runner(_mini_cfg(root, img_dir, ann, ema=dict(decay=0.9999)), device="cpu")
+    # ema, refused before the model EMA was ported, is taken (its EMA is
+    # made at the first train epoch: tests/test_torch_yolo.py runs it)
+    runner = Runner(_mini_cfg(root, img_dir, ann, ema=dict(decay=0.9999)), device="cpu")
+    assert runner._ema_cfg == {"decay": 0.9999} and runner.ema is None
+    runner.close()
     cfg = _mini_cfg(root, img_dir, ann)
     cfg["scheduler"] = dict(cfg["scheduler"], groups=[dict(pattern="*", lr_mult=1.0)])
     with pytest.raises(NotImplementedError, match="groups"):

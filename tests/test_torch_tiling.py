@@ -103,9 +103,10 @@ def test_tiles_labels_and_pkl_match_the_reference(tiled):
 
 
 def test_what_the_tiler_refuses(tmp_path):
-    img = np.zeros((64, 64, 3), np.uint8)
+    img = np.zeros((64, 64, 4), np.uint8)
     src = tmp_path / "src"
     src.mkdir()
+    # cv2 writes 4 channels as a BI_BITFIELDS BMP, which the port refuses
     cv2.imwrite(str(src / "scene.bmp"), img)
     with pytest.raises(ValueError, match="scene.bmp"):
         tiling.process(str(src), None, str(tmp_path / "out"), subsize=32, gap=8)
