@@ -1,8 +1,9 @@
-"""`.py` config loader with recursive `_base_` merging, and the global
-config.
+"""`.py` and YAML config loader with recursive `_base_` merging, and the
+global config.
 
-Copy of the `.py` branch of `jdet_tpu/config/config.py` (`_load_py_dict`
-:67, `merge_dict_b2a` :94, `load_cfg_file` :124): a config module's
+Copy of `jdet_tpu/config/config.py` (`_load_py_dict` :67, `_load_raw`
+:85, `merge_dict_b2a` :94, `load_cfg_file` :124, `print_cfg` :182; YAML
+through a lazy PyYAML import): a config module's
 non-dunder globals become the dict, `_base_` names parent files merged in
 order, and a child dict carrying `_cover_: True` replaces the parent
 subtree instead of merging into it. `init_cfg`, `get_cfg`, `update_cfg`
@@ -61,12 +62,29 @@ def _strip_cover(v):
     return v
 
 
+def _load_raw(filename):
+    """One config file's own dict: a `.py` file's top-level names, or a
+    `.yml` / `.yaml` file through PyYAML (the reference's `_load_raw`,
+    :85-91), imported only here: a machine without PyYAML (the GPU
+    machine has none) raises naming the file."""
+    if filename.endswith((".yml", ".yaml")):
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(f"{filename}: a YAML config needs PyYAML, which is not "
+                              f"installed; write the config as a .py file") from e
+        with open(filename) as f:
+            return yaml.safe_load(f) or {}
+    if filename.endswith(".py"):
+        return _load_py_dict(filename)
+    raise ValueError(f"unsupported config type: {filename}")
+
+
 def load_cfg_file(filename):
-    """Load one `.py` config file, resolving its `_base_` chain."""
+    """Load one `.py` or YAML config file, resolving its `_base_` chain
+    (whose files may be of either kind)."""
     filename = os.path.abspath(filename)
-    if not filename.endswith(".py"):
-        raise ValueError(f"unsupported config type: {filename}")
-    raw = _load_py_dict(filename)
+    raw = _load_raw(filename)
     bases = raw.pop("_base_", None)
     if bases is None:
         return _strip_cover(raw)
@@ -107,6 +125,26 @@ def get_cfg():
 def update_cfg(**kw):
     _cfg.update(kw)
     return _cfg
+
+
+def print_cfg():
+    """Print the global config as YAML, as the reference does (tuples as
+    lists); as JSON where PyYAML is missing."""
+    cfg = get_cfg()
+
+    def plain(v):
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [plain(x) for x in v]
+        return v
+
+    try:
+        import yaml
+    except ImportError:
+        print(json.dumps(plain(cfg), indent=2, sort_keys=True, default=repr))
+        return
+    print(yaml.safe_dump(plain(cfg), default_flow_style=False))
 
 
 def save_cfg(path=None, cfg=None):

@@ -69,6 +69,19 @@
 //   Without the low-quality match (match_low_quality = 0, the Oriented
 //   R-CNN RoI head's assigner) pass 1 keeps no gt maxima and pass 2 makes
 //   no claim: it only writes the labels and sends masked anchors to -1.
+//   The first-claim branch (gt_max_assign_all = 0, the reference's
+//   assigner.py:101-112): each eligible gt claims only the lowest-index
+//   anchor whose IoU equals its gt_max (a gt with gt_max == 0: the
+//   image's first unmasked anchor, as the argmax over a row whose masked
+//   entries are -inf finds it), and among the gts claiming one anchor the
+//   largest index wins. Pass 1 also keeps each image's first unmasked
+//   anchor; pass 2 keeps, per (image, gt), the least anchor index reaching
+//   gt_max (an atomicMax of N - n, so that the zeroed scratch means "no
+//   claim") and makes no claim itself; pass 3, one block per image, writes
+//   each gt's claim unless a later gt of the image claims the same anchor
+//   (a scan of the later gts' claims: K^2 / 2 reads of a (K,) row, ~0.13 M
+//   at K = 512, against pass 2's ~3 M touching pairs). What bounds the
+//   branch is what bounds the assigner: the hits it adds are a few per gt.
 // The anchor mask is (N,), one for every image (batch stride 0), or
 // (B, N), one per image (stride N, with per-image anchors: the RoI head's
 // proposals, each image's gts prepended). "Some anchor of the image is
@@ -341,7 +354,8 @@ __global__ void __launch_bounds__(kAssignThreads)
                         unsigned* __restrict__ gt_max_bits,
                         int* __restrict__ any_anchor,
                         long long* __restrict__ gt_inds,
-                        float* __restrict__ max_overlaps, int K, int N,
+                        float* __restrict__ max_overlaps,
+                        unsigned* __restrict__ first_active, int K, int N,
                         long long an_batch_stride, long long mask_batch_stride,
                         float pos_thr, float neg_thr, bool low_quality) {
   __shared__ float sg[kAssignThreads][kRows];
@@ -360,6 +374,12 @@ __global__ void __launch_bounds__(kAssignThreads)
   if (t == 0) sfirst = K;
   const bool any_active = block_anchor_bounds(a, sbox, sred);
   if (t == 0 && any_active) any_anchor[b] = 1;
+  if (first_active != nullptr) {
+    // the first-claim branch: the image's first unmasked anchor, as N - n
+    const unsigned first = __reduce_max_sync(
+        kFullMask, a.active ? static_cast<unsigned>(N - n) : 0u);
+    if ((t & 31) == 0 && first) atomicMax(&first_active[b], first);
+  }
 
   // the anchor's max IoU over the touching gts, ties to the smallest k
   float best = 0.f;
@@ -419,7 +439,9 @@ __global__ void __launch_bounds__(kAssignThreads)
                         const unsigned* __restrict__ gt_max_bits,
                         const int* __restrict__ any_anchor,
                         long long* __restrict__ gt_inds,
-                        long long* __restrict__ labels, int K, int N,
+                        long long* __restrict__ labels,
+                        const unsigned* __restrict__ first_active,
+                        unsigned* __restrict__ first_claim, int K, int N,
                         long long an_batch_stride, long long mask_batch_stride,
                         float min_pos, bool low_quality) {
   __shared__ float sg[kAssignThreads][kRows];
@@ -450,7 +472,10 @@ __global__ void __launch_bounds__(kAssignThreads)
       const float gm =
           __uint_as_float(gt_max_bits[static_cast<size_t>(b) * K + k]);
       if (gm >= min_pos) {
-        if (gm == 0.f) {
+        if (gm == 0.f && first_claim != nullptr) {
+          // IoU 0 everywhere: the first unmasked anchor reaches gt_max
+          first_claim[static_cast<size_t>(b) * K + k] = first_active[b];
+        } else if (gm == 0.f) {
           atomicMax(&sk0, k);
         } else if (any_active) {
           expand_rect_row(gt + (static_cast<size_t>(b) * K + k) * 5, sg[t]);
@@ -467,7 +492,12 @@ __global__ void __launch_bounds__(kAssignThreads)
       for (int j = 0; j < cnt; ++j) {
         const int s = slist[j];
         if (pair_iou(sg[s], a.cx, a.cy, a.w, a.h, a.t) == sgm[s]) {
-          claim = max(claim, c0 + s);
+          if (first_claim != nullptr) {
+            atomicMax(&first_claim[static_cast<size_t>(b) * K + c0 + s],
+                      static_cast<unsigned>(N - n));
+          } else {
+            claim = max(claim, c0 + s);
+          }
         }
       }
     }
@@ -484,6 +514,28 @@ __global__ void __launch_bounds__(kAssignThreads)
   labels[o] = assigned > 0
                   ? gt_labels[static_cast<size_t>(b) * K + assigned - 1]
                   : 0;
+}
+
+// The first-claim branch's scatter, one block per image: gt k's claim
+// (anchor N - first_claim[k], if any) is written unless a later gt of the
+// image claims the same anchor, so the largest claiming gt index wins.
+__global__ void __launch_bounds__(kAssignThreads)
+    assign_pass3_kernel(const long long* __restrict__ gt_labels,
+                        const unsigned* __restrict__ first_claim,
+                        long long* __restrict__ gt_inds,
+                        long long* __restrict__ labels, int K, int N) {
+  const int b = blockIdx.x;
+  const unsigned* fc = first_claim + static_cast<size_t>(b) * K;
+  for (int k = threadIdx.x; k < K; k += kAssignThreads) {
+    const unsigned enc = fc[k];
+    if (enc == 0u) continue;
+    bool later = false;
+    for (int j = k + 1; j < K && !later; ++j) later = fc[j] == enc;
+    if (later) continue;
+    const size_t o = static_cast<size_t>(b) * N + (N - static_cast<int>(enc));
+    gt_inds[o] = k + 1;
+    labels[o] = gt_labels[static_cast<size_t>(b) * K + k];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -733,30 +785,42 @@ extern "C" int rotated_iou_rect(const float* gt, const float* anchors,
 // an_batch_stride as above. gt_mask (B, K) and anchor_mask (N,), one mask
 // for every image (mask_batch_stride 0), or (B, N), one per image (stride
 // N), are bools as bytes (anchor_mask may be null: every anchor
-// unmasked); gt_labels (B, K) int64; scratch (B * K + B) int32, zeroed by
-// the caller: the gts' max IoU bits, then per image a flag "some anchor is
-// unmasked". match_low_quality 0 skips the gts' maxima and the claims.
+// unmasked); gt_labels (B, K) int64; scratch int32, zeroed by the caller:
+// the gts' max IoU bits (B * K), then per image a flag "some anchor is
+// unmasked" (B), and, for the first-claim branch (gt_max_assign_all 0,
+// with match_low_quality), each gt's claimed anchor as N - n (B * K) and
+// each image's first unmasked anchor as N - n (B). match_low_quality 0
+// skips the gts' maxima and the claims.
 extern "C" int max_iou_assign_rect(
     const float* gt, const unsigned char* gt_mask, const long long* gt_labels,
     const float* anchors, const unsigned char* anchor_mask, int* scratch,
     long long* gt_inds, float* max_overlaps, long long* labels, int B, int K,
     int N, long long an_batch_stride, long long mask_batch_stride,
     float pos_iou_thr, float neg_iou_thr, float min_pos_iou,
-    int match_low_quality, cudaStream_t s) {
+    int match_low_quality, int gt_max_assign_all, cudaStream_t s) {
   const dim3 grid((N + kAssignThreads - 1) / kAssignThreads, B);
   unsigned* gt_max_bits = reinterpret_cast<unsigned*>(scratch);
   int* any_anchor = scratch + static_cast<size_t>(B) * K;
   const bool low_quality = match_low_quality != 0;
+  const bool first = low_quality && gt_max_assign_all == 0;
+  unsigned* first_claim =
+      first ? reinterpret_cast<unsigned*>(any_anchor + B) : nullptr;
+  unsigned* first_active =
+      first ? first_claim + static_cast<size_t>(B) * K : nullptr;
   assign_pass1_kernel<<<grid, kAssignThreads, 0, s>>>(
       gt, gt_mask, anchors, anchor_mask, gt_max_bits, any_anchor, gt_inds,
-      max_overlaps, K, N, an_batch_stride, mask_batch_stride, pos_iou_thr,
-      neg_iou_thr, low_quality);
-  const cudaError_t e = cudaGetLastError();
+      max_overlaps, first_active, K, N, an_batch_stride, mask_batch_stride,
+      pos_iou_thr, neg_iou_thr, low_quality);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   assign_pass2_kernel<<<grid, kAssignThreads, 0, s>>>(
       gt, gt_mask, gt_labels, anchors, anchor_mask, gt_max_bits, any_anchor,
-      gt_inds, labels, K, N, an_batch_stride, mask_batch_stride, min_pos_iou,
-      low_quality);
+      gt_inds, labels, first_active, first_claim, K, N, an_batch_stride,
+      mask_batch_stride, min_pos_iou, low_quality);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !first) return static_cast<int>(e);
+  assign_pass3_kernel<<<B, kAssignThreads, 0, s>>>(gt_labels, first_claim,
+                                                   gt_inds, labels, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 

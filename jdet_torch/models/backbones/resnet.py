@@ -201,3 +201,41 @@ class ResNet_v1d(ResNet):
         kw.setdefault("deep_stem", True)
         kw.setdefault("avg_down", True)
         super().__init__(**kw)
+
+
+def Resnet18(**kw):
+    return ResNet(depth=18, **kw)
+
+
+def Resnet34(**kw):
+    return ResNet(depth=34, **kw)
+
+
+def Resnet50(**kw):
+    return ResNet(depth=50, **kw)
+
+
+def Resnet101(**kw):
+    return ResNet(depth=101, **kw)
+
+
+def Resnet152(**kw):
+    return ResNet(depth=152, **kw)
+
+
+# the JDet registry names (the reference's `resnet.py:195-215`)
+for _f in (Resnet18, Resnet34, Resnet50, Resnet101, Resnet152):
+    BACKBONES.register_module(_f)
+
+
+def load_torch_resnet(model, state_dict):
+    """Load a torchvision ResNet state dict (`torch.load` of resnet50.pth)
+    into `model`, every backbone tensor required (the reference's
+    `load_torch_resnet`, :219); `fc.*` and `num_batches_tracked` are
+    skipped. Returns `model`."""
+    from ..pretrained import assign_state, resnet_to_flat
+
+    _, missing, _ = assign_state(model, resnet_to_flat(state_dict), strict=True)
+    if missing:
+        raise KeyError(f"load_torch_resnet: the state dict lacks {missing[:8]}")
+    return model

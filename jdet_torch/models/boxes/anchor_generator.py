@@ -4,8 +4,10 @@ Port of `AnchorGeneratorRotated` in
 `jdet_tpu/models/boxes/anchor_generator.py` (:27, `_gen_base_anchors`
 :69, `grid_anchors` :103): base_size x scales x ratios x angles, anchors
 (cx, cy, w, h, theta) centred at 0.5*(base-1) plus the grid shifts, in
-(H, W, A) order; and of `AnchorGeneratorHBB` (:235), the RPN's horizontal
-(x1, y1, x2, y2) anchors.
+(H, W, A) order; of `AnchorGeneratorYangXue` (:157, the widths rounded
+on a small grid first); of `multi_level_grid_anchors` (:325); and of
+`AnchorGeneratorHBB` (:235), the RPN's horizontal (x1, y1, x2, y2)
+anchors.
 """
 from __future__ import annotations
 
@@ -84,6 +86,41 @@ class AnchorGeneratorRotated:
         if base is None:
             base = self._base_on[device] = torch.as_tensor(self.base_anchors, device=device)
         return (shifts.reshape(-1, 1, 5) + base[None]).reshape(-1, 5)
+
+
+class AnchorGeneratorYangXue(AnchorGeneratorRotated):
+    """The yangxue/rotation-detection anchors (the reference's
+    `AnchorGeneratorYangXue`, :157): widths rounded on a `yx_base_size`
+    grid first, round(w_ratio * yx_base_size), heights round(ws * ratio),
+    both then scaled to the true base size; centres at center_offset *
+    (yx_base_size - 1). (cx, cy, w, h, theta) like the others."""
+
+    def __init__(self, base_size, yx_base_size=4.0, center_offset=0.5, **kw):
+        self.yx_base_size = float(yx_base_size)
+        self.center_offset = center_offset
+        super().__init__(base_size, **kw)
+
+    def _gen_base_anchors(self):
+        yx = self.yx_base_size
+        ctr = self.center_offset * (yx - 1)
+        h_ratios = np.sqrt(self.ratios)
+        w_ratios = 1.0 / h_ratios
+        ws0 = np.round(w_ratios * yx)
+        hs0 = np.round(ws0 * self.ratios)
+        scale = float(self.base_size) / yx
+        ones = np.ones_like(self.angles)[None, None, :]
+        ws = (ws0[:, None, None] * scale * self.scales[None, :, None] * ones).reshape(-1)
+        hs = (hs0[:, None, None] * scale * self.scales[None, :, None] * ones).reshape(-1)
+        angles = np.tile(self.angles, len(self.scales) * len(self.ratios))
+        return np.stack(
+            [np.full_like(ws, ctr), np.full_like(ws, ctr), ws, hs, angles], axis=-1,
+        ).astype(np.float32)
+
+
+def multi_level_grid_anchors(generators, featmap_sizes, strides, device="cuda"):
+    """Every level's rotated anchors, concatenated: (sum_l H_l W_l A, 5)."""
+    return torch.cat([gen.grid_anchors(tuple(fs), stride, device=device)
+                      for gen, fs, stride in zip(generators, featmap_sizes, strides)], 0)
 
 
 class AnchorGeneratorRotatedS2ANet(AnchorGeneratorRotated):

@@ -22,6 +22,20 @@ from .assigner import atss_assign_rotated, max_iou_assign_hbb, max_iou_assign_ro
 from .sampler import pseudo_sample, random_sample
 
 
+def anchor_inside_flags_rotated(anchors, valid_flags, img_shape, allowed_border):
+    """The reference's `anchor_inside_flags_rotated` (:21): with
+    allowed_border >= 0, valid anchors (..., n, 5) whose centres lie within
+    `allowed_border` of the (h, w) image; otherwise valid_flags. (Every
+    head of the reference passes no img_shape, so there the border never
+    removes an anchor.)"""
+    if allowed_border < 0:
+        return valid_flags
+    h, w = img_shape
+    return (valid_flags
+            & (anchors[..., 0] >= -allowed_border) & (anchors[..., 1] >= -allowed_border)
+            & (anchors[..., 0] < w + allowed_border) & (anchors[..., 1] < h + allowed_border))
+
+
 def anchor_target_single(
     anchors,
     valid_flags,
@@ -43,9 +57,10 @@ def anchor_target_single(
     """Targets for gt_bboxes (..., k, d) padded, gt_mask (..., k) bool and
     gt_labels (..., k) 1-based, against shared anchors (n, d) or per-image
     anchors (B, n, d) with (B, k, d) gts, and valid_flags (n,) bool, one
-    for every image; d = 5 rotated, 4 horizontal (`rotated=False`, shared
-    anchors). Invalid anchors are excluded before assignment: they can
-    neither be argmax targets nor receive low-quality gt claims.
+    for every image, or (B, n), one per image; d = 5 rotated, 4 horizontal
+    (`rotated=False`, shared anchors). Invalid anchors are excluded before
+    assignment: they can neither be argmax targets nor receive low-quality
+    gt claims.
     `sampler_cfg` of type "random" draws through `random_sample`, from
     `rand` or `generator`.
 

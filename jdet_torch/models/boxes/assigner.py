@@ -16,7 +16,8 @@ Padding gt rows never match: their IoU rows are masked to -inf.
 
 `max_iou_assign_rotated` is the wrapper of the fused CUDA assigner
 (`ops/rotated_iou_kernel.py::launch_max_iou_assign_rect`), which never
-writes the IoU matrix: every CUDA call with the rotated IoU launches it
+writes the IoU matrix: every CUDA call with the rotated IoU launches it,
+its first-claim branch with `gt_max_assign_all=False`
 (`iou_calculator="fake_rbb"` assigns on the circumscribed hbbs through
 `max_iou_assign_hbb` on either device, and launches nothing). Its plain
 version,
@@ -29,6 +30,13 @@ the gts `iou_chunk` rows at a time and never holds the whole (B, K, N)
 matrix of `hbb_overlaps` (the reference's formula, which is also the hbb
 NMS's `ops/nms.py::hbb_iou_matrix`): the maxima and the argmax run over the chunks, and the
 low-quality claim is per gt row, so the chunks compose exactly.
+
+Both take the reference's ignore regions (`gt_bboxes_ignore`,
+`gt_ignore_mask`, `ignore_iof_thr`, :145-193 and :207-233): an anchor
+whose IoF with a real ignore box exceeds the threshold ends at -1, its
+IoU column set to -1 as the reference sets it. The IoF is plain PyTorch
+on either device, as in the reference, where `mode="iof"` never reaches
+Pallas (`box_iou_rotated.py:176-184`).
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from ...ops.topk import stable_topk
 
 
 def _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
-            anchor_mask, match_low_quality, gt_max_assign_all):
+            anchor_mask, match_low_quality, gt_max_assign_all, ignore_mask=None):
     """The assignment from `chunks`, an iterable of (k0, overlaps of gt
     rows k0..k0+c, (..., c, n)) in ascending k0."""
     k = gt_mask.shape[-1]
@@ -54,6 +62,8 @@ def _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
         ov = torch.where(gt_mask[..., k0:k0 + c, None], overlaps, float("-inf"))
         if anchor_mask is not None:
             ov = torch.where(anchor_mask[..., None, :], ov, float("-inf"))
+        if ignore_mask is not None:
+            ov = torch.where(ignore_mask[..., None, :], -1.0, ov)
         cmax, carg = ov.max(dim=-2)
         if max_ov is None:
             max_ov, arg = cmax, carg
@@ -88,6 +98,8 @@ def _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
     assigned = torch.where(neg, 0, -1)
     assigned = torch.where(max_overlaps >= pos_iou_thr, arg + 1, assigned)
     assigned = torch.where(claim >= 0, claim + 1, assigned)
+    if ignore_mask is not None:
+        assigned = torch.where(ignore_mask, -1, assigned)
     if anchor_mask is not None:
         assigned = torch.where(anchor_mask, assigned, -1)
 
@@ -111,6 +123,7 @@ def assign_wrt_overlaps(
     anchor_mask=None,
     match_low_quality=True,
     gt_max_assign_all=True,
+    ignore_mask=None,
 ):
     """Masked MaxIoU assignment from a (..., k, n) overlap matrix.
 
@@ -125,9 +138,56 @@ def assign_wrt_overlaps(
     1-based classes; anchor_mask (n,) bool, one for every image, or
     (..., n), one per image, marks anchors eligible at all: a masked
     anchor is neither an argmax target nor claimed, and ends at -1.
+    ignore_mask (n,) or (..., n) bool marks anchors in ignore regions: their
+    IoU column reads -1 and they end at -1.
     """
     return _assign([(0, overlaps)], gt_mask, gt_labels, pos_iou_thr, neg_iou_thr,
-                   min_pos_iou, anchor_mask, match_low_quality, gt_max_assign_all)
+                   min_pos_iou, anchor_mask, match_low_quality, gt_max_assign_all,
+                   ignore_mask)
+
+
+def hbb_iof(boxes, regions):
+    """IoF of horizontal boxes (..., n, 4) against regions (..., m, 4):
+    the intersection over each box's own area (the reference's
+    `hbb_overlaps(..., mode="iof")`, :25)."""
+    a = boxes[..., :, None, :]
+    b = regions[..., None, :, :]
+    area = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+    iw = (torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0])).clamp(min=0)
+    ih = (torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1])).clamp(min=0)
+    union = area[..., :, None].expand_as(iw)
+    return torch.where(union > 1e-9, iw * ih / union.clamp(min=1e-9), 0.0)
+
+
+def ignore_anchors(iof, gt_ignore_mask, ignore_iof_thr):
+    """(..., n) bool: anchors whose IoF (..., n, m) with a real ignore box
+    (gt_ignore_mask (..., m)) exceeds ignore_iof_thr."""
+    if iof.shape[-1] == 0:
+        return iof.new_zeros(iof.shape[:-1], dtype=torch.bool)
+    iof = torch.where(gt_ignore_mask[..., None, :], iof, float("-inf"))
+    return iof.amax(-1) > ignore_iof_thr
+
+
+def fold_ignore(anchor_mask, ignore_mask):
+    """The anchor mask with the ignored anchors masked too: what the fused
+    kernel takes for ignore regions."""
+    if ignore_mask is None:
+        return anchor_mask
+    return ~ignore_mask if anchor_mask is None else anchor_mask & ~ignore_mask
+
+
+def unfold_ignore(out, ignore_mask, gt_mask):
+    """An assignment made on `fold_ignore`'s mask, made the reference's:
+    the ignored anchors' max_overlaps reads -1 where the image has a real
+    gt (their IoU column is -1 there), 0 where it has none."""
+    if ignore_mask is not None:
+        ignored = ignore_mask & gt_mask.any(-1, keepdim=True)
+        out["max_overlaps"] = torch.where(ignored, -1.0, out["max_overlaps"])
+    return out
+
+
+def _uses_ignore(ignore_iof_thr, gt_bboxes_ignore, gt_ignore_mask):
+    return ignore_iof_thr > 0 and gt_bboxes_ignore is not None and gt_ignore_mask is not None
 
 
 def max_iou_assign_hbb(
@@ -142,10 +202,18 @@ def max_iou_assign_hbb(
     match_low_quality=True,
     gt_max_assign_all=True,
     iou_chunk=None,
+    gt_bboxes_ignore=None,
+    gt_ignore_mask=None,
+    ignore_iof_thr=-1,
+    ignore_mask=None,
 ):
     """MaxIoU assignment of horizontal (x1, y1, x2, y2) boxes: anchors
     (n, 4) shared by the batch, gt_bboxes (..., k, 4) padded, gt_mask and
     gt_labels of their leading shape. Returns `assign_wrt_overlaps`' dict.
+    With ignore_iof_thr > 0, gt_bboxes_ignore (..., m, 4) and
+    gt_ignore_mask (..., m), anchors in ignore regions end at -1;
+    `ignore_mask` (..., n) gives them directly (the rotated assigner's
+    `fake_rbb` route, whose IoF is rotated).
 
     The gts are taken `iou_chunk` rows at a time (by default as many as
     keep a chunk's (..., rows, n) overlaps at 2^25 values), and only up
@@ -163,8 +231,11 @@ def max_iou_assign_hbb(
     if last == 0:
         # no real gt: one chunk of -inf rows gives the empty-gt result
         chunks = [(0, gt_bboxes.new_zeros(*gt_bboxes.shape[:-2], 1, n))]
+    if ignore_mask is None and _uses_ignore(ignore_iof_thr, gt_bboxes_ignore, gt_ignore_mask):
+        ignore_mask = ignore_anchors(hbb_iof(anchors, gt_bboxes_ignore), gt_ignore_mask,
+                                     ignore_iof_thr)
     return _assign(chunks, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou,
-                   anchor_mask, match_low_quality, gt_max_assign_all)
+                   anchor_mask, match_low_quality, gt_max_assign_all, ignore_mask)
 
 
 def max_iou_assign_rotated(
@@ -180,6 +251,9 @@ def max_iou_assign_rotated(
     gt_max_assign_all=True,
     iou_chunk=512,
     iou_calculator="rotated",
+    gt_bboxes_ignore=None,
+    gt_ignore_mask=None,
+    ignore_iof_thr=-1,
 ):
     """Rotated MaxIoU assignment. anchors (n, 5) shared, or (B, n, 5) per
     image with (B, k, 5) gts (the reference's vmap over images and anchors,
@@ -189,37 +263,51 @@ def max_iou_assign_rotated(
     for every image, (B, n) bool, one per image (with per-image anchors
     only), or None. Returns `assign_wrt_overlaps`' dict.
 
-    A CUDA tensor launches the fused kernel (one launch for the batch) or
-    raises; a CPU tensor is assigned on `box_iou_rotated`'s matrix, which
-    broadcasts over per-image anchors, `iou_chunk` gt rows at a time (the
-    plain version). Both raise on gt_max_assign_all=False, which no
-    config of the port takes and the kernel does not do.
+    A CUDA tensor launches the fused kernel (one launch for the batch;
+    with gt_max_assign_all=False its first-claim branch) or raises; a CPU
+    tensor is assigned on `box_iou_rotated`'s matrix, which broadcasts over
+    per-image anchors, `iou_chunk` gt rows at a time (the plain version).
+
+    Ignore regions (ignore_iof_thr > 0, gt_bboxes_ignore (m, 5) or
+    (B, m, 5), gt_ignore_mask of its leading shape): the anchors' rotated
+    IoF with them is plain PyTorch on either device. On the card the
+    ignored anchors join the anchor mask of the fused launch and their
+    max_overlaps is set to -1 afterwards (kept at 0 in an image without a
+    real gt). That is the reference's result wherever min_pos_iou > -1:
+    an ignored anchor's IoU column of -1 then never reaches an eligible
+    gt's max, nor does a masked anchor's -inf.
 
     iou_calculator="fake_rbb" assigns on the circumscribed hbbs of the
     parked gts and of the anchors (the reference's
     FakeBboxOverlaps2D_rotated), through the exact chunked
     `max_iou_assign_hbb` on either device: no kernel is launched."""
+    ignore_mask = None
+    if _uses_ignore(ignore_iof_thr, gt_bboxes_ignore, gt_ignore_mask):
+        rows = max(iou_chunk, (1 << 22) // max(gt_bboxes_ignore.shape[-2], 1))
+        ignore_mask = ignore_anchors(
+            box_iou_rotated(anchors, gt_bboxes_ignore, mode="iof", chunk=rows),
+            gt_ignore_mask, ignore_iof_thr)
     if iou_calculator == "fake_rbb":
         return max_iou_assign_hbb(
             rbox_to_hbox(anchors), rbox_to_hbox(park_masked_boxes(gt_bboxes, gt_mask)),
             gt_mask, gt_labels, pos_iou_thr, neg_iou_thr, min_pos_iou, anchor_mask,
-            match_low_quality, gt_max_assign_all)
+            match_low_quality, gt_max_assign_all, ignore_mask=ignore_mask)
     if iou_calculator != "rotated":
         raise NotImplementedError(f"iou_calculator {iou_calculator!r} is not ported")
-    if not gt_max_assign_all:
-        raise NotImplementedError("gt_max_assign_all=False is not ported to the fused assigner")
     if gt_bboxes.is_cuda:
-        return launch_max_iou_assign_rect(
-            gt_bboxes.contiguous(), gt_mask, gt_labels,
-            anchors.contiguous(), anchor_mask, pos_iou_thr,
-            neg_iou_thr, min_pos_iou, match_low_quality,
+        # the kernel takes float32 boxes (a float64-policy model's too)
+        out = launch_max_iou_assign_rect(
+            gt_bboxes.float().contiguous(), gt_mask, gt_labels,
+            anchors.float().contiguous(), fold_ignore(anchor_mask, ignore_mask), pos_iou_thr,
+            neg_iou_thr, min_pos_iou, match_low_quality, gt_max_assign_all,
         )
+        return unfold_ignore(out, ignore_mask, gt_mask)
     overlaps = box_iou_rotated(
         park_masked_boxes(gt_bboxes, gt_mask), anchors, chunk=iou_chunk
     )
     return assign_wrt_overlaps(
         overlaps, gt_mask, gt_labels, pos_iou_thr, neg_iou_thr,
-        min_pos_iou, anchor_mask, match_low_quality,
+        min_pos_iou, anchor_mask, match_low_quality, gt_max_assign_all, ignore_mask,
     )
 
 

@@ -21,6 +21,9 @@ mirror those paths, so the mapping is mechanical:
   <p>.weight (O, I, nOr, k, k) -> <p>.weight as it is      (ORConv2d, REConv2d)
   <p>.bn.scale / .mean / .var -> <p>.bn.weight / ...       (InnerBatchNorm's
                                BatchNorm child, by the BN rule above)
+  <p>.convs.i.kernel, <p>.bns.i.scale / ... -> <p>.convs.i.weight,
+                               <p>.bns.i.weight / ...   (Res2Net's split
+                               convs and BNs, by the rules above)
   <p>.wexp, <p>._src        -> skipped: the expanded-weight cache of
                                ORConv2d and the C8 convs, a non-parameter
                                of shape (0,), and their static ARF gather

@@ -62,7 +62,7 @@ from ...ops.box_convert import (delta2hbox, delta2rbox, hbox2delta, hbox_to_rbox
 from ...ops.riroi_align import riroi_align_multilevel
 from ...utils.registry import HEADS
 from ..boxes.coder import gv_fix_decode, gv_fix_encode, gv_ratio_encode
-from ..layers import Conv2d, Linear, normal_init, sigmoid
+from ..layers import Conv2d, Linear, at_least_float32, normal_init, sigmoid
 from ..losses import cross_entropy_loss, smooth_l1_loss
 from ..roi_extractors import OrientedSingleRoIExtractor
 from ..roi_extractors.single_level import _map_levels
@@ -232,7 +232,7 @@ class StripHead(OrientedHead):
         x = xs.permute(0, 2, 3, 1).reshape(B, S, -1)
         for fc in self.shared_fcs:
             x = torch.relu(fc(x))
-        return self.fc_cls(x).float(), self.fc_reg(x).float()
+        return at_least_float32(self.fc_cls(x)), at_least_float32(self.fc_reg(x))
 
 
 class RiRoIExtractor:
@@ -313,7 +313,7 @@ class RoITransHead(RoIHeadBase):
         x = x.reshape(*x.shape[:2], -1)
         for fc in self.shared_fcs2:
             x = torch.relu(fc(x))
-        return self.fc_cls2(x).float(), self.fc_reg2(x).float()
+        return at_least_float32(self.fc_cls2(x)), at_least_float32(self.fc_reg2(x))
 
     @staticmethod
     def _stage_losses(cls, reg, labels, lw, bt, bw, stage):

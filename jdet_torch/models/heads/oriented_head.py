@@ -10,12 +10,15 @@ the shared machinery of `roi_head_base.py`:
   for the batch on the card, and the random sampler;
 - `_forward_rois`: (B, S, 7, 7, C) features flattened in (y, x, c) order
   -> 1024 -> 1024 (ReLU) -> `fc_cls` (classes + background, last) and
-  `fc_reg` (5 deltas, class-agnostic), cast to float32.
+  `fc_reg` (5 deltas, class-agnostic; 5 per class with
+  `reg_class_agnostic=False`, :94), cast to float32.
 - `loss`: softmax cross entropy over the sampled RoIs and smooth-L1
   (beta 1) on the positives' `rbox2delta` targets (stds 0.1, 0.1, 0.2,
-  0.2, 0.1), both averaged over the sampled count of the batch.
+  0.2, 0.1), both averaged over the sampled count of the batch; class-
+  specific deltas are taken at each RoI's label clipped to C - 1
+  (:183-190).
 - `predict`: softmax scores of the foreground classes, `delta2rbox` from
-  the proposals, and `_final_nms`.
+  the proposals (per class, (B, S, C * 5), :202-215), and `_final_nms`.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from ...ops.box_convert import delta2rbox, rbox2delta
 from ...utils.registry import HEADS
-from ..layers import Linear, normal_init
+from ..layers import Linear, at_least_float32, normal_init
 from ..losses import cross_entropy_loss, smooth_l1_loss
 from .roi_head_base import RoIHeadBase
 
@@ -50,16 +53,15 @@ class OrientedHead(RoIHeadBase):
         generator=None,
     ):
         super().__init__()
-        if not reg_class_agnostic:
-            raise NotImplementedError("class-specific box regression is not ported")
+        self.reg_class_agnostic = reg_class_agnostic
         self.target_means = tuple(target_means)
         self.target_stds = tuple(target_stds)
         self._init_common(num_classes, in_channels, fc_out_channels, num_shared_fcs, roi_size,
                           featmap_strides, train_cfg, test_cfg, extend_factor, generator)
         self.fc_cls = Linear(fc_out_channels, num_classes + 1, kernel_init=normal_init(0.01),
                              generator=generator)
-        self.fc_reg = Linear(fc_out_channels, 5, kernel_init=normal_init(0.001),
-                             generator=generator)
+        self.fc_reg = Linear(fc_out_channels, 5 if reg_class_agnostic else 5 * num_classes,
+                             kernel_init=normal_init(0.001), generator=generator)
 
     def _encode(self, rois, gts):
         return rbox2delta(rois, gts, self.target_means, self.target_stds)
@@ -69,7 +71,7 @@ class OrientedHead(RoIHeadBase):
         x = x.reshape(*x.shape[:2], -1)
         for fc in self.shared_fcs:
             x = torch.relu(fc(x))
-        return self.fc_cls(x).float(), self.fc_reg(x).float()
+        return at_least_float32(self.fc_cls(x)), at_least_float32(self.fc_reg(x))
 
     def loss(self, feats, proposals, targets, rand=None, generator=None):
         """The RoI losses on the RPN's (detached) proposals. The sampler
@@ -80,6 +82,11 @@ class OrientedHead(RoIHeadBase):
         cls_score, bbox_pred = self._forward_rois(feats, rois, valid)
         avg = (lw > 0).sum().clamp(min=1).to(cls_score.dtype)
         loss_cls = cross_entropy_loss(cls_score, labels, weight=lw, avg_factor=avg)
+        if not self.reg_class_agnostic:
+            B, S = labels.shape
+            safe = labels.clamp(0, self.num_classes - 1)
+            bbox_pred = torch.gather(bbox_pred.reshape(B, S, self.num_classes, 5), 2,
+                                     safe[..., None, None].expand(B, S, 1, 5))[..., 0, :]
         loss_bbox = smooth_l1_loss(bbox_pred, bt, weight=bw, beta=1.0, avg_factor=avg)
         return {"loss_cls": loss_cls, "loss_bbox": loss_bbox}
 
@@ -88,5 +95,8 @@ class OrientedHead(RoIHeadBase):
         rois, valid = proposals["boxes"], proposals["valid"]
         cls_score, bbox_pred = self._forward_rois(feats, rois, valid)
         scores = torch.softmax(cls_score, -1)[..., :self.num_classes] * valid[..., None]
+        if not self.reg_class_agnostic:
+            rois = rois[..., None, :].expand(*rois.shape[:2], self.num_classes, 5).reshape(
+                *rois.shape[:2], -1)
         boxes = delta2rbox(rois, bbox_pred, self.target_means, self.target_stds)
         return self._final_nms(boxes, scores, targets)

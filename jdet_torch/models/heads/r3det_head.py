@@ -46,8 +46,6 @@ class R3DetHead(RotatedRetinaHead):
             "pos_weight": -1,
             **(refine_train_cfg or {}),
         }
-        if self.refine_train_cfg["allowed_border"] != -1:
-            raise NotImplementedError("the refine stage takes every anchor (allowed_border -1)")
         c = self.feat_channels
 
         def tower():

@@ -17,7 +17,8 @@ or "obb") and its target codec (`_encode`).
   positives first (a stable sort); the positives regress their gts in
   the regression space (rotated gts) through `_encode`.
 - `_shared_forward`: (B, S, 7, 7, C) features flattened in (y, x, c)
-  order through the shared FCs (ReLU), cast to float32.
+  order through the shared FCs (ReLU), cast to float32 (a float64
+  policy's stay float64).
 - `_final_nms`: boxes divided by the scale factor, then
   `multiclass_nms_rotated` (its per-class IoU on K1's matrix on the
   card) and the polygons.
@@ -34,7 +35,7 @@ from ...ops.box_convert import rbox_to_poly
 from ...ops.nms_rotated import multiclass_nms_rotated
 from ..boxes.assigner import max_iou_assign_hbb, max_iou_assign_rotated
 from ..boxes.sampler import random_sample
-from ..layers import Linear, xavier_uniform_init
+from ..layers import Linear, at_least_float32, xavier_uniform_init
 from ..roi_extractors import OrientedSingleRoIExtractor, SingleRoIExtractor
 
 DEFAULT_ROI_TRAIN_CFG = dict(
@@ -84,7 +85,7 @@ class RoIHeadBase(nn.Module):
         x = x.reshape(*x.shape[:2], -1)
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
-        return x.float()
+        return at_least_float32(x)
 
     @torch.no_grad()
     def _sample_rois(self, proposals, p_valid, gt_assign, gt_mask, gt_labels, rand=None,

@@ -32,7 +32,7 @@ from ...ops.box_convert import delta2rbox, rbox_to_poly
 from ...ops.nms_rotated import multiclass_nms_rotated
 from ...ops.topk import stable_topk
 from ...utils.registry import HEADS
-from ..boxes.anchor_generator import AnchorGeneratorRotated
+from ..boxes.anchor_generator import AnchorGeneratorRotated, AnchorGeneratorYangXue
 from ..boxes.anchor_target import anchor_target_batch
 from ..layers import Conv2d, ConvModule, bias_init_with_prob, normal_init
 from ..losses import (gaussian_dist_loss, kf_iou_loss, poly_giou_loss, poly_iou_loss,
@@ -80,6 +80,7 @@ class RotatedRetinaHead(nn.Module):
         loss_bbox=dict(beta=1.0 / 9.0, loss_weight=1.0),
         train_cfg=None,
         test_cfg=None,
+        anchor_generator_cfg=None,
         *,
         generator=None,
     ):
@@ -103,13 +104,21 @@ class RotatedRetinaHead(nn.Module):
         base_sizes = (
             list(anchor_strides) if anchor_base_sizes is None else anchor_base_sizes
         )
+        # anchor_generator_cfg: {type: "yangxue" / "AnchorGeneratorYangXue",
+        # yx_base_size, center_offset} for the yangxue anchors (the
+        # reference's :95-115); any other type keeps the rotated ones
+        agen_cfg = dict(anchor_generator_cfg or {})
+        gen_cls = (AnchorGeneratorYangXue
+                   if agen_cfg.pop("type", "rotated") in ("yangxue", "AnchorGeneratorYangXue")
+                   else AnchorGeneratorRotated)
         self.anchor_generators = [
-            AnchorGeneratorRotated(
+            gen_cls(
                 bs,
                 octave_base_scale=octave_base_scale,
                 scales_per_octave=scales_per_octave,
                 ratios=anchor_ratios,
                 angles=anchor_angles,
+                **agen_cfg,
             )
             for bs in base_sizes
         ]

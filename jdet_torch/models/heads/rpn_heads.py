@@ -25,7 +25,8 @@ midpoint offsets of the rotated gts and proposes rotated boxes.
   candidates together, a (B, sum of the levels' sizes) problem.
 
 Head outputs per level: cls (B, A, H, W), reg (B, A * reg_dim, H, W), in
-the compute dtype; `loss` and `get_proposals` cast them to float32.
+the compute dtype; `loss` and `get_proposals` cast them to float32 (a
+float64 policy's stay float64).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from ...utils.registry import HEADS
 from ..boxes.anchor_generator import AnchorGeneratorHBB
 from ..boxes.anchor_target import anchor_target_batch
 from ..boxes.coder import midpoint_offset_decode, midpoint_offset_encode
-from ..layers import Conv2d, normal_init
+from ..layers import Conv2d, at_least_float32, normal_init
 from ..losses import binary_cross_entropy_loss, smooth_l1_loss
 
 DEFAULT_RPN_TRAIN_CFG = dict(
@@ -132,7 +133,7 @@ class _RPNBase(nn.Module):
     def _flat(t, d):
         """(B, A * d, H, W) -> (B, H * W * A, d), or (B, H * W * A) for d=1."""
         B = t.shape[0]
-        t = t.float().permute(0, 2, 3, 1)
+        t = at_least_float32(t).permute(0, 2, 3, 1)
         return t.reshape(B, -1) if d == 1 else t.reshape(B, -1, d)
 
     def loss(self, outs, targets, rand=None, generator=None):

@@ -161,6 +161,12 @@ def _stats_dtype(dtype):
     return torch.promote_types(dtype, torch.float32)
 
 
+def at_least_float32(x):
+    """`x` cast to float32, as the reference casts a head's outputs, or
+    kept in its dtype where that is wider (a float64 policy's)."""
+    return x.to(_stats_dtype(x.dtype))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BN with flax's epsilon (1e-5) and momentum 0.9 (torch's 0.1) by
     default; float32 parameters and statistics, computing in the compute
@@ -363,6 +369,42 @@ def max_pool(x, window, stride, padding="SAME"):
     pw = same_pads(x.shape[-1], window, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
     return F.max_pool2d(x, window, stride)
+
+
+def _linear_weights(n_in, n_out, scale, translation, device):
+    """(n_in, n_out) weights of `jax.image.scale_and_translate`'s
+    antialiased linear kernel on one axis: output o samples the input at
+    (o + 0.5 - translation) / scale - 0.5 with a triangle kernel widened by
+    1 / scale when downsampling, its weights normalised to sum 1, and zero
+    where the sample lies outside [-0.5, n_in - 0.5]."""
+    inv = 1.0 / scale
+    kscale = max(inv, 1.0)
+    f = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv \
+        - translation * inv - 0.5
+    x = (f[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs()
+    w = (1.0 - x / kscale).clamp(min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    return torch.where(((f >= -0.5) & (f <= n_in - 0.5))[None, :], w, 0.0)
+
+
+def resize_bilinear(x, size, align_corners=False):
+    """Linear resize of NCHW to (H, W) = size as the reference's
+    `resize_bilinear` (`jax.image.resize` 'linear', antialiased when
+    downsampling); with align_corners its scale is (out - 1) / (in - 1) on
+    each axis and its translation 0, as the reference passes them to
+    `jax.image.scale_and_translate`. Computed in float32."""
+    h, w = x.shape[-2:]
+    oh, ow = size
+    if align_corners:
+        sh, sw = (oh - 1) / max(h - 1, 1), (ow - 1) / max(w - 1, 1)
+    else:
+        sh, sw = oh / h, ow / w
+    wy = _linear_weights(h, oh, sh, 0.0, x.device)
+    wx = _linear_weights(w, ow, sw, 0.0, x.device)
+    y = torch.einsum("...hw,hH->...Hw", x.float(), wy)
+    return torch.einsum("...Hw,wW->...HW", y, wx).to(x.dtype)
 
 
 def resize_nearest(x, size):

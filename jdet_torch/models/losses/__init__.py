@@ -12,6 +12,7 @@ from functools import partial as _partial
 from ...ops.convex import convex_giou_loss as _convex_giou_loss
 from ...utils.registry import LOSSES as _LOSSES
 from .basic import (
+    accuracy,
     binary_cross_entropy_loss,
     cross_entropy_loss,
     l1_loss,

@@ -108,3 +108,8 @@ def binary_cross_entropy_loss(logits, targets, weight=None, avg_factor=None,
     """Elementwise BCE with logits against targets (bool or float)."""
     loss = _bce_with_logits(logits, targets.to(logits.dtype))
     return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def accuracy(logits, labels):
+    """The share of rows whose argmax is their label."""
+    return (logits.argmax(-1) == labels).float().mean()

@@ -270,7 +270,8 @@ def backbone_to_flat(backbone, sd):
         return lsknet_to_flat(sd)
     if name == "SSDVGG":
         return vgg16_to_flat(sd)
-    if name in ("ResNet", "ResNet_v1d"):
+    if name in ("ResNet", "ResNet_v1d", "Res2Net"):
+        # Res2Net's `convs.i` / `bns.i` keep their names
         return resnet_to_flat(sd, deep_stem=getattr(backbone, "deep_stem", False))
     raise ValueError(f"no pretrained converter for backbone {name}")
 

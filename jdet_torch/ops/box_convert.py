@@ -71,6 +71,64 @@ def distance2obb(points, distance):
     return regular_obb(torch.stack([cx, cy, w, h, theta], -1))
 
 
+def rbox_to_corners(rboxes):
+    """(..., 5) rboxes -> (..., 4, 2) corners, traversed cyclically from
+    the rotated (-w/2, h/2), as the reference's `rbox_to_corners` (:73)
+    orders them (not `rbox_to_poly`'s order)."""
+    cx, cy, w, h, a = rboxes.unbind(-1)
+    cos2 = torch.cos(a) * 0.5
+    sin2 = torch.sin(a) * 0.5
+    x0 = cx - sin2 * h - cos2 * w
+    y0 = cy + cos2 * h - sin2 * w
+    x1 = cx + sin2 * h - cos2 * w
+    y1 = cy - cos2 * h - sin2 * w
+    xs = torch.stack([x0, x1, 2 * cx - x0, 2 * cx - x1], -1)
+    ys = torch.stack([y0, y1, 2 * cy - y0, 2 * cy - y1], -1)
+    return torch.stack([xs, ys], -1)
+
+
+def hbox_to_cxcywh(hboxes):
+    """(..., 4) (x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    x1, y1, x2, y2 = hboxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+def cxcywh_to_hbox(boxes):
+    """(..., 4 + r) (cx, cy, w, h, ...) -> (x1, y1, x2, y2, ...)."""
+    cx, cy, w, h = boxes[..., :4].unbind(-1)
+    out = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    return torch.cat([out, boxes[..., 4:]], -1) if boxes.shape[-1] > 4 else out
+
+
+def get_best_begin_point(polys):
+    """(..., 8) quads with their vertices rotated (cyclic order kept) to
+    start nearest the top-left of their bounding box: the rotation whose
+    vertices lie least far from the box's corners (the reference's :196)."""
+    p = polys.reshape(*polys.shape[:-1], 4, 2)
+    lo, hi = p.amin(-2), p.amax(-2)
+    dst = torch.stack([lo, torch.stack([hi[..., 0], lo[..., 1]], -1), hi,
+                       torch.stack([lo[..., 0], hi[..., 1]], -1)], -2)
+    idx = (torch.arange(4)[:, None] + torch.arange(4)[None, :]) % 4
+    cand = p[..., idx.to(polys.device), :]  # (..., 4 rotations, 4, 2)
+    force = torch.linalg.norm(cand - dst[..., None, :, :], dim=-1).sum(-1)
+    best = force.argmin(-1)
+    out = torch.gather(cand, -3, best[..., None, None, None].expand(*best.shape, 1, 4, 2))
+    return out.reshape(*polys.shape[:-1], 8)
+
+
+def distance2hbox(points, distance, max_shape=None):
+    """(l, t, r, b) distances from points (..., 2) -> (x1, y1, x2, y2),
+    clipped to an (h, w) max_shape if given."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
+    if max_shape is not None:
+        x1, x2 = x1.clamp(0, max_shape[1]), x2.clamp(0, max_shape[1])
+        y1, y2 = y1.clamp(0, max_shape[0]), y2.clamp(0, max_shape[0])
+    return torch.stack([x1, y1, x2, y2], -1)
+
+
 def rbox_to_poly(rboxes):
     """(..., 5) rbox -> (..., 8) polygon: the rotation of
     [(-w/2,-h/2), (w/2,-h/2), (w/2,h/2), (-w/2,h/2)] by theta, translated

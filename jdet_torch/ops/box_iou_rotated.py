@@ -2,7 +2,7 @@
 
 Port of `jdet_tpu/ops/box_iou_rotated.py` (`_corners_xy` :34,
 `_edges_green_contrib` :60 as `rotated_iou_kernel.edges_green_sum`,
-`_intersection_area` :112, `box_iou_rotated_aligned` :147,
+`_intersection_area` :112 as `rotated_intersection_area`, `box_iou_rotated_aligned` :147,
 `box_iou_rotated` :162).
 
 The boundary of P∩Q is (∂P clipped to Q) ∪ (∂Q clipped to P); by Green's
@@ -43,7 +43,7 @@ def _corners_xy(boxes):
     return [x0, x1, x2, x3], [y0, y1, y2, y3]
 
 
-def _intersection_area(b1, b2):
+def rotated_intersection_area(b1, b2):
     """Exact intersection area for broadcast-compatible (..., 5) boxes."""
     # Recenter near the pair midpoint: Green contributions are ~|p|^2, so
     # absolute image coordinates (~1e3) would lose fp32 precision.
@@ -73,14 +73,14 @@ def _iou_from_areas(inter, area1, area2, mode="iou"):
 
 def box_iou_rotated_aligned(boxes1, boxes2, mode="iou"):
     """Elementwise IoU of two equal-shaped (..., 5) box tensors."""
-    inter = _intersection_area(boxes1, boxes2)
+    inter = rotated_intersection_area(boxes1, boxes2)
     a1 = boxes1[..., 2] * boxes1[..., 3]
     a2 = boxes2[..., 2] * boxes2[..., 3]
     return _iou_from_areas(inter, a1, a2, mode)
 
 
 def _pairwise_block(boxes1, boxes2, mode):
-    inter = _intersection_area(boxes1.unsqueeze(-2), boxes2.unsqueeze(-3))
+    inter = rotated_intersection_area(boxes1.unsqueeze(-2), boxes2.unsqueeze(-3))
     a1 = boxes1[..., 2] * boxes1[..., 3]
     a2 = boxes2[..., 2] * boxes2[..., 3]
     return _iou_from_areas(inter, a1[..., :, None], a2[..., None, :], mode)

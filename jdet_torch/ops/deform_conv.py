@@ -1,10 +1,11 @@
-"""Deformable convolution (v1) and bilinear sampling, NCHW, in plain
-PyTorch.
+"""Deformable convolution (v1, and v2 with a mask) and bilinear sampling,
+NCHW, in plain PyTorch.
 
 Port of `jdet_tpu/ops/deform_conv.py` (`bilinear_sample_nhwc` :24, as
 R3Det's feature refinement and H2RBox's image rotation call it;
-`deform_conv2d` :131, `DeformConv` :202 as AlignConv uses them): stride 1, dilation 1, "same"
-padding, no bias. Offsets are a (dy, dx) pair per output pixel and
+`deform_conv2d` :115 with its bias, stride, padding, dilation and DCNv2
+mask; `DeformConv` :202, as AlignConv uses it at stride 1, padding 1,
+no bias; `DCNv2` :232). Offsets are a (dy, dx) pair per output pixel and
 kernel tap. Each tap samples the input bilinearly at its moved position,
 zero outside (-1, H) x (-1, W) with every out-of-image corner zero; the
 samples are contracted with the weight in one product per image,
@@ -32,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import Conv2d
+
 
 def _grid(sy, sx, h, w):
     """Pixel coordinates -> `F.grid_sample`'s [-1, 1] grid
@@ -39,33 +42,40 @@ def _grid(sy, sx, h, w):
     return torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], -1)
 
 
-def deform_conv2d(x, offsets, weight):
-    """Stride 1, dilation 1, padding (k - 1) / 2, no bias (AlignConv's).
-    x (B, C, H, W); offsets (B, H, W, k * k, 2) as (dy, dx), taps in
-    row-major (ky, kx) order; weight (Cout, C, k, k). Returns (B, Cout, H,
-    W) float32."""
+def deform_conv2d(x, offsets, weight, bias=None, stride=1, padding=1, dilation=1, mask=None):
+    """x (B, C, H, W); offsets (B, Ho, Wo, k * k, 2) as (dy, dx), taps in
+    row-major (ky, kx) order; weight (Cout, C, k, k); bias (Cout,) or
+    None; mask (B, Ho, Wo, k * k), DCNv2's modulation of each tap's
+    sample, or None. Tap (ky, kx) of output (i, j) samples at
+    (i * stride - padding + ky * dilation + dy, j * stride - padding +
+    kx * dilation + dx). Returns (B, Cout, Ho, Wo) float32."""
     B, C, H, W = x.shape
     cout, _, k, _ = weight.shape
     kk = k * k
+    Ho = (H + 2 * padding - dilation * (k - 1) - 1) // stride + 1
+    Wo = (W + 2 * padding - dilation * (k - 1) - 1) // stride + 1
     f32 = dict(dtype=torch.float32, device=x.device)
-    # the sampling position of tap t = ky * k + kx at output (h, w)
-    tap = torch.arange(k, **f32) - (k - 1) // 2
+    # the sampling position of tap t = ky * k + kx at output (i, j)
+    tap = torch.arange(k, **f32) * dilation
     tap_y, tap_x = tap.repeat_interleave(k), tap.repeat(k)
-    oy = torch.arange(H, **f32)
-    ox = torch.arange(W, **f32)
-    off = offsets.float().permute(0, 3, 4, 1, 2)  # (B, kk, 2, H, W)
+    oy = torch.arange(Ho, **f32) * stride - padding
+    ox = torch.arange(Wo, **f32) * stride - padding
+    off = offsets.float().permute(0, 3, 4, 1, 2)  # (B, kk, 2, Ho, Wo)
     sy = (oy[:, None] + tap_y[:, None, None]) + off[:, :, 0]
     sx = (ox[None, :] + tap_x[:, None, None]) + off[:, :, 1]
     grid = _grid(sy, sx, H, W)
-    cols = F.grid_sample(x.float(), grid.reshape(B, kk, H * W, 2), mode="bilinear",
+    cols = F.grid_sample(x.float(), grid.reshape(B, kk, Ho * Wo, 2), mode="bilinear",
                          padding_mode="zeros", align_corners=False)
+    if mask is not None:
+        cols = cols * mask.float().permute(0, 3, 1, 2).reshape(B, 1, kk, Ho * Wo)
     w2 = weight.to(x.dtype)
     if x.dtype != torch.float32:
         # the reference's samples and weight in the features' dtype
         cols = cols.to(x.dtype).float()
         w2 = w2.float()
-    out = torch.matmul(w2.reshape(cout, C * kk), cols.reshape(B, C * kk, H * W))
-    return out.reshape(B, cout, H, W)
+    out = torch.matmul(w2.reshape(cout, C * kk), cols.reshape(B, C * kk, Ho * Wo))
+    out = out.reshape(B, cout, Ho, Wo)
+    return out if bias is None else out + bias.float()[:, None, None]
 
 
 def bilinear_sample(x, sy, sx):
@@ -85,15 +95,45 @@ def bilinear_sample(x, sy, sx):
 
 
 class DeformConv(nn.Module):
-    """DCN v1 with offsets from the caller (S2ANet's AlignConv): weight
-    (Cout, C, k, k) drawn from N(0, 0.01^2), no bias."""
+    """DCN v1 with offsets from the caller (S2ANet's AlignConv) or a
+    companion conv: weight (Cout, C, k, k) drawn from N(0, 0.01^2), a zero
+    bias with `use_bias`."""
 
-    def __init__(self, in_channels, out_channels, kernel_size=3, *, generator=None):
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=1,
+                 dilation=1, use_bias=False, *, generator=None):
         super().__init__()
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
         with torch.no_grad():
             nn.init.normal_(self.weight, 0.0, 0.01, generator=generator)
 
-    def forward(self, x, offsets):
-        return deform_conv2d(x, offsets, self.weight)
+    def forward(self, x, offsets, mask=None):
+        return deform_conv2d(x, offsets, self.weight, self.bias, self.stride, self.padding,
+                             self.dilation, mask)
+
+
+class DCNv2(nn.Module):
+    """Modulated deformable conv (the reference's `DCNv2`, :232-279): a
+    companion conv `conv_offset` (zero weight and bias, explicit symmetric
+    padding) predicts 3 k^2 channels, split into the taps' dy, dx and mask
+    logits; the mask is their sigmoid."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=1,
+                 dilation=1, *, generator=None):
+        super().__init__()
+        k = kernel_size
+        self.k = k
+        self.deform = DeformConv(in_channels, out_channels, k, stride, padding, dilation,
+                                 use_bias=True, generator=generator)
+        self.conv_offset = Conv2d(in_channels, 3 * k * k, k, stride,
+                                  kernel_init=lambda w, g: w.zero_(), padding=padding,
+                                  generator=generator)
+
+    def forward(self, x):
+        out = self.conv_offset(x).permute(0, 2, 3, 1)  # (B, Ho, Wo, 3 k^2)
+        k2 = self.k * self.k
+        offsets = torch.stack([out[..., :k2], out[..., k2:2 * k2]], -1)
+        mask = torch.sigmoid(out[..., 2 * k2:])
+        return self.deform(x, offsets, mask)

@@ -1,7 +1,7 @@
 """Rotated NMS with fixed-size outputs.
 
 Port of `jdet_tpu/ops/nms_rotated.py` (`_greedy_sweep` :29, `nms_rotated`
-:55, `multiclass_nms_rotated` :98). Outputs keep the reference's fixed
+:55, `ml_nms_rotated` :81, `multiclass_nms_rotated` :98). Outputs keep the reference's fixed
 `max_per_img` budget with a validity mask; invalid slots hold zero boxes,
 score 0 and label -1. The reference's vmap over classes (and over images)
 is a batch dimension written out.
@@ -87,6 +87,22 @@ def nms_rotated(boxes, scores, iou_threshold, valid=None):
     return order, keep
 
 
+def ml_nms_rotated(boxes, scores, labels, iou_threshold, valid=None):
+    """Label-aware rotated NMS over (n, 5) boxes: only boxes of one label
+    suppress each other. The reference's coordinate-offset trick: each
+    label's boxes are shifted along x by label * span, span exceeding the
+    valid boxes' extent, so boxes of different labels never touch. Returns
+    `nms_rotated`'s (order, keep); its IoU goes to K1's matrix kernel on
+    the card from `KERNEL_MIN_PAIRS` pairs on."""
+    if valid is None:
+        valid = torch.ones(boxes.shape[0], dtype=torch.bool, device=boxes.device)
+    span = (torch.where(valid, boxes[:, 0].abs() + boxes[:, 2], 0.0).amax()
+            + torch.where(valid, boxes[:, 1].abs() + boxes[:, 3], 0.0).amax() + 1.0)
+    shifted = boxes.clone()
+    shifted[:, 0] = boxes[:, 0] + labels.to(boxes.dtype) * span
+    return nms_rotated(shifted, scores, iou_threshold, valid)
+
+
 def multiclass_nms_rotated(
     multi_bboxes,
     multi_scores,
@@ -98,8 +114,9 @@ def multiclass_nms_rotated(
 ):
     """Score-filter -> per-class NMS -> global top-k, fixed output size.
 
-    multi_bboxes (B, n, 5) rboxes; multi_scores (B, n, C) class scores (no
-    background column); `score_factors` (B, n), where given, multiplies
+    multi_bboxes (B, n, 5) rboxes, or (B, n, C * 5), one box per class
+    (the reference's class-specific layout, :144-149); multi_scores
+    (B, n, C) class scores (no background column); `score_factors` (B, n), where given, multiplies
     each candidate's scores first (FCOS's centerness). Classes never
     suppress each other, so each class NMS-es its top `class_cap`
     candidates independently.
@@ -119,14 +136,15 @@ def multiclass_nms_rotated(
     # ties one way on the CPU and another on the card, and the order
     # decides which of two tied boxes suppresses the other)
     top_s, top_i = stable_topk(sT, K)  # (B, C, K), sorted desc
-    b = torch.gather(
-        multi_bboxes[:, None].expand(B, num_classes, n, 5),
-        2, top_i[..., None].expand(B, num_classes, K, 5),
-    )  # (B, C, K, 5)
+    if multi_bboxes.shape[-1] == 5:
+        per_class = multi_bboxes[:, None].expand(B, num_classes, n, 5)
+    else:
+        per_class = multi_bboxes.reshape(B, n, num_classes, 5).transpose(1, 2)
+    b = torch.gather(per_class, 2, top_i[..., None].expand(B, num_classes, K, 5))  # (B, C, K, 5)
     v = torch.isfinite(top_s)
 
     if b.is_cuda:
-        flat = b.reshape(B * num_classes, K, 5).contiguous()
+        flat = b.reshape(B * num_classes, K, 5).float().contiguous()
         over = box_iou_rotated_rect(flat, flat).reshape(B, num_classes, K, K) > nms_iou_thr
     else:
         over = _plain_suppression(b, v, nms_iou_thr)  # (B, C, K, K)

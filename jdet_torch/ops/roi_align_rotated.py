@@ -1,7 +1,8 @@
 """Rotated RoI align, single-level and level-routed, in plain PyTorch.
 
 Port of `jdet_tpu/ops/roi_align_rotated.py` (`roi_align_rotated` :28,
-`_rotated_sample_coords` :78, `roi_align_rotated_multilevel` :110), with
+`roi_align` :58 on horizontal RoIs, `_rotated_sample_coords` :78,
+`roi_align_rotated_multilevel` :110), with
 the sampling semantics of `jdet_tpu/ops/deform_conv.py::
 corner_weights_and_rows` (:61). Each of a RoI's out_size x out_size bins
 averages sampling_ratio^2 bilinear samples on a grid rotated by theta
@@ -24,6 +25,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .box_convert import hbox_to_cxcywh
 
 
 def _rotated_sample_coords(rois, out_size, sampling_ratio):
@@ -121,6 +124,14 @@ def roi_align_rotated(feat, rois, out_size=7, spatial_scale=1.0, sampling_ratio=
     lvl = torch.zeros(rois.shape[:2], dtype=torch.long, device=rois.device)
     scales = torch.tensor([spatial_scale], dtype=torch.float32)
     return _align([feat], rois, lvl, scales, out_size, sampling_ratio, valid)
+
+
+def roi_align(feat, rois, out_size=7, spatial_scale=1.0, sampling_ratio=2, valid=None):
+    """RoI align of horizontal RoIs on one level: rois (B, R, 4) (x1, y1,
+    x2, y2) in image coordinates, aligned as the zero-angle rotated RoIs of
+    their centres and sizes. Returns (B, R, out_size, out_size, C)."""
+    rrois = F.pad(hbox_to_cxcywh(rois), (0, 1))
+    return roi_align_rotated(feat, rrois, out_size, spatial_scale, sampling_ratio, valid)
 
 
 def roi_align_rotated_multilevel(feats, rois, lvl, strides, out_size=7, sampling_ratio=2,

@@ -11,7 +11,9 @@ versions.
   (N, 5) or per-image (B, N, 5) anchors (S2ANet's ODM assigns on its
   per-image refined anchors; Oriented R-CNN's RoI head on its per-image
   proposals, with a (B, N) mask and without the low-quality match), one
-  launch for the batch. Its wrapper,
+  launch for the batch; with `gt_max_assign_all=False` each gt claims
+  only its first anchor at its max IoU (the first-claim branch, a third
+  pass). Its wrapper,
   with the plain version for CPU tensors, is
   `jdet_torch/models/boxes/assigner.py::max_iou_assign_rotated`: the plain
   version is the assigner composed on the IoU matrix, which lives there.
@@ -56,12 +58,15 @@ FAR_CENTER = -1e6
 # kernel launches made by `box_iou_rotated_rect`, by
 # `launch_max_iou_assign_rect` on shared anchors and on per-image anchors
 # (of these, the ones with a per-image anchor mask also in
-# ASSIGN_PER_IMAGE_MASK_LAUNCHES), and by `box_iou_rotated_generic`;
-# callers may reset them
+# ASSIGN_PER_IMAGE_MASK_LAUNCHES), by its first-claim branch
+# (gt_max_assign_all=False, on either anchor layout, counted only in
+# ASSIGN_FIRST_CLAIM_LAUNCHES), and by `box_iou_rotated_generic`; callers
+# may reset them
 LAUNCHES = 0
 ASSIGN_LAUNCHES = 0
 ASSIGN_PER_IMAGE_LAUNCHES = 0
 ASSIGN_PER_IMAGE_MASK_LAUNCHES = 0
+ASSIGN_FIRST_CLAIM_LAUNCHES = 0
 GENERIC_LAUNCHES = 0
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "rotated_iou.cu"
@@ -335,7 +340,7 @@ def build():
     signatures = {
         "rotated_iou_rect": [ptr] * 3 + [i32] * 3 + [i64, ptr],
         "rotated_iou_generic": [ptr] * 3 + [i32] * 3 + [ptr],
-        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [i64] * 2 + [f32] * 3 + [i32, ptr],
+        "max_iou_assign_rect": [ptr] * 9 + [i32] * 3 + [i64] * 2 + [f32] * 3 + [i32] * 2 + [ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -425,8 +430,8 @@ def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=No
     or (B, K, 5) float32 contiguous with K >= 1, gt_mask bool and
     gt_labels integer of gt_bboxes' leading shape, anchors (N, 5) or, with
     (B, K, 5) gts, per-image (B, N, 5), float32 contiguous, anchor_mask
-    bool (N,), or (B, N) with per-image anchors, or None. True for CPU
-    tensors, False for CUDA tensors."""
+    bool (N,) or (B, N) (one mask per image, on either anchor layout), or
+    None. True for CPU tensors, False for CUDA tensors."""
     lead = tuple(gt_bboxes.shape[:-1])
     if gt_bboxes.dim() not in (2, 3) or gt_bboxes.shape[-1] != 5 or lead[-1] == 0:
         raise ValueError(f"gt_bboxes must be (K, 5) or (B, K, 5) with K >= 1, "
@@ -439,7 +444,9 @@ def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=No
     if tuple(gt_mask.shape) != lead or tuple(gt_labels.shape) != lead:
         raise ValueError(f"gt_mask {tuple(gt_mask.shape)} and gt_labels "
                          f"{tuple(gt_labels.shape)} must be {lead}")
-    mask_shapes = [(anchors.shape[-2],)] + ([tuple(anchors.shape[:2])] if per_image else [])
+    mask_shapes = [(anchors.shape[-2],)]
+    if gt_bboxes.dim() == 3:
+        mask_shapes.append((gt_bboxes.shape[0], anchors.shape[-2]))
     if anchor_mask is not None and tuple(anchor_mask.shape) not in mask_shapes:
         raise ValueError(f"anchor_mask must be {' or '.join(map(str, mask_shapes))}, got "
                          f"{tuple(anchor_mask.shape)}")
@@ -456,8 +463,9 @@ def check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask=No
 
 
 def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
-                   pos_iou_thr, neg_iou_thr, min_pos_iou, match_low_quality):
-    """Run both passes of the fused assigner on checked operands (one
+                   pos_iou_thr, neg_iou_thr, min_pos_iou, match_low_quality,
+                   gt_max_assign_all=True):
+    """Run the passes of the fused assigner on checked operands (one
     call, none for an empty output)."""
     squeeze = gt_bboxes.dim() == 2
     g = gt_bboxes[None] if squeeze else gt_bboxes
@@ -477,8 +485,11 @@ def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
     }
     if B * N:
         # the gts' max IoU bits, then per image a flag "some anchor is
-        # unmasked"
-        scratch = torch.zeros(B * K + B, device=dev, dtype=torch.int32)
+        # unmasked"; for the first-claim branch, each gt's claimed anchor and
+        # each image's first unmasked one
+        first = match_low_quality and not gt_max_assign_all
+        scratch = torch.zeros((B * K + B) * (2 if first else 1), device=dev,
+                              dtype=torch.int32)
         am = 0 if anchor_mask is None else anchor_mask.data_ptr()
         _run("max_iou_assign_rect", dev,
              g.data_ptr(), gt_mask.data_ptr(), gt_labels.data_ptr(),
@@ -487,20 +498,23 @@ def _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
              out["labels"].data_ptr(), B, K, N,
              N * 5 if anchors.dim() == 3 else 0,  # anchor batch stride
              N if anchor_mask is not None and anchor_mask.dim() == 2 else 0,
-             pos_iou_thr, neg_iou_thr, min_pos_iou, int(bool(match_low_quality)))
+             pos_iou_thr, neg_iou_thr, min_pos_iou, int(bool(match_low_quality)),
+             int(bool(gt_max_assign_all)))
     return {k: v[0] for k, v in out.items()} if squeeze else out
 
 
 def launch_max_iou_assign_rect(gt_bboxes, gt_mask, gt_labels, anchors,
                                anchor_mask=None, pos_iou_thr=0.5,
                                neg_iou_thr=0.4, min_pos_iou=0.0,
-                               match_low_quality=True):
+                               match_low_quality=True, gt_max_assign_all=True):
     """The max-IoU assigner fused onto the rect IoU, CUDA tensors only:
     one call of the fused kernel for the batch, counted in
     ASSIGN_LAUNCHES for shared (N, 5) anchors and in
     ASSIGN_PER_IMAGE_LAUNCHES for per-image (B, N, 5) ones (with a shared
     (N,) or a per-image (B, N) anchor mask; the latter also in
-    ASSIGN_PER_IMAGE_MASK_LAUNCHES). Returns the dict of
+    ASSIGN_PER_IMAGE_MASK_LAUNCHES), or, with the low-quality match and
+    gt_max_assign_all=False (each gt claims only its first anchor at its
+    max), only in ASSIGN_FIRST_CLAIM_LAUNCHES. Returns the dict of
     `assign_wrt_overlaps` (gt_inds, max_overlaps, labels), each (N,) or
     (B, N). Operands as `check_assign_operands` takes them; without
     `match_low_quality` no gt claims its best anchors.
@@ -508,13 +522,17 @@ def launch_max_iou_assign_rect(gt_bboxes, gt_mask, gt_labels, anchors,
     Callers take `jdet_torch.models.boxes.assigner.max_iou_assign_rotated`,
     which sends CPU tensors to the plain version."""
     global ASSIGN_LAUNCHES, ASSIGN_PER_IMAGE_LAUNCHES, ASSIGN_PER_IMAGE_MASK_LAUNCHES
+    global ASSIGN_FIRST_CLAIM_LAUNCHES
     if check_assign_operands(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask):
         raise ValueError("CUDA tensors only: the plain version is "
                          "jdet_torch.models.boxes.assigner.max_iou_assign_rotated")
     out = _launch_assign(gt_bboxes, gt_mask, gt_labels, anchors, anchor_mask,
-                         pos_iou_thr, neg_iou_thr, min_pos_iou, match_low_quality)
+                         pos_iou_thr, neg_iou_thr, min_pos_iou, match_low_quality,
+                         gt_max_assign_all)
     if out["gt_inds"].numel():
-        if anchors.dim() == 3:
+        if match_low_quality and not gt_max_assign_all:
+            ASSIGN_FIRST_CLAIM_LAUNCHES += 1
+        elif anchors.dim() == 3:
             ASSIGN_PER_IMAGE_LAUNCHES += 1
             if anchor_mask is not None and anchor_mask.dim() == 2:
                 ASSIGN_PER_IMAGE_MASK_LAUNCHES += 1

@@ -76,3 +76,22 @@ def build_lr_schedule(
         )
 
     return schedule
+
+
+def build_group_lr_schedules(base_lr, groups, **common):
+    """Per-parameter-group schedules (the reference's
+    `build_group_lr_schedules`, :88; JDet's `WarmUpLRGroup` /
+    `CosineAnnealingLRGroup`): each group is a dict of overrides of the
+    base schedule's keywords, with a `pattern` glob over parameter names
+    (default "*"), an `lr_mult` on the base lr and, in place of a
+    `warmup_ratio`, an absolute `warmup_init_lr`. Returns [(pattern,
+    fn(step) -> lr), ...] for `build_optimizer(group_schedules=...)`."""
+    out = []
+    for g in groups:
+        g = dict(g)
+        pattern = g.pop("pattern", "*")
+        lr_mult = g.pop("lr_mult", 1.0)
+        if "warmup_init_lr" in g:
+            g["warmup_ratio"] = g.pop("warmup_init_lr") / (base_lr * lr_mult)
+        out.append((pattern, build_lr_schedule(base_lr * lr_mult, **{**common, **g})))
+    return out

@@ -40,7 +40,10 @@ same without the decay: the reference's `optax.adam` ignores
 out, as for SGD; the reference keeps moments for them that it never
 applies.
 
-Per-group schedules are not ported yet.
+Per-group schedules (`group_schedules`, :133-150): each parameter takes
+the first schedule whose glob matches its name, the rest the base one;
+the reference rescales each update by group_lr(step) / base_lr(step),
+here its group's lr is the base lr times its multiplier times that ratio.
 """
 from __future__ import annotations
 
@@ -149,14 +152,24 @@ class Optimizer:
     STATE_KEYS = {"sgd": ("momentum_buffer",), "adam": ("exp_avg", "exp_avg_sq", "step"),
                   "adamw": ("exp_avg", "exp_avg_sq", "step")}
 
-    def __init__(self, params, kind, inner, lr_schedule, max_norm):
+    def __init__(self, params, kind, inner, lr_schedule, max_norm, group_schedules=()):
         # every trainable parameter: its gradient enters the clip's norm
         self.params = params
         self.kind = kind
         self.inner = inner
         self.lr_schedule = lr_schedule
         self.max_norm = max_norm
+        # the per-group schedules, indexed by each param group's "schedule"
+        # (their count: the base schedule)
+        self.group_schedules = [fn for _, fn in group_schedules]
         self.count = 0
+
+    def group_lrs(self, step):
+        """The lr of each inner param group at `step`, multiplier and
+        per-group schedule included."""
+        lr = self.lr_schedule(step)
+        ratios = [fn(step) / max(lr, 1e-12) for fn in self.group_schedules] + [1.0]
+        return [lr * g["lr_mult"] * ratios[g["schedule"]] for g in self.inner.param_groups]
 
     @property
     def sgd(self):
@@ -199,9 +212,8 @@ class Optimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.max_norm is not None and grads:
             clip_by_global_norm_(grads, self.max_norm)
-        lr = self.lr_schedule(self.count)
-        for group in self.inner.param_groups:
-            group["lr"] = lr * group["lr_mult"]
+        for group, lr in zip(self.inner.param_groups, self.group_lrs(self.count)):
+            group["lr"] = lr
         self.inner.step()
         self.count += 1
 
@@ -218,13 +230,16 @@ def build_optimizer(
     grad_clip=None,
     frozen_stages=None,
     param_groups=None,
+    group_schedules=None,
 ):
     """Build the `Optimizer` over `model`'s trainable parameters.
 
     opt_type: "SGD", "Adam" or "AdamW" (any case). grad_clip: None, a max
     norm, or dict(max_norm=...). param_groups: list of dicts {"pattern":
     glob over parameter names, "lr_mult": float}; the multipliers of every
-    matching group multiply."""
+    matching group multiply. group_schedules: [(glob, fn(step) -> lr)]
+    from `lr_scheduler.build_group_lr_schedules`; a parameter takes the
+    first that matches its name, or the base schedule."""
     kind = opt_type.lower()
     if kind not in Optimizer.STATE_KEYS:
         raise ValueError(f"optimizer {opt_type!r}: SGD, Adam or AdamW")
@@ -248,19 +263,25 @@ def build_optimizer(
     # distillation teachers are always frozen (KD single-stage detector)
     mult_fns.append(lambda path, param: 0.0 if "teacher" in path.split(".") else 1.0)
 
-    params, by_mult = [], {}
+    group_schedules = list(group_schedules or ())
+
+    def schedule_of(name):
+        return next((i for i, (pattern, _) in enumerate(group_schedules)
+                     if fnmatch.fnmatch(name, pattern)), len(group_schedules))
+
+    params, by_key = [], {}
     for name, p in model.named_parameters():
         if not p.requires_grad:
             continue
         params.append(p)
         mult = float(math.prod(f(name, p) for f in mult_fns))
         if mult != 0.0:
-            by_mult.setdefault(mult, []).append(p)
-    groups = [{"params": ps, "lr_mult": m} for m, ps in by_mult.items()]
+            by_key.setdefault((mult, schedule_of(name)), []).append(p)
+    groups = [{"params": ps, "lr_mult": m, "schedule": i} for (m, i), ps in by_key.items()]
     lr = lr_schedule(0)
     if kind == "sgd":
         inner = torch.optim.SGD(groups, lr=lr, momentum=momentum, weight_decay=weight_decay)
     else:
         inner = OptaxAdam(groups, lr=lr, betas=betas, eps=eps,
                           weight_decay=weight_decay if kind == "adamw" else 0.0)
-    return Optimizer(params, kind, inner, lr_schedule, max_norm)
+    return Optimizer(params, kind, inner, lr_schedule, max_norm, group_schedules)

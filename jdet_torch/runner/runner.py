@@ -42,7 +42,7 @@ from .. import data as _data  # noqa: F401 — registers DATASETS/TRANSFORMS
 from ..config import get_cfg, save_cfg
 from ..models.builder import build_detector
 from ..models.equivariant import cache_expanded_weights, cache_frozen_expansions
-from ..optim import build_lr_schedule, build_optimizer
+from ..optim import build_group_lr_schedules, build_lr_schedule, build_optimizer
 from ..parallel import build_train_step, make_device_augmenter, make_device_normalizer
 from ..utils.ema import ModelEMA
 from ..utils.general import build_file, check_interval, search_ckpt, set_random_seed
@@ -68,9 +68,6 @@ class Runner:
         cfg = get_cfg() if cfg is None else cfg
         self.cfg = cfg
         scfg = dict(cfg.get("scheduler") or {})
-        if scfg.get("groups"):
-            raise NotImplementedError(
-                "scheduler.groups: per-group lr schedules are not ported to jdet_torch yet")
         self.work_dir = os.path.abspath(cfg.get("work_dir") or "exp/default")
         self.max_epoch = cfg.get("max_epoch") or 0
         self.max_iter = cfg.get("max_iter") or 0
@@ -101,8 +98,7 @@ class Runner:
             self.max_epoch = max(1, self.max_iter // max(steps_per_epoch, 1))
 
         ocfg = dict(cfg.get("optimizer") or {"type": "SGD", "lr": 0.01})
-        self.lr_schedule = build_lr_schedule(
-            ocfg.get("lr", 0.01),
+        common = dict(
             scheduler_type=scfg.get("type", "StepLR"),
             milestones=scfg.get("milestones", ()),
             gamma=scfg.get("gamma", 0.1),
@@ -114,6 +110,12 @@ class Runner:
             min_lr=scfg.get("min_lr", 0.0),
             power=scfg.get("power", 1.0),
         )
+        self.lr_schedule = build_lr_schedule(ocfg.get("lr", 0.01), **common)
+        # scheduler.groups: per-group warmups and lrs (the reference's
+        # runner.py:109-139, JDet's WarmUpLRGroup / CosineAnnealingLRGroup)
+        group_schedules = (build_group_lr_schedules(ocfg.get("lr", 0.01), scfg["groups"],
+                                                    **common)
+                           if scfg.get("groups") else None)
         self.optimizer = build_optimizer(
             self.model,
             opt_type=ocfg.get("type", "SGD"),
@@ -123,6 +125,7 @@ class Runner:
             grad_clip=ocfg.get("grad_clip"),
             frozen_stages=cfg["model"].get("backbone", {}).get("frozen_stages"),
             param_groups=ocfg.get("param_groups"),
+            group_schedules=group_schedules,
         )
         dn = cfg.get("device_normalize")
         self._preprocess = make_device_normalizer(
@@ -202,11 +205,23 @@ class Runner:
                     "lr": float(self.lr_schedule(self.iter)),
                     "fps": round(n_img / max(dt, 1e-9), 2),
                     "eta_min": round(eta / 60, 1),
+                    **self._group_lrs(),
                     **{k: v.item() for k, v in log_vars.items()},
                 })
             times.append((wait, time.perf_counter() - t0))
         self.epoch += 1
         self.iteration_times.append(times)
+
+    def _group_lrs(self):
+        """With scheduler.groups, {"group_lrs": [[pattern, lr_mult, lr]]}:
+        the lr each parameter group took in the step just made ("base":
+        the base schedule's parameters); {} without groups."""
+        opt = self.optimizer
+        if not opt.group_schedules:
+            return {}
+        patterns = [g.get("pattern", "*") for g in self.cfg["scheduler"]["groups"]]
+        return {"group_lrs": [[(patterns + ["base"])[g["schedule"]], g["lr_mult"], g["lr"]]
+                              for g in opt.inner.param_groups]}
 
     # ------------------------------------------------------------------
     def _run_inference(self, dataset):

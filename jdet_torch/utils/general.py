@@ -7,6 +7,7 @@ Copy of `jdet_tpu/utils/general.py` (`parse_losses` :27,
 """
 from __future__ import annotations
 
+import functools
 import glob
 import os
 import random
@@ -14,6 +15,25 @@ import re
 
 import numpy as np
 import torch
+
+
+def multi_apply(func, *args, **kwargs):
+    """func over the zipped lists of `args`, its result tuples transposed
+    into lists (the reference's `multi_apply`)."""
+    pfunc = functools.partial(func, **kwargs) if kwargs else func
+    return tuple(map(list, zip(*map(pfunc, *args))))
+
+
+def to_numpy(tree):
+    """Tensors of a nested dict / list / tuple -> numpy arrays, on the
+    host (the reference's `to_numpy`)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
 
 
 def parse_losses(losses):

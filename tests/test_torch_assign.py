@@ -185,10 +185,13 @@ def test_fused_wrapper_takes_per_image_anchors():
     g, m, lab, a = (torch.from_numpy(x) for x in (gts, mask, labels, anchors))
     am = torch.from_numpy(am)
     assert rik.check_assign_operands(g, m, lab, a, am)
-    # a per-image (B, N) mask goes with per-image anchors only
+    # a per-image (B, N) mask goes with per-image anchors, and with shared
+    # ones (the ignore regions' per-image masks) when the gts are (B, K, 5)
     assert rik.check_assign_operands(g, m, lab, a, am.expand(2, -1))
+    assert rik.check_assign_operands(g, m, lab, a[0], am.expand(2, -1))
     for bad in (dict(a=a[:1]), dict(g=g[0], m=m[0], lab=lab[0]),
-                dict(am=am.expand(3, -1)), dict(a=a[0], am=am.expand(2, -1)),
+                dict(am=am.expand(3, -1)), dict(g=g[0], m=m[0], lab=lab[0], a=a[0],
+                                                 am=am.expand(2, -1)),
                 dict(am=am.expand(2, -1)[:, 1:]), dict(a=a[..., :4])):
         args = {**dict(g=g, m=m, lab=lab, a=a, am=am), **bad}
         with pytest.raises(ValueError):
@@ -451,13 +454,19 @@ def test_plain_roi_route_matches_reference_vmapped(case, low_quality):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_do():
-    gts, mask, labels, props, pmask = (torch.from_numpy(x)
-                                       for x in roi_assign_edge_case("no_real_gt"))
-    with pytest.raises(NotImplementedError, match="gt_max_assign_all"):
-        max_iou_assign_rotated(props, gts, mask, labels, anchor_mask=pmask,
-                               gt_max_assign_all=False, **ROI_THR)
+    """gt_max_assign_all=False is done (the kernel's first-claim branch):
+    its plain version equals the reference vmapped over images on tied
+    per-image candidates. What the kernel does not take raises: a mask
+    of another shape, a mask of bytes, CPU tensors at the launcher."""
+    case = roi_assign_edge_case("gt_max_tied_on_several_anchors")
+    gts, mask, labels, props, pmask = (torch.from_numpy(x) for x in case)
+    thr = dict(THR, gt_max_assign_all=False)
+    got = max_iou_assign_rotated(props, gts, mask, labels, anchor_mask=pmask, **thr)
+    want = _reference_roi_assign(*case, **thr)
+    for k in ("gt_inds", "labels"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k])
     with pytest.raises(ValueError, match="anchor_mask"):
-        rik.check_assign_operands(gts, mask, labels, props[0].contiguous(), pmask)
+        rik.check_assign_operands(gts, mask, labels, props[0].contiguous(), pmask[:, :-1])
     with pytest.raises(TypeError):
         rik.check_assign_operands(gts, mask, labels, props, pmask.to(torch.uint8))
     with pytest.raises(ValueError, match="CUDA"):

@@ -596,10 +596,30 @@ def test_runner_refuses_what_it_cannot_honour(mini_tree):
     runner = Runner(_mini_cfg(root, img_dir, ann, ema=dict(decay=0.9999)), device="cpu")
     assert runner._ema_cfg == {"decay": 0.9999} and runner.ema is None
     runner.close()
+    # scheduler.groups, refused before the per-group schedules were
+    # ported, is taken: each parameter group's lr at each step is the
+    # reference's `build_group_lr_schedules` (the first matching glob; the
+    # base schedule for the rest)
+    from jdet_tpu.optim.lr_scheduler import build_group_lr_schedules as j_groups
+
+    groups = [dict(pattern="backbone.*", lr_mult=0.1, warmup=None),
+              dict(pattern="bbox_head.*", warmup_init_lr=0.001)]
     cfg = _mini_cfg(root, img_dir, ann)
-    cfg["scheduler"] = dict(cfg["scheduler"], groups=[dict(pattern="*", lr_mult=1.0)])
-    with pytest.raises(NotImplementedError, match="groups"):
-        Runner(cfg, device="cpu")
+    cfg["scheduler"] = dict(cfg["scheduler"], groups=groups)
+    runner = Runner(cfg, device="cpu")
+    scfg = cfg["scheduler"]
+    want = dict(j_groups(0.005, groups, scheduler_type="StepLR", milestones=[1],
+                         gamma=0.1, steps_per_epoch=runner.train_dataset.num_batches,
+                         max_steps=runner.max_iter, warmup="linear", warmup_iters=4,
+                         warmup_ratio=scfg["warmup_ratio"]))
+    want["base"] = runner.lr_schedule
+    pattern = ["backbone.*", "bbox_head.*", "base"]
+    assert sorted(g["schedule"] for g in runner.optimizer.inner.param_groups) == [0, 1, 2]
+    for step in range(6):
+        for g, lr in zip(runner.optimizer.inner.param_groups, runner.optimizer.group_lrs(step)):
+            np.testing.assert_allclose(lr, float(want[pattern[g["schedule"]]](step)),
+                                       rtol=1e-5, err_msg=f"step {step}")
+    runner.close()
     # vis_test, refused before the visualizer was ported, writes the images
     work = os.path.join(root, "vis_work")
     cfg_file = os.path.join(root, "vis_cfg.py")
